@@ -5,22 +5,31 @@ Run from the repository root with no arguments::
 
     python3 chip_smoke.py
 
-It builds every kernel of the port from ``gymnasium_tpu_torch/csrc/`` with
-``nvcc``, drives the port's main path once with every kernel launch count
-set to 0 just before and read just after (the CartPole-v1 headline of
-``bench.py``: chained ``cartpole_rollout_fused`` blocks of 4096 envs x 2048
-steps with bf16 and f32 observations; ``TorchVectorEnv`` at 4096 envs;
-``entry()`` at 256 envs), then holds each kernel against its plain PyTorch
-version on the card and times both. It prints the card's name and power
-limit, one ``{"kernels": [...]}`` line, and last the line
-``{"ok": true, "device": {...}}``. Any failed check raises, so the exit code
-is 0 only when every phase passed. Without a CUDA device it exits non-zero
-and prints no result.
+It builds every kernel of the port with ``nvcc``, all at once: the
+hand-written ``gymnasium_tpu_torch/csrc/*.cu`` and the articulated substep
+generated for HalfCheetah and Ant (``frame_skip`` 5). Then it drives each
+path of the port once, with every kernel launch count set to 0 just before
+the path and read just after:
+
+- the CartPole-v1 headline of ``bench.py``: chained ``cartpole_rollout_fused``
+  blocks of 4096 envs x 2048 steps with bf16 and f32 observations, after one
+  untimed block that warms the card;
+- ``TorchVectorEnv`` over CartPole at 4096 envs, and ``entry()`` at 256 envs;
+- ``TorchVectorEnv(HalfCheetahFunctional(), 4096, max_episode_steps=1000)``:
+  reset, four steps, a masked reset of every other lane, ``rollout(100)``.
+  Each env step is one launch of the generated articulated kernel.
+
+It holds each kernel against its plain PyTorch version on the card and times
+both. It prints the card's name and power limit, one ``{"kernels": [...]}``
+line, and last the line ``{"ok": true, "device": {...}}``. Any failed check
+raises, so the exit code is 0 only when every phase passed. Without a CUDA
+device it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -35,11 +44,32 @@ TIME_LIMIT = 500
 OBS_ATOL = 2e-5  # the TPU kernel's own test tolerance (tests/ops/test_pallas_rollout.py)
 THRESHOLD_BAND = 1e-5  # flags may differ from the twin's only this close to a threshold
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-FP32_OPS_PER_S = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
-# Per env-step: 32 float operations of the ODE, reset select and thresholds,
-# plus 100 integer operations of the 10 Philox rounds, counted at the float32
-# rate (sinf and cosf counted as one operation each).
-OPS_PER_ENV_STEP = 32 + 2 + 100
+# The kernels build with -fmad=false, so every float add and multiply issues
+# on its own: one float32 operation a lane a clock, 132 SMs x 128 FP32 lanes
+# x 1.98 GHz boost = 3.35e13 a second. (The data sheet's 67 TFLOP/s counts
+# a fused multiply-add as two.) Integer operations issue on the 64 INT32
+# lanes of each SM (Hopper white paper), at half that rate.
+FP32_OPS_PER_S = 132 * 128 * 1.98e9
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# CartPole, per env-step: 32 float operations of the ODE and thresholds and
+# 2 of the reset select (sinf and cosf count one each), and 80 integer
+# operations of Philox4x32-10 (10 rounds of two 32x32 products, each giving
+# its high and low word, and four xors). The key schedule depends on the seed
+# alone, so it is not counted.
+CARTPOLE_FLOAT_OPS = 32 + 2
+CARTPOLE_INT_OPS = 80
+
+ART_MODELS = ("half_cheetah", "ant")  # half_cheetah is on the main path
+ART_FRAME_SKIP = 5
+ART_TIME_LIMIT = 1000
+ART_WARM_STEPS = 4
+ART_ROLLOUT = 100
+# Kernel and twin run the same generated program and round alike
+# (-fmad=false, precise math), so they are held at the same-program atol of
+# tests/test_torch_articulated.py, inside the JAX kernel test's tolerances
+# (tests/ops/test_pallas_articulated.py:110-117: q rtol 2e-4 / atol 2e-3, qd
+# rtol 2e-3 / atol 0.15), which stay for comparisons with make_dynamics.
+ART_Q_ATOL, ART_QD_ATOL = 1e-5, 1e-4
 
 
 def check(cond, message: str) -> None:
@@ -47,15 +77,20 @@ def check(cond, message: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {message}")
 
 
-def card_line() -> str:
+def query_gpu(fields: str) -> str:
+    """``nvidia-smi --query-gpu=<fields>`` of the first card, one CSV line."""
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
         capture_output=True,
         text=True,
         timeout=60,
         check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def card_line() -> str:
+    return query_gpu("name,power.limit")
 
 
 def cuda_ms(fn, iters: int, warmup: int) -> float:
@@ -81,10 +116,35 @@ def rollout_bytes(n: int, s: int, obs_dtype: torch.dtype) -> int:
     return s * per_step + inputs + finals
 
 
-def rollout_bound_ms(n: int, s: int, obs_dtype: torch.dtype) -> tuple[float, str]:
-    bytes_ms = rollout_bytes(n, s, obs_dtype) / HBM_BYTES_PER_S * 1e3
-    ops_ms = n * s * OPS_PER_ENV_STEP / FP32_OPS_PER_S * 1e3
+def bound(bytes_moved: float, ops_seconds: float) -> tuple[float, str]:
+    """The larger of the bytes time and the operations time, in ms, and which."""
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops_seconds * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def rollout_bound_ms(n: int, s: int, obs_dtype: torch.dtype) -> tuple[float, str]:
+    ops_seconds = n * s * (CARTPOLE_FLOAT_OPS / FP32_OPS_PER_S + CARTPOLE_INT_OPS / INT32_OPS_PER_S)
+    return bound(rollout_bytes(n, s, obs_dtype), ops_seconds)
+
+
+def articulated_bound_ms(step, n: int) -> tuple[float, str]:
+    """Each env reads q, qd, ctrl and writes q', qd' once, in float32, and runs
+    the operations the generator emitted (cos, sin, sqrt and divide count one
+    each) at the float32 rate."""
+    m = step.model
+    bytes_moved = n * 4 * (2 * m.nq + 2 * m.nv + m.nu)
+    return bound(bytes_moved, n * step.source.ops_per_env / FP32_OPS_PER_S)
+
+
+def ptxas_summary(log: str) -> dict:
+    """Registers, spills and stack frame of the kernel in an ``-Xptxas -v`` log."""
+    regs = re.findall(r"Used (\d+) registers", log)
+    frame = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", log)
+    summary = {"registers": int(regs[-1]) if regs else None}
+    if frame:
+        summary.update(zip(("stack_frame", "spill_stores", "spill_loads"), map(int, frame[-1])))
+    return summary
 
 
 def compare_rollout_with_twin(state, steps, prev_done, seed, out, time_limit=TIME_LIMIT):
@@ -145,6 +205,23 @@ def compare_rollout_with_twin(state, steps, prev_done, seed, out, time_limit=TIM
     check(torch.equal(fsteps, sp), "final steps disagree with the step counters")
     check(torch.equal(fdone, done[-1]), "final done is not the last step's done")
     return max_err, int(near.sum()), int(mismatch.sum())
+
+
+def warm_headline(dev) -> float:
+    """One untimed headline block (bf16 obs), so the timed blocks find the
+    kernel loaded and the card's clocks up. Returns its host-clock ms."""
+    from gymnasium_tpu_torch.ops import cartpole_rollout_fused
+
+    carry = (
+        torch.zeros((4, NUM_ENVS), device=dev),
+        torch.zeros(NUM_ENVS, dtype=torch.int32, device=dev),
+        torch.zeros(NUM_ENVS, dtype=torch.bool, device=dev),
+    )
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    cartpole_rollout_fused(*carry, HEADLINE_BLOCKS, STEPS_PER_BLOCK, obs_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - start) * 1e3
 
 
 def run_headline(dev) -> tuple[dict, dict]:
@@ -214,6 +291,97 @@ def run_vector_env(dev) -> float:
     return NUM_ENVS * 256 / seconds
 
 
+def run_half_cheetah(dev, n: int = NUM_ENVS) -> float:
+    """HalfCheetah-v5 under ``TorchVectorEnv``: reset, a few steps, a masked
+    reset of every other lane, then ``rollout(ART_ROLLOUT)``. Returns the
+    rollout's host-clock env-steps/s."""
+    from gymnasium_tpu_torch.envs.mujoco.half_cheetah import HalfCheetahFunctional
+    from gymnasium_tpu_torch.functional import tree_map
+    from gymnasium_tpu_torch.vector import TorchVectorEnv
+
+    env = TorchVectorEnv(HalfCheetahFunctional(), n, max_episode_steps=ART_TIME_LIMIT, device=dev)
+    obs, _ = env.reset(seed=0)
+    x0 = env.carry.state["qpos"][:, 0].clone()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for _ in range(ART_WARM_STEPS):
+        actions = env.single_action_space.sample_torch(gen, (n,))
+        obs, reward, term, trunc, _ = env.step(actions)
+    check(bool(torch.isfinite(obs).all() and torch.isfinite(reward).all()), "half_cheetah step not finite")
+
+    mask = np.zeros(n, np.bool_)
+    mask[::2] = True
+    keep = torch.from_numpy(~mask).to(dev)
+    before = tree_map(torch.clone, env.carry.state)
+    mobs, _ = env.reset(options={"reset_mask": mask})
+    for key in ("qpos", "qvel", "prev_x"):
+        check(torch.equal(env.carry.state[key][keep], before[key][keep]), f"masked reset moved kept {key}")
+    check(torch.equal(mobs[keep], obs[keep]), "masked reset changed kept lanes' obs")
+
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    carry, traj = env.rollout(ART_ROLLOUT)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    check(traj.obs.shape == (ART_ROLLOUT, n, 17), f"half_cheetah obs shape {tuple(traj.obs.shape)}")
+    check(bool(torch.isfinite(traj.obs).all()), "half_cheetah rollout obs not finite")
+    check(bool(torch.isfinite(traj.reward).all()), "half_cheetah rollout reward not finite")
+    check(not bool(traj.terminated.any()), "a half_cheetah lane terminated")
+    moved = float((carry.state["qpos"][keep, 0] - x0[keep]).abs().mean())
+    check(moved > 1e-3, f"half_cheetah qpos[:, 0] did not move (mean |dx| {moved})")
+    return n * ART_ROLLOUT / seconds
+
+
+def articulated_states(model, n: int, dev, seed: int = 0):
+    """Perturbed states, as tests/ops/test_pallas_articulated.py::_states makes
+    them. For a free root, every eighth lane instead rests at ``init_qpos``
+    with no control and an angular velocity below 5e-4, so the quaternion
+    exponential takes its small-angle side there."""
+    from gymnasium_tpu_torch.physics.articulated import init_qpos
+
+    rng = np.random.default_rng(seed)
+    q = np.tile(init_qpos(model)[None, :], (n, 1)).astype(np.float32)
+    q += rng.uniform(-0.2, 0.2, q.shape).astype(np.float32)
+    if model.root_free:
+        q[:, 3:7] /= np.linalg.norm(q[:, 3:7], axis=1, keepdims=True)
+    qd = rng.uniform(-0.5, 0.5, (n, model.nv)).astype(np.float32)
+    ctrl = rng.uniform(-0.4, 0.4, (n, max(model.nu, 1))).astype(np.float32)[:, : model.nu]
+    if model.root_free:
+        q[::8] = init_qpos(model)
+        qd[::8] = 0.0
+        qd[::8, 3:6] = rng.uniform(-5e-4, 5e-4, qd[::8, 3:6].shape)
+        ctrl[::8] = 0.0
+    return tuple(torch.from_numpy(x).to(dev) for x in (q, qd, ctrl))
+
+
+def small_angle_lanes(model, qd_out) -> int:
+    """Lanes whose last substep took the small-angle side (th2 <= 1e-10) of
+    the free root's quaternion exponential: it turns by ``dt * qd'[3:6]``."""
+    th2 = ((model.timestep * qd_out[:, 3:6].double()) ** 2).sum(dim=1)
+    return int((th2 <= 1e-10).sum())
+
+
+def compare_articulated_with_twin(step, q, qd, ctrl) -> tuple[float, float, int]:
+    """One kernel call against the plain twin on the same inputs. Raises
+    beyond the same-program tolerance, if two calls differ in a bit, or if
+    a free root's states never reach the small-angle side of its quaternion
+    exponential. Returns ``(max |dq|, max |dqd|, small-angle lanes)``."""
+    out = step(q, qd, ctrl)
+    again = step(q, qd, ctrl)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(out, again)), f"{step.name}: same input, different bits")
+    ref = step.reference(q, qd, ctrl)
+    errs = []
+    for label, got, want, atol in (("q", out[0], ref[0], ART_Q_ATOL), ("qd", out[1], ref[1], ART_QD_ATOL)):
+        check(bool(torch.isfinite(got).all()), f"{step.name}: kernel {label} not finite")
+        err = float((got - want).abs().max())
+        check(err <= atol, f"{step.name}: kernel {label} differs from the twin by up to {err} > {atol}")
+        errs.append(err)
+    small = small_angle_lanes(step.model, out[1]) if step.model.root_free else 0
+    check(not step.model.root_free or small >= q.shape[0] // 8,
+          f"{step.name}: only {small} lanes took the small-angle side of the quaternion exponential")
+    return errs[0], errs[1], small
+
+
 def run_entry() -> None:
     from gymnasium_tpu_torch.entry import entry
 
@@ -230,6 +398,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    from gymnasium_tpu_torch.ops import articulated_step as art
     from gymnasium_tpu_torch.ops import build
     from gymnasium_tpu_torch.ops import cartpole_rollout as cr
 
@@ -241,28 +410,61 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(f"allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} cudnn={torch.backends.cudnn.allow_tf32}")
 
+    # -- build every kernel at once -------------------------------------------
     start = time.perf_counter()
-    built = build.build(build.KERNELS)
+    steps = {name: art.fused_step(name, ART_FRAME_SKIP) for name in ART_MODELS}
+    generated = {step.build_name: step.source.text for step in steps.values()}
+    print(f"generate: {time.perf_counter() - start:.2f} s; operations an env-call: "
+          + ", ".join(f"{name} {step.source.ops_per_env}" for name, step in steps.items()), flush=True)
+    start = time.perf_counter()
+    built = build.build(build.KERNELS, generated)
     print(f"build: {time.perf_counter() - start:.2f} s for {sorted(built)}", flush=True)
+    ptxas = {}
     for name, info in built.items():
-        print(f"nvcc {name} ({info['seconds']:.2f} s):\n{info['log'].strip()}", flush=True)
+        ptxas[name] = ptxas_summary(info["log"])
+        print(f"nvcc {name}: {info['seconds']:.2f} s, {ptxas[name]}", flush=True)
+        print(info["log"].strip(), flush=True)
 
-    # -- main path, with every launch count at 0 just before -----------------
-    cr.launches = 0
-    headline, block_ms = run_headline(dev)
-    vec_rate = run_vector_env(dev)
-    run_entry()
-    torch.cuda.synchronize()
-    main_launches = cr.launches
-    check(main_launches == 2 * HEADLINE_BLOCKS, f"cartpole_rollout_fused launched {main_launches} times")
-    print(f"main path: cartpole_rollout_fused launches={main_launches}; host-clock env-steps/s "
-          f"headline bf16={headline['torch.bfloat16']:.0f} f32={headline['torch.float32']:.0f}, "
-          f"TorchVectorEnv.rollout(256)={vec_rate:.0f}", flush=True)
+    # -- main path: each path with every launch count at 0 just before --------
+    # Counts by kernel: the CartPole rollout, and each articulated build by
+    # its name; a launch of any other articulated build shows as a key too.
+    art_zero = {step.build_name: 0 for step in steps.values()}
+
+    def counted(label, fn):
+        cr.launches = 0
+        art.launches.clear()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {"cartpole_rollout_fused": cr.launches, **art_zero, **art.launches}
+        print(f"path {label}: launches {counts}", flush=True)
+        return out, counts
+
+    print(f"clocks.sm, power.draw before the warm-up block: {query_gpu('clocks.sm,power.draw')}", flush=True)
+    warm_ms = warm_headline(dev)
+    print(f"warm-up headline block (untimed): {warm_ms:.4f} ms host clock", flush=True)
+    print(f"clocks.sm, power.draw after it, before bf16 block 0: {query_gpu('clocks.sm,power.draw')}",
+          flush=True)
+    (headline, block_ms), head_counts = counted("headline", lambda: run_headline(dev))
+    print(f"clocks.sm, power.draw after the headline blocks: {query_gpu('clocks.sm,power.draw')}", flush=True)
+    vec_rate, vec_counts = counted("cartpole TorchVectorEnv", lambda: run_vector_env(dev))
+    _, entry_counts = counted("entry()", run_entry)
+    hc_rate, hc_counts = counted("half_cheetah TorchVectorEnv", lambda: run_half_cheetah(dev))
+    check(head_counts == {"cartpole_rollout_fused": 2 * HEADLINE_BLOCKS, **art_zero},
+          f"headline launches {head_counts}")
+    check(not any(vec_counts.values()) and not any(entry_counts.values()),
+          "the CartPole TorchVectorEnv or entry() launched a kernel")
+    hc_want = {"cartpole_rollout_fused": 0, **art_zero,
+               steps["half_cheetah"].build_name: ART_WARM_STEPS + ART_ROLLOUT}
+    check(hc_counts == hc_want, f"half_cheetah path launches {hc_counts}, want {hc_want}")
+    main_launches = head_counts["cartpole_rollout_fused"]
+    print(f"main path: host-clock env-steps/s headline bf16={headline['torch.bfloat16']:.0f} "
+          f"f32={headline['torch.float32']:.0f}, CartPole TorchVectorEnv.rollout(256)={vec_rate:.0f}, "
+          f"HalfCheetah TorchVectorEnv.rollout({ART_ROLLOUT})={hc_rate:.0f}", flush=True)
     for name, times in block_ms.items():
         print(f"headline host-clock ms per block, obs={name}: "
               + " ".join(f"{t:.4f}" for t in times), flush=True)
 
-    # -- the kernel against its plain version --------------------------------
+    # -- the CartPole kernel against its plain version ------------------------
     n, s, seed = NUM_ENVS, STEPS_PER_BLOCK, 0
     args = (
         torch.zeros((4, n), device=dev),
@@ -285,19 +487,28 @@ def main() -> int:
     check(not torch.equal(other[3], f32[3]), "seed + 1 gave the same trajectory")
     print("kernel: bf16 obs equal the f32 obs rounded; deterministic per seed", flush=True)
 
+    # -- the articulated kernels against their twin ---------------------------
+    art_inputs, art_errs = {}, {}
+    for name, step in steps.items():
+        art_inputs[name] = articulated_states(step.model, NUM_ENVS, dev)
+        art_errs[name] = compare_articulated_with_twin(step, *art_inputs[name])
+        print(f"articulated kernel vs twin ({name}, N={NUM_ENVS}, frame_skip {ART_FRAME_SKIP}): "
+              f"max|dq|={art_errs[name][0]:.3e} max|dqd|={art_errs[name][1]:.3e}; deterministic; "
+              f"{art_errs[name][2]} lanes on the small-angle side", flush=True)
+
     # -- times ----------------------------------------------------------------
     results = {}
     for obs_dtype in (torch.float32, torch.bfloat16):
         ms = cuda_ms(lambda: cr.cartpole_rollout_fused(*args, seed, s, obs_dtype=obs_dtype), 20, 3)
-        bound, bound_by = rollout_bound_ms(n, s, obs_dtype)
-        results[obs_dtype] = (ms, bound, bound_by)
+        bound_ms, bound_by = rollout_bound_ms(n, s, obs_dtype)
+        results[obs_dtype] = (ms, bound_ms, bound_by)
         print(f"cartpole_rollout_fused obs={obs_dtype}: {ms:.4f} ms/call, "
-              f"{n * s / ms * 1e3:.4e} env-steps/s, bound {bound:.4f} ms ({bound_by}), "
-              f"{bound / ms:.2%} of bound", flush=True)
+              f"{n * s / ms * 1e3:.4e} env-steps/s, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"{bound_ms / ms:.2%} of bound", flush=True)
     plain_ms = cuda_ms(lambda: cr.cartpole_rollout_reference(*args, seed, s), 1, 1)
     print(f"cartpole_rollout_reference (plain twin) on the card: {plain_ms:.2f} ms/call", flush=True)
 
-    ms, bound, bound_by = results[torch.float32]
+    ms, bound_ms, bound_by = results[torch.float32]
     bf16_ms, bf16_bound, _ = results[torch.bfloat16]
     kernels = [
         {
@@ -309,7 +520,7 @@ def main() -> int:
             "max_abs_err": max_err,
             "ms": ms,
             "plain_ms": plain_ms,
-            "bound_ms": bound,
+            "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": None,
             "bf16_obs_ms": bf16_ms,
@@ -317,6 +528,39 @@ def main() -> int:
             "ok": True,
         }
     ]
+    for name, step in steps.items():
+        inputs = art_inputs[name]
+        art_ms = cuda_ms(lambda: step(*inputs), 50, 5)
+        art_plain_ms = cuda_ms(lambda: step.reference(*inputs), 1, 1)
+        art_bound, art_bound_by = articulated_bound_ms(step, NUM_ENVS)
+        print(f"articulated_step[{name}] N={NUM_ENVS}: {art_ms:.4f} ms/call, bound {art_bound:.4f} ms "
+              f"({art_bound_by}), {art_bound / art_ms:.2%} of bound; plain twin {art_plain_ms:.2f} ms/call",
+              flush=True)
+        kernels.append(
+            {
+                "name": f"articulated_step[{name}]",
+                "route": "cuda",
+                "source": "gymnasium_tpu_torch/csrc/articulated_step.cuh",
+                "generator": "gymnasium_tpu_torch/ops/articulated_codegen.py",
+                "replaces": "gymnasium_tpu/ops/pallas_articulated.py:119",
+                "launches": hc_counts[step.build_name],
+                "on_main_path": hc_counts[step.build_name] > 0,
+                "max_abs_err": max(art_errs[name][:2]),
+                "max_abs_err_q": art_errs[name][0],
+                "max_abs_err_qd": art_errs[name][1],
+                "ms": art_ms,
+                "plain_ms": art_plain_ms,
+                "bound_ms": art_bound,
+                "bound_by": art_bound_by,
+                "library_ms": None,
+                "frame_skip": ART_FRAME_SKIP,
+                "small_angle_lanes": art_errs[name][2],
+                "ops_per_env": step.source.ops_per_env,
+                "nvcc_s": built.get(step.build_name, {}).get("seconds"),
+                **ptxas.get(step.build_name, {}),
+                "ok": True,
+            }
+        )
     print(json.dumps({"kernels": kernels}), flush=True)
     result = {"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}
     print(json.dumps(result), flush=True)

@@ -11,7 +11,8 @@ so drawing from it advances it instead of splitting a key.
 
 :func:`make_autoreset_step` folds next-step autoreset and time-limit
 truncation into one step function that never branches on data, so no step
-waits for the device.
+waits for the device. A state may be one tensor or a tree of them (dicts,
+tuples and lists), as a JAX pytree is; :func:`tree_map` walks it.
 """
 
 from __future__ import annotations
@@ -27,8 +28,31 @@ __all__ = [
     "TimeStep",
     "make_autoreset_step",
     "make_initial_carry",
+    "tree_map",
     "vectorize_func_env",
 ]
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """Apply ``fn`` leaf by leaf over trees of one structure.
+
+    Dicts, tuples (named ones too) and lists are nodes; anything else is a
+    leaf. ``fn`` takes one leaf of ``tree`` and the matching leaf of each of
+    ``rest``.
+    """
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        children = [tree_map(fn, *leaves) for leaves in zip(tree, *rest)]
+        if hasattr(tree, "_fields"):
+            return type(tree)(*children)
+        return type(tree)(children)
+    return fn(tree, *rest)
+
+
+def _lanes(mask: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    """``mask`` (the env axis) shaped to broadcast over ``leaf``."""
+    return mask.reshape(mask.shape + (1,) * (leaf.ndim - mask.ndim))
 
 
 class FuncEnv:
@@ -87,8 +111,9 @@ def vectorize_func_env(func_env: FuncEnv, num_envs: int) -> FuncEnv:
     if initial_batched is not None:
         batched.initial = lambda rng, params=None: initial_batched(rng, num_envs, params)
     else:
-        batched.initial = lambda rng, params=None: torch.stack(
-            [func_env.initial(rng, params) for _ in range(num_envs)]
+        batched.initial = lambda rng, params=None: tree_map(
+            lambda *leaves: torch.stack(leaves),
+            *[func_env.initial(rng, params) for _ in range(num_envs)],
         )
     batched.num_envs = num_envs
     return batched
@@ -135,8 +160,9 @@ def make_autoreset_step(
         if autoreset:
             reset_state = func_env.initial(rng, params)
             prev_done = carry.prev_done
-            lane = prev_done.reshape(prev_done.shape + (1,) * (next_state.ndim - prev_done.ndim))
-            state = torch.where(lane, reset_state, next_state)
+            state = tree_map(
+                lambda r, n: torch.where(_lanes(prev_done, n), r, n), reset_state, next_state
+            )
             # the reset step performs no transition: the new episode starts at 0
             steps = torch.where(prev_done, 0, carry.steps + 1)
         else:

@@ -1,0 +1,870 @@
+"""Generator of the articulated (MuJoCo-class) substep, over two backends.
+
+Counterpart of the generator inside the JAX package's
+``ops/pallas_articulated.py::make_fused_step``. From the static tables of an
+:class:`~gymnasium_tpu_torch.physics.articulated.ArticulatedModel` it unrolls
+one substep of the engine as straight-line scalar code: forward kinematics
+with the free-root quaternion, world inertias, geometric Jacobians, the
+closed-form convective terms, the Newton-Euler bias with gravity and springs,
+joint limits, soft contacts with a friction cone, the sparse symbolic mass
+matrix, a dense symbolic Cholesky solve, and semi-implicit Euler with the
+quaternion exponential.
+
+Sparsity is folded in Python as the JAX generator folds it: a python float
+``0.0`` is a structural zero, and constants combine in float64 until they
+meet a per-env value, where they round to float32 once. The generator is
+written once, over a small ops namespace (``cos``, ``sin``, ``sqrt``,
+``maximum``, ``minimum``, ``where``, ``clip``; comparisons and arithmetic
+through Python operators), and runs over two backends:
+
+- :class:`TorchOps`: the per-env values are ``(N,)`` float32 tensors, and the
+  generator computes the substep itself. This is the plain PyTorch twin.
+- :class:`SymOps`: the values are :class:`Sym` nodes. Each operation appends
+  one node, equal nodes are shared, and :func:`generate_source` emits the
+  live nodes as one C statement each (``const float t7 = t3 * t5;``), with
+  every constant as a float32 literal. The result is the CUDA source of the
+  kernel, and the count of each kind of operation it holds.
+
+Both backends run the JAX row program's operations in its order, with the
+same rounded constants.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+
+import numpy as np
+import torch
+
+from gymnasium_tpu_torch.physics.articulated import (
+    HINGE,
+    SLIDE,
+    ArticulatedModel,
+    ancestor_dof_mask,
+    is_free_root_body,
+    q_index,
+    quat_to_mat_np,
+    strict_dof_ancestors,
+)
+
+__all__ = [
+    "ModelTables",
+    "model_tables",
+    "make_substep",
+    "clip_controls",
+    "TorchOps",
+    "Sym",
+    "SymOps",
+    "GeneratedSource",
+    "generate_source",
+]
+
+# ---------------------------------------------------------------------------
+# Folding helpers: a python float 0.0 is a structural zero, 1.0 a unit.
+
+
+def _nonzero(x) -> bool:
+    return not (isinstance(x, float) and x == 0.0)
+
+
+def _add(a, b):
+    if not _nonzero(a):
+        return b
+    if not _nonzero(b):
+        return a
+    return a + b
+
+
+def _sub(a, b):
+    if not _nonzero(b):
+        return a
+    if not _nonzero(a):
+        return -b
+    return a - b
+
+
+def _mul(a, b):
+    if not _nonzero(a) or not _nonzero(b):
+        return 0.0
+    if isinstance(a, float) and a == 1.0:
+        return b
+    if isinstance(b, float) and b == 1.0:
+        return a
+    return a * b
+
+
+def _dot3(u, v):
+    return _add(_add(_mul(u[0], v[0]), _mul(u[1], v[1])), _mul(u[2], v[2]))
+
+
+def _cross(u, v):
+    return [
+        _sub(_mul(u[1], v[2]), _mul(u[2], v[1])),
+        _sub(_mul(u[2], v[0]), _mul(u[0], v[2])),
+        _sub(_mul(u[0], v[1]), _mul(u[1], v[0])),
+    ]
+
+
+def _matvec(A, v):
+    return [_dot3(A[i], v) for i in range(3)]
+
+
+def _matmul(A, B):
+    return [
+        [
+            _add(_add(_mul(A[i][0], B[0][j]), _mul(A[i][1], B[1][j])), _mul(A[i][2], B[2][j]))
+            for j in range(3)
+        ]
+        for i in range(3)
+    ]
+
+
+def _scale(v, s):
+    return [_mul(x, s) for x in v]
+
+
+def _vadd(u, v):
+    return [_add(u[i], v[i]) for i in range(3)]
+
+
+def _vsub(u, v):
+    return [_sub(u[i], v[i]) for i in range(3)]
+
+
+# ---------------------------------------------------------------------------
+# Model constants, as python floats.
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelTables:
+    """The static constants of one model, in python floats and numpy masks."""
+
+    model: ArticulatedModel
+    nv: int
+    nq: int
+    nu: int
+    nbody: int
+    nc: int
+    dt: float
+    amask: np.ndarray  # (nbody, nv) dof k moves body b
+    strict: np.ndarray  # (nv, nv) dof j applied before dof k
+    strict_rot: np.ndarray  # strict, with the free root's rotations coupled
+    jtypes: list
+    masses: list
+    coms: list
+    inertias: list
+    damping: list
+    armature: list
+    stiffness: list
+    joint_ref: list
+    gear: list
+    act_dof: list
+    ctrl_lo: list
+    ctrl_hi: list
+    gravity: float
+    limit_k: list
+    limit_c: list
+    contact_k: list
+    contact_c: list
+    contact_r: list
+    contact_off: list
+    contact_body: list
+    cmask: np.ndarray  # (nc, nv) dof k moves contact ci
+
+
+def model_tables(model: ArticulatedModel) -> ModelTables:
+    """Fold the model's tables into the generator's constants (float64)."""
+    nv, nu = model.nv, model.nu
+    nc = len(model.contact_body)
+    dt = float(model.timestep)
+    amask = ancestor_dof_mask(model)
+    strict = strict_dof_ancestors(model)
+    strict_rot = strict.copy()
+    if model.root_free:
+        strict_rot[3:6, 3:6] = True
+    gear = [float(g) for g in model.act_gear]
+    act_dof = [int(d) for d in model.act_dof]
+    armature = [float(a) for a in model.joints.armature]
+    masses = [float(m) for m in model.bodies.mass]
+
+    # joint-limit springs, scaled as make_dynamics scales them
+    tau_max = np.zeros(nv)
+    for d, g in zip(act_dof, np.abs(np.asarray(gear))):
+        tau_max[d] = max(tau_max[d], g)
+    m_dof = np.asarray(armature) + 0.02
+    k_lim = np.clip(np.maximum(model.limit_stiffness, tau_max / 0.05), None, 0.25 * m_dof / dt**2)
+
+    contact_k, contact_c = [], []
+    cmask = np.zeros((0, nv), dtype=bool)
+    if nc:
+        m_eff = np.maximum(np.asarray(masses)[np.asarray(model.contact_body)], 1e-3)
+        k_c = np.minimum(model.contact_stiffness, m_eff * (model.contact_alpha / dt) ** 2)
+        c_c = model.contact_damp_ratio * np.sqrt(k_c * m_eff)
+        contact_k = [float(v) for v in k_c]
+        contact_c = [float(v) for v in c_c]
+        cmask = amask[np.asarray(model.contact_body)]
+
+    return ModelTables(
+        model=model,
+        nv=nv,
+        nq=model.nq,
+        nu=nu,
+        nbody=len(model.bodies.parent),
+        nc=nc,
+        dt=dt,
+        amask=amask,
+        strict=strict,
+        strict_rot=strict_rot,
+        jtypes=[int(t) for t in model.joints.jtype],
+        masses=masses,
+        coms=[[float(x) for x in c] for c in model.bodies.com],
+        inertias=[np.asarray(I, np.float64) for I in model.bodies.inertia],
+        damping=[float(d) for d in model.joints.damping],
+        armature=armature,
+        stiffness=[float(s) for s in model.joints.stiffness],
+        joint_ref=[float(r) for r in model.joints.ref],
+        gear=gear,
+        act_dof=act_dof,
+        ctrl_lo=[float(v) for v in model.act_ctrlrange[:, 0]] if nu else [],
+        ctrl_hi=[float(v) for v in model.act_ctrlrange[:, 1]] if nu else [],
+        gravity=float(model.gravity),
+        limit_k=[float(v) for v in k_lim],
+        limit_c=[float(v) for v in 1.4 * np.sqrt(k_lim * m_dof)],
+        contact_k=contact_k,
+        contact_c=contact_c,
+        contact_r=[float(v) for v in model.contact_radius],
+        contact_off=[[float(x) for x in o] for o in model.contact_pos],
+        contact_body=[int(b) for b in model.contact_body],
+        cmask=cmask,
+    )
+
+
+# ---------------------------------------------------------------------------
+# The substep program, over an ops namespace.
+
+
+def clip_controls(t: ModelTables, ops, crows):
+    """Clip each actuator's control row to its ctrlrange."""
+    return [ops.clip(crows[a], t.ctrl_lo[a], t.ctrl_hi[a]) for a in range(t.nu)]
+
+
+def make_substep(t: ModelTables, ops, crows):
+    """One substep ``(qrows, qdrows) -> (q_new, qd_new)`` over lists of
+    per-env values, for the (already clipped) control rows ``crows``.
+
+    The actuation torques are formed here, once, outside the substep.
+    """
+    model = t.model
+    nv, nq, nbody, dt = t.nv, t.nq, t.nbody, t.dt
+    amask, strict, strict_rot, jtypes = t.amask, t.strict, t.strict_rot, t.jtypes
+    masses, joint_ref = t.masses, t.joint_ref
+
+    tau_act = [0.0] * nv
+    for a in range(t.nu):
+        tau_act[t.act_dof[a]] = _add(tau_act[t.act_dof[a]], _mul(t.gear[a], crows[a]))
+
+    def substep(qrows, qdrows):
+        # ---------------- forward kinematics ------------------------
+        Rs, ps = [None] * nbody, [None] * nbody
+        axes_w, pivots_w = [None] * nv, [None] * nv
+        for b in range(nbody):
+            parent = int(model.bodies.parent[b])
+            if parent < 0:
+                R_p = [[1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.0, 0.0, 1.0]]
+                p_p = [0.0, 0.0, 0.0]
+            else:
+                R_p, p_p = Rs[parent], ps[parent]
+
+            if is_free_root_body(model, b):
+                w, x, y, z = qrows[3], qrows[4], qrows[5], qrows[6]
+                nn = w * w + x * x + y * y + z * z
+                s2 = 2.0 / ops.maximum(nn, 1e-12)
+                R = [
+                    [1 - s2 * (y * y + z * z), s2 * (x * y - w * z), s2 * (x * z + w * y)],
+                    [s2 * (x * y + w * z), 1 - s2 * (x * x + z * z), s2 * (y * z - w * x)],
+                    [s2 * (x * z - w * y), s2 * (y * z + w * x), 1 - s2 * (x * x + y * y)],
+                ]
+                p = [qrows[0], qrows[1], qrows[2]]
+                start = int(model.bodies.dof_start[b])
+                for k in range(3):
+                    e = [0.0, 0.0, 0.0]
+                    e[k] = 1.0
+                    axes_w[start + k] = e
+                    pivots_w[start + k] = [0.0, 0.0, 0.0]
+                for k in range(3):
+                    axes_w[start + 3 + k] = [R[0][k], R[1][k], R[2][k]]
+                    pivots_w[start + 3 + k] = p
+                Rs[b], ps[b] = R, p
+                continue
+
+            Rfix = [[float(v) for v in row] for row in quat_to_mat_np(model.bodies.quat[b])]
+            R = _matmul(R_p, Rfix)
+            p = _vadd(p_p, _matvec(R_p, [float(v) for v in model.bodies.pos[b]]))
+            start = int(model.bodies.dof_start[b])
+            count = int(model.bodies.dof_count[b])
+            for k in range(start, start + count):
+                axis = [float(v) for v in model.joints.axis[k]]
+                anchor = [float(v) for v in model.joints.anchor[k]]
+                qk = qrows[q_index(model, k)]
+                if joint_ref[k]:
+                    qk = _sub(qk, joint_ref[k])
+                axes_w[k] = _matvec(R, axis)
+                if jtypes[k] == SLIDE:
+                    pivots_w[k] = [0.0, 0.0, 0.0]
+                    p = _vadd(p, _matvec(R, _scale(axis, qk)))
+                else:
+                    pivots_w[k] = _vadd(p, _matvec(R, anchor))
+                    c_, s_ = ops.cos(qk), ops.sin(qk)
+                    ax, ay, az = axis
+                    K = [[0.0, -az, ay], [az, 0.0, -ax], [-ay, ax, 0.0]]
+                    Rj = [
+                        [
+                            _add(
+                                _add(_mul(c_, 1.0 if i == j else 0.0), _mul(s_, K[i][j])),
+                                _mul(_sub(1.0, c_), axis[i] * axis[j]),
+                            )
+                            for j in range(3)
+                        ]
+                        for i in range(3)
+                    ]
+                    p = _vadd(p, _matvec(R, _vsub(anchor, _matvec(Rj, anchor))))
+                    R = _matmul(R, Rj)
+            Rs[b], ps[b] = R, p
+
+        # body com positions and world inertias R I Rᵀ
+        pcs = [
+            _vadd(ps[b], _matvec(Rs[b], t.coms[b])) if any(t.coms[b]) else ps[b]
+            for b in range(nbody)
+        ]
+        Iw = []
+        for b in range(nbody):
+            I = t.inertias[b]
+            RI = [
+                [_dot3(Rs[b][i], [float(I[m][j]) for m in range(3)]) for j in range(3)]
+                for i in range(3)
+            ]
+            Iw.append([[_dot3(RI[i], Rs[b][j]) for j in range(3)] for i in range(3)])
+
+        # ---------------- geometric Jacobians -----------------------
+        Jv = [[None] * nv for _ in range(nbody)]
+        for b in range(nbody):
+            for k in range(nv):
+                if not amask[b, k]:
+                    continue
+                if jtypes[k] == SLIDE:
+                    Jv[b][k] = axes_w[k]
+                else:
+                    Jv[b][k] = _cross(axes_w[k], _vsub(pcs[b], pivots_w[k]))
+
+        # ---------------- closed-form convective terms --------------
+        u = [_scale(axes_w[k], qdrows[k]) if jtypes[k] == HINGE else None for k in range(nv)]
+        s_vec = [_scale(axes_w[k], qdrows[k]) if jtypes[k] == SLIDE else None for k in range(nv)]
+        daw = []
+        for k in range(nv):
+            w_pre = [0.0, 0.0, 0.0]
+            for j in range(nv):
+                if strict_rot[k, j] and u[j] is not None:
+                    w_pre = _vadd(w_pre, u[j])
+            daw.append(_cross(w_pre, axes_w[k]))
+        dow = []
+        for k in range(nv):
+            acc = [0.0, 0.0, 0.0]
+            for j in range(nv):
+                if not strict[k, j]:
+                    continue
+                if s_vec[j] is not None:
+                    acc = _vadd(acc, s_vec[j])
+                else:
+                    acc = _vadd(acc, _cross(u[j], _vsub(pivots_w[k], pivots_w[j])))
+            dow.append(acc)
+        dpc = []
+        for b in range(nbody):
+            acc = [0.0, 0.0, 0.0]
+            for k in range(nv):
+                if Jv[b][k] is not None:
+                    acc = _vadd(acc, _scale(Jv[b][k], qdrows[k]))
+            dpc.append(acc)
+        a0, al0 = [], []
+        for b in range(nbody):
+            acc = [0.0, 0.0, 0.0]
+            accw = [0.0, 0.0, 0.0]
+            for k in range(nv):
+                if not amask[b, k]:
+                    continue
+                if jtypes[k] == SLIDE:
+                    dJ = daw[k]
+                else:
+                    dJ = _vadd(
+                        _cross(daw[k], _vsub(pcs[b], pivots_w[k])),
+                        _cross(axes_w[k], _vsub(dpc[b], dow[k])),
+                    )
+                    accw = _vadd(accw, _scale(daw[k], qdrows[k]))
+                acc = _vadd(acc, _scale(dJ, qdrows[k]))
+            a0.append(acc)
+            al0.append(accw)
+
+        # ---------------- bias (Newton-Euler + gravity/springs) -----
+        wb = []
+        for b in range(nbody):
+            acc = [0.0, 0.0, 0.0]
+            for k in range(nv):
+                if amask[b, k] and u[k] is not None:
+                    acc = _vadd(acc, u[k])
+            wb.append(acc)
+        c_rows = [0.0] * nv
+        for b in range(nbody):
+            f_lin = _scale(a0[b], masses[b])
+            Iww = _matvec(Iw[b], wb[b])
+            t_ang = _vadd(_matvec(Iw[b], al0[b]), _cross(wb[b], Iww))
+            for k in range(nv):
+                if not amask[b, k]:
+                    continue
+                c_rows[k] = _add(c_rows[k], _dot3(Jv[b][k], f_lin))
+                if jtypes[k] == HINGE:
+                    c_rows[k] = _add(c_rows[k], _dot3(axes_w[k], t_ang))
+        for k in range(nv):
+            acc = 0.0
+            for b in range(nbody):
+                if amask[b, k]:
+                    acc = _add(acc, _mul(masses[b], Jv[b][k][2]))
+            c_rows[k] = _sub(c_rows[k], _mul(t.gravity, acc))
+            if t.stiffness[k]:
+                qk = qrows[q_index(model, k)]
+                c_rows[k] = _add(c_rows[k], _mul(t.stiffness[k], _sub(qk, joint_ref[k])))
+
+        # ---------------- torques: actuation + limits + contacts ----
+        tau = list(tau_act)
+        for k in range(nv):
+            if not bool(model.joints.limited[k]):
+                continue
+            qk = qrows[q_index(model, k)]
+            below = ops.minimum(qk - float(model.joints.lower[k]), 0.0)
+            above = ops.maximum(qk - float(model.joints.upper[k]), 0.0)
+            violating = (below < 0.0) | (above > 0.0)
+            t_lim = -t.limit_k[k] * (below + above) - ops.where(
+                violating, t.limit_c[k] * qdrows[k], 0.0
+            )
+            tau[k] = _add(tau[k], t_lim)
+
+        for ci in range(t.nc):
+            b = t.contact_body[ci]
+            pt = _vadd(ps[b], _matvec(Rs[b], t.contact_off[ci]))
+            Jc_k = {}
+            vel = [0.0, 0.0, 0.0]
+            for k in range(nv):
+                if not t.cmask[ci, k]:
+                    continue
+                if jtypes[k] == SLIDE:
+                    Jck = axes_w[k]
+                else:
+                    Jck = _cross(axes_w[k], _vsub(pt, pivots_w[k]))
+                Jc_k[k] = Jck
+                vel = _vadd(vel, _scale(Jck, qdrows[k]))
+            depth = t.contact_r[ci] - (pt[2] - float(model.ground_z))
+            in_contact = depth > 0.0
+            fn = ops.maximum(
+                ops.where(in_contact, t.contact_k[ci] * depth - t.contact_c[ci] * vel[2], 0.0),
+                0.0,
+            )
+            ftx = _mul(-t.contact_c[ci], vel[0])
+            fty = _mul(-t.contact_c[ci], vel[1])
+            ft_norm = ops.sqrt(ftx * ftx + fty * fty + 1e-12)
+            scale_f = ops.minimum(1.0, float(model.friction) * fn / ft_norm)
+            f = [ftx * scale_f, fty * scale_f, fn]
+            for k, Jck in Jc_k.items():
+                tau[k] = _add(tau[k], _dot3(Jck, f))
+
+        # ---------------- mass matrix (sparse symbolic) -------------
+        M = {}
+        for i in range(nv):
+            for j in range(i, nv):
+                acc = 0.0
+                for b in range(nbody):
+                    if not (amask[b, i] and amask[b, j]):
+                        continue
+                    acc = _add(acc, _mul(masses[b], _dot3(Jv[b][i], Jv[b][j])))
+                    if jtypes[i] == HINGE and jtypes[j] == HINGE:
+                        acc = _add(acc, _dot3(axes_w[i], _matvec(Iw[b], axes_w[j])))
+                if i == j:
+                    acc = _add(acc, t.armature[i] + dt * t.damping[i] + 1e-9)
+                if _nonzero(acc):
+                    M[(i, j)] = acc
+
+        # ---------------- rhs + Cholesky solve ----------------------
+        rhs = [_sub(_sub(tau[k], c_rows[k]), _mul(t.damping[k], qdrows[k])) for k in range(nv)]
+        L = {}
+        for j in range(nv):
+            d = M.get((j, j), 0.0)
+            for m in range(j):
+                ljm = L.get((j, m), 0.0)
+                d = _sub(d, _mul(ljm, ljm))
+            d = ops.sqrt(ops.maximum(d, 1e-12))
+            inv_d = 1.0 / d
+            L[(j, j)] = d
+            for i in range(j + 1, nv):
+                v = M.get((j, i), 0.0) if j <= i else M.get((i, j), 0.0)
+                for m in range(j):
+                    v = _sub(v, _mul(L.get((i, m), 0.0), L.get((j, m), 0.0)))
+                if _nonzero(v):
+                    L[(i, j)] = _mul(v, inv_d)
+        y = [0.0] * nv
+        for i in range(nv):
+            v = rhs[i]
+            for m in range(i):
+                v = _sub(v, _mul(L.get((i, m), 0.0), y[m]))
+            y[i] = _mul(v, 1.0 / L[(i, i)])
+        qacc = [0.0] * nv
+        for i in reversed(range(nv)):
+            v = y[i]
+            for m in range(i + 1, nv):
+                v = _sub(v, _mul(L.get((m, i), 0.0), qacc[m]))
+            qacc[i] = _mul(v, 1.0 / L[(i, i)])
+
+        # ---------------- integrate ---------------------------------
+        qd_new = [qdrows[k] + dt * qacc[k] for k in range(nv)]
+        if not model.root_free:
+            return [qrows[k] + dt * qd_new[k] for k in range(nq)], qd_new
+        pos_new = [qrows[i] + dt * qd_new[i] for i in range(3)]
+        # quat <- quat ⊗ exp(dt ω/2); both branches are computed and selected
+        vx, vy, vz = dt * qd_new[3], dt * qd_new[4], dt * qd_new[5]
+        th2 = vx * vx + vy * vy + vz * vz
+        big = th2 > 1e-10
+        th = ops.sqrt(ops.where(big, th2, 1.0))
+        half = 0.5 * th
+        sinc = ops.where(big, ops.sin(half) / th, 0.5 - th2 / 48.0)
+        cosh_ = ops.where(big, ops.cos(half), 1.0 - th2 / 8.0 + th2 * th2 / 384.0)
+        dq = [cosh_, sinc * vx, sinc * vy, sinc * vz]
+        a_, b_, c2, d_ = qrows[3], qrows[4], qrows[5], qrows[6]
+        quat = [
+            a_ * dq[0] - b_ * dq[1] - c2 * dq[2] - d_ * dq[3],
+            a_ * dq[1] + b_ * dq[0] + c2 * dq[3] - d_ * dq[2],
+            a_ * dq[2] - b_ * dq[3] + c2 * dq[0] + d_ * dq[1],
+            a_ * dq[3] + b_ * dq[2] - c2 * dq[1] + d_ * dq[0],
+        ]
+        # x ** 2 of the JAX source lowers to x * x
+        qnorm = ops.sqrt(
+            quat[0] * quat[0] + quat[1] * quat[1] + quat[2] * quat[2] + quat[3] * quat[3] + 1e-24
+        )
+        quat = [x / qnorm for x in quat]
+        joints_new = [qrows[7 + i] + dt * qd_new[6 + i] for i in range(nq - 7)]
+        return pos_new + quat + joints_new, qd_new
+
+    return substep
+
+
+# ---------------------------------------------------------------------------
+# Backend (a): torch tensors, the plain twin.
+
+
+class TorchOps:
+    """The ops namespace over float32 tensors on ``device``.
+
+    A python number that reaches an op becomes a float32 tensor there, as a
+    weakly typed python scalar does in ``jnp``.
+    """
+
+    def __init__(self, device):
+        self.device = device
+
+    def _tensor(self, x) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            return x
+        return torch.tensor(float(x), dtype=torch.float32, device=self.device)
+
+    def cos(self, x):
+        return torch.cos(self._tensor(x))
+
+    def sin(self, x):
+        return torch.sin(self._tensor(x))
+
+    def sqrt(self, x):
+        return torch.sqrt(self._tensor(x))
+
+    def maximum(self, a, b):
+        if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+            return torch.maximum(a, b)
+        if isinstance(a, torch.Tensor):
+            return torch.clamp_min(a, float(b))
+        if isinstance(b, torch.Tensor):
+            return torch.clamp_min(b, float(a))
+        return self._tensor(max(np.float32(a), np.float32(b)))
+
+    def minimum(self, a, b):
+        if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+            return torch.minimum(a, b)
+        if isinstance(a, torch.Tensor):
+            return torch.clamp_max(a, float(b))
+        if isinstance(b, torch.Tensor):
+            return torch.clamp_max(b, float(a))
+        return self._tensor(min(np.float32(a), np.float32(b)))
+
+    def where(self, cond, a, b):
+        if isinstance(cond, (bool, np.bool_)):
+            return self._tensor(a if cond else b)
+        return torch.where(cond, a, b)
+
+    def clip(self, x, lo: float, hi: float):
+        return torch.clamp(self._tensor(x), lo, hi)
+
+
+# ---------------------------------------------------------------------------
+# Backend (b): symbolic nodes, emitted as C.
+
+_C_BINARY = {"add": "+", "sub": "-", "mul": "*", "div": "/", "gt": ">", "lt": "<", "or": "||"}
+_C_CALL = {"sqrt": "sqrtf", "cos": "cosf", "sin": "sinf", "max": "fmaxf", "min": "fminf"}
+_BOOL_RESULT = frozenset({"gt", "lt", "or"})
+# operations on constants only are folded in float32, as the card would round them
+_FOLD = {
+    "add": lambda a, b: a + b,
+    "sub": lambda a, b: a - b,
+    "mul": lambda a, b: a * b,
+    "div": lambda a, b: a / b,
+    "neg": lambda a: -a,
+    "sqrt": np.sqrt,
+    "max": np.maximum,
+    "min": np.minimum,
+    "gt": lambda a, b: np.bool_(a > b),
+    "lt": lambda a, b: np.bool_(a < b),
+    "or": lambda a, b: np.bool_(a or b),
+    "select": lambda c, a, b: a if c else b,
+}
+
+
+class Sym:
+    """One value of the emitted program: an input, a constant or an operation."""
+
+    __slots__ = ("prog", "id", "kind", "args", "dtype", "varying", "value")
+
+    def __init__(self, prog, kind, args=(), dtype="f", varying=False, value=None):
+        self.prog, self.kind, self.args = prog, kind, args
+        self.dtype, self.varying, self.value = dtype, varying, value
+        self.id = len(prog.nodes)
+        prog.nodes.append(self)
+
+    def __add__(self, o):
+        return self.prog.op("add", self, o)
+
+    def __radd__(self, o):
+        return self.prog.op("add", o, self)
+
+    def __sub__(self, o):
+        return self.prog.op("sub", self, o)
+
+    def __rsub__(self, o):
+        return self.prog.op("sub", o, self)
+
+    def __mul__(self, o):
+        return self.prog.op("mul", self, o)
+
+    def __rmul__(self, o):
+        return self.prog.op("mul", o, self)
+
+    def __truediv__(self, o):
+        return self.prog.op("div", self, o)
+
+    def __rtruediv__(self, o):
+        return self.prog.op("div", o, self)
+
+    def __neg__(self):
+        return self.prog.op("neg", self)
+
+    def __gt__(self, o):
+        return self.prog.op("gt", self, o)
+
+    def __lt__(self, o):
+        return self.prog.op("lt", self, o)
+
+    def __or__(self, o):
+        return self.prog.op("or", self, o)
+
+    def __bool__(self):
+        raise TypeError("a symbolic value has no truth value: the program cannot branch on data")
+
+
+class SymOps:
+    """The ops namespace over :class:`Sym` nodes; it owns the node list."""
+
+    def __init__(self):
+        self.nodes: list[Sym] = []
+        self._memo: dict = {}
+
+    def input(self, name: str, varying: bool) -> Sym:
+        return Sym(self, "input", dtype="f", varying=varying, value=name)
+
+    def const(self, value) -> Sym:
+        if isinstance(value, (bool, np.bool_)):
+            key, dtype, value = ("const", bool(value)), "b", np.bool_(value)
+        else:
+            value = np.float32(value)
+            if not np.isfinite(value):
+                raise ValueError(f"the program holds a non-finite constant {value}")
+            key, dtype = ("const", "f", value.tobytes()), "f"
+        node = self._memo.get(key)
+        if node is None:
+            node = self._memo[key] = Sym(self, "const", dtype=dtype, value=value)
+        return node
+
+    def op(self, kind: str, *args) -> Sym:
+        args = tuple(a if isinstance(a, Sym) else self.const(a) for a in args)
+        if all(a.kind == "const" for a in args) and kind in _FOLD:
+            return self.const(_FOLD[kind](*(a.value for a in args)))
+        key = (kind,) + tuple(a.id for a in args)
+        node = self._memo.get(key)
+        if node is None:
+            if kind == "select":
+                dtype = args[1].dtype
+            else:
+                dtype = "b" if kind in _BOOL_RESULT else "f"
+            node = self._memo[key] = Sym(
+                self, kind, args, dtype=dtype, varying=any(a.varying for a in args)
+            )
+        return node
+
+    def cos(self, x):
+        return self.op("cos", x)
+
+    def sin(self, x):
+        return self.op("sin", x)
+
+    def sqrt(self, x):
+        return self.op("sqrt", x)
+
+    def maximum(self, a, b):
+        return self.op("max", a, b)
+
+    def minimum(self, a, b):
+        return self.op("min", a, b)
+
+    def where(self, cond, a, b):
+        if isinstance(cond, (bool, np.bool_)):
+            pick = a if cond else b
+            return pick if isinstance(pick, Sym) else self.const(pick)
+        return self.op("select", cond, a, b)
+
+    def clip(self, x, lo: float, hi: float):
+        # jnp.clip is minimum(maximum(x, lo), hi)
+        return self.op("min", self.op("max", x, lo), hi)
+
+
+def _literal(value) -> str:
+    if isinstance(value, np.bool_):
+        return "true" if value else "false"
+    text = "%.9g" % float(value)
+    if not any(ch in text for ch in ".e"):
+        text += ".0"
+    text += "f"
+    return f"({text})" if text.startswith("-") else text
+
+
+def _ref(node: Sym) -> str:
+    if node.kind == "const":
+        return _literal(node.value)
+    if node.kind == "input":
+        return node.value
+    return f"t{node.id}"
+
+
+def _statement(node: Sym) -> str:
+    ctype = "bool" if node.dtype == "b" else "float"
+    args = [_ref(a) for a in node.args]
+    if node.kind in _C_BINARY:
+        expr = f"{args[0]} {_C_BINARY[node.kind]} {args[1]}"
+    elif node.kind in _C_CALL:
+        expr = f"{_C_CALL[node.kind]}({', '.join(args)})"
+    elif node.kind == "neg":
+        expr = f"-{args[0]}"
+    elif node.kind == "select":
+        expr = f"{args[0]} ? {args[1]} : {args[2]}"
+    else:
+        raise ValueError(f"no C form for {node.kind}")
+    return f"const {ctype} t{node.id} = {expr};"
+
+
+def _live(outputs) -> list[Sym]:
+    """The operation nodes the outputs depend on, in creation order."""
+    seen, stack = set(), [o for o in outputs if isinstance(o, Sym)]
+    while stack:
+        node = stack.pop()
+        if node.id in seen:
+            continue
+        seen.add(node.id)
+        stack.extend(node.args)
+    prog = outputs[0].prog
+    return [prog.nodes[i] for i in sorted(seen) if prog.nodes[i].kind not in ("const", "input")]
+
+
+@dataclasses.dataclass(frozen=True)
+class GeneratedSource:
+    """The emitted CUDA source of one ``(model, frame_skip)`` and its counts."""
+
+    name: str
+    frame_skip: int
+    text: str
+    prologue_ops: dict  # kind -> count, run once a call (control clip, gear)
+    substep_ops: dict  # kind -> count, run frame_skip times a call
+
+    @property
+    def ops_per_env(self) -> int:
+        """Operations one env's call runs: the prologue plus every substep."""
+        return sum(self.prologue_ops.values()) + self.frame_skip * sum(self.substep_ops.values())
+
+
+def generate_source(model: ArticulatedModel, frame_skip: int, name: str) -> GeneratedSource:
+    """Emit the kernel source of ``frame_skip`` substeps of ``model``.
+
+    The text defines ``struct ArticulatedStep`` with the model's widths and a
+    ``__host__ __device__`` ``run(q, qd, ctrl)`` that steps one env in
+    registers, then instantiates the fixed kernel and entry points of
+    ``csrc/articulated_step.cuh``. Under ``nvcc`` that gives the launcher
+    ``articulated_step_launch``; under a plain C++ compiler the host loop
+    ``articulated_step_host``, which tests the same text without a card.
+    """
+    if frame_skip < 1:
+        raise ValueError(f"frame_skip must be at least 1, got {frame_skip}")
+    t = model_tables(model)
+    ops = SymOps()
+    crows = [ops.input(f"c{a}", varying=False) for a in range(t.nu)]
+    qrows = [ops.input(f"q{i}", varying=True) for i in range(t.nq)]
+    qdrows = [ops.input(f"v{i}", varying=True) for i in range(t.nv)]
+    substep = make_substep(t, ops, clip_controls(t, ops, crows))
+    q_new, qd_new = substep(qrows, qdrows)
+    outputs = [x if isinstance(x, Sym) else ops.const(x) for x in q_new + qd_new]
+
+    live = _live(outputs)
+    prologue = [n for n in live if not n.varying]
+    body = [n for n in live if n.varying]
+    prologue_ops = dict(collections.Counter(n.kind for n in prologue))
+    substep_ops = dict(collections.Counter(n.kind for n in body))
+
+    def counts(c):
+        return ", ".join(f"{k} {v}" for k, v in sorted(c.items()))
+
+    ind2, ind3 = " " * 4, " " * 6
+    lines = [
+        f"// Generated by gymnasium_tpu_torch/ops/articulated_codegen.py for {name},",
+        f"// frame_skip {frame_skip}. Do not edit: edit the generator.",
+        f"// Once a call: {counts(prologue_ops) or 'nothing'}.",
+        f"// Each substep: {counts(substep_ops)}.",
+        '#include "articulated_step.cuh"',
+        "",
+        "struct ArticulatedStep {",
+        f"  static constexpr int kNq = {t.nq};",
+        f"  static constexpr int kNv = {t.nv};",
+        f"  static constexpr int kNu = {t.nu};",
+        "  static ART_FN void run(float* q, float* qd, const float* ctrl) {",
+    ]
+    lines += [f"{ind2}const float c{a} = ctrl[{a}];" for a in range(t.nu)]
+    lines += [ind2 + _statement(n) for n in prologue]
+    lines += [f"{ind2}float q{i} = q[{i}];" for i in range(t.nq)]
+    lines += [f"{ind2}float v{i} = qd[{i}];" for i in range(t.nv)]
+    lines += [f"{ind2}ART_NO_UNROLL", f"{ind2}for (int s = 0; s < {frame_skip}; ++s) {{"]
+    lines += [ind3 + _statement(n) for n in body]
+    new = [f"q{i}" for i in range(t.nq)] + [f"v{i}" for i in range(t.nv)]
+    lines += [f"{ind3}const float n{var} = {_ref(o)};" for var, o in zip(new, outputs)]
+    lines += [f"{ind3}{var} = n{var};" for var in new]
+    lines += [f"{ind2}}}"]
+    lines += [f"{ind2}q[{i}] = q{i};" for i in range(t.nq)]
+    lines += [f"{ind2}qd[{i}] = v{i};" for i in range(t.nv)]
+    lines += ["  }", "};", "", "ART_ENTRY_POINTS(ArticulatedStep)", ""]
+    return GeneratedSource(name, frame_skip, "\n".join(lines), prologue_ops, substep_ops)

@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` launcher. It is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under the
-package's ``build/`` directory (named by a hash of the source and flags, so an
-edited source is rebuilt) and loaded with ``ctypes``. Nothing is built when a
+package's ``build/`` directory (named by a hash of the source, the headers of
+``csrc/`` and the flags, so an edit rebuilds) and loaded with ``ctypes``.
+Generated sources (the articulated substep, emitted per model) are written
+under ``build/gen/`` first and built the same way. Nothing is built when a
 module is imported: the first launch builds, or a caller builds every kernel
 up front with :func:`build`, one ``nvcc`` process per source, all at once.
 """
@@ -23,8 +25,9 @@ __all__ = ["NVCC_FLAGS", "KERNELS", "build", "load"]
 _PACKAGE = Path(__file__).resolve().parent.parent
 SOURCE_DIR = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE / "build"
+GEN_DIR = BUILD_DIR / "gen"
 
-#: Every kernel source of the port, by name (``csrc/<name>.cu``).
+#: Every hand-written kernel source of the port, by name (``csrc/<name>.cu``).
 KERNELS = ("cartpole_rollout",)
 
 # -fmad=false keeps each float operation rounded where the plain PyTorch
@@ -48,37 +51,61 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc was not found on PATH or under CUDA_HOME (/usr/local/cuda)")
 
 
+def _digest(text: bytes) -> str:
+    digest = hashlib.sha256(text)
+    for header in sorted(SOURCE_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return digest.hexdigest()[:16]
+
+
 def library_path(name: str) -> Path:
     """Where the shared library of ``csrc/<name>.cu`` is built."""
-    digest = hashlib.sha256((SOURCE_DIR / f"{name}.cu").read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{name}-{_digest((SOURCE_DIR / f'{name}.cu').read_bytes())}.so"
 
 
-def build(names=KERNELS) -> dict[str, dict]:
-    """Compile every library in ``names`` that is not built yet, in parallel.
+def generated_source_path(name: str, text: str) -> Path:
+    """Where the generated source ``text`` named ``name`` is written."""
+    return GEN_DIR / f"{name}-{_digest(text.encode())}.cu"
 
-    Returns ``{name: {"seconds": wall time, "log": nvcc's output}}`` for the
-    libraries it compiled. Raises with nvcc's output if any compile fails.
+
+def _generated_library_path(name: str, text: str) -> Path:
+    return generated_source_path(name, text).with_suffix(".so")
+
+
+def build(names=KERNELS, generated: dict[str, str] | None = None) -> dict[str, dict]:
+    """Compile every library not built yet, in parallel.
+
+    ``names`` are sources under ``csrc/``; ``generated`` maps a name to a
+    generated source text, written under ``build/gen/`` and compiled with
+    ``csrc/`` on the include path. Returns ``{name: {"seconds": wall time,
+    "log": nvcc's output}}`` for the libraries it compiled. Raises with
+    nvcc's output if any compile fails.
     """
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    GEN_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
+    sources = {name: (SOURCE_DIR / f"{name}.cu", library_path(name)) for name in names}
+    for name, text in (generated or {}).items():
+        src = generated_source_path(name, text)
+        if not src.exists():
+            tmp_src = src.with_name(f"{src.stem}.{os.getpid()}.tmp.cu")
+            tmp_src.write_text(text)
+            os.replace(tmp_src, src)
+        sources[name] = (src, src.with_suffix(".so"))
+
     jobs = {}
-    for name in names:
-        out = library_path(name)
+    for name, (src, out) in sources.items():
         if out.exists():
             continue
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE_DIR / f"{name}.cu")]
-        proc = subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        )
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(SOURCE_DIR), "-o", str(tmp), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs[name] = (proc, tmp, out, time.perf_counter())
     built, failed = {}, []
     for name, (proc, tmp, out, start) in jobs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"nvcc failed for csrc/{name}.cu (rc {proc.returncode}):\n{log}")
+            failed.append(f"nvcc failed for {sources[name][0]} (rc {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
         built[name] = {"seconds": time.perf_counter() - start, "log": log}
@@ -87,11 +114,17 @@ def build(names=KERNELS) -> dict[str, dict]:
     return built
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    lib = _loaded.get(name)
+def load(name: str, text: str | None = None) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, or of the generated source
+    ``text`` when given, built first if needed."""
+    key = name if text is None else f"{name}-{_digest(text.encode())}"
+    lib = _loaded.get(key)
     if lib is None:
-        build((name,))
-        lib = ctypes.CDLL(str(library_path(name)))
-        _loaded[name] = lib
+        if text is None:
+            build((name,))
+            path = library_path(name)
+        else:
+            build((), {name: text})
+            path = _generated_library_path(name, text)
+        lib = _loaded[key] = ctypes.CDLL(str(path))
     return lib

@@ -20,6 +20,7 @@ from gymnasium_tpu_torch.functional import (
     TimeStep,
     make_autoreset_step,
     make_initial_carry,
+    tree_map,
     vectorize_func_env,
 )
 from gymnasium_tpu_torch.utils.device import resolve_device
@@ -119,7 +120,9 @@ class TorchVectorEnv(VectorEnv):
         mask = torch.as_tensor(reset_mask, device=self.device)
 
         def merge(new, old):
-            return torch.where(mask.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
+            return tree_map(
+                lambda a, b: torch.where(mask.reshape((-1,) + (1,) * (a.dim() - 1)), a, b), new, old
+            )
 
         self.carry = EnvCarry(
             state=merge(fresh.state, self.carry.state),

@@ -9,7 +9,8 @@ no JAX, so on a machine without it run::
 import pytest
 import torch
 
-from chip_smoke import compare_rollout_with_twin
+from chip_smoke import articulated_states, compare_articulated_with_twin, compare_rollout_with_twin
+from gymnasium_tpu_torch.ops import articulated_step as art
 from gymnasium_tpu_torch.ops import cartpole_rollout as cr
 
 pytestmark = pytest.mark.gpu
@@ -72,3 +73,24 @@ def test_rejects_non_contiguous_state(cuda):
             0,
             4,
         )
+
+
+@pytest.mark.parametrize("robot, n", [("half_cheetah", 1000), ("ant", 333)])
+def test_articulated_kernel_matches_twin(cuda, robot, n):
+    """One call of 5 substeps, at a batch that leaves the last block ragged;
+    within the same-program tolerance of the twin and deterministic."""
+    step = art.fused_step(robot, 5)
+    inputs = articulated_states(step.model, n, cuda, seed=3)
+    before = art.launches[step.build_name]
+    compare_articulated_with_twin(step, *inputs)
+    assert art.launches[step.build_name] == before + 2
+
+
+def test_articulated_kernel_takes_strided_inputs(cuda):
+    step = art.fused_step("half_cheetah", 5)
+    q, qd, ctrl = articulated_states(step.model, 256, cuda, seed=4)
+    strided = ctrl.t().contiguous().t()  # the same values, not contiguous
+    assert not strided.is_contiguous()
+    out = step(q, qd, strided)
+    ref = step(q, qd, ctrl)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
