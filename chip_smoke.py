@@ -6,10 +6,11 @@ Run from the repository root with no arguments::
     python3 chip_smoke.py
 
 It builds every kernel of the port with ``nvcc``, all at once: the
-hand-written ``gymnasium_tpu_torch/csrc/*.cu`` and the articulated substep
-generated for HalfCheetah and Ant (``frame_skip`` 5). Then it drives each
-path of the port once, with every kernel launch count set to 0 just before
-the path and read just after:
+hand-written ``gymnasium_tpu_torch/csrc/*.cu``, the articulated substep
+generated for HalfCheetah and Ant (``frame_skip`` 5) and the planar solver
+step generated for LunarLander (two substeps). Then it drives each path of
+the port once, with every kernel launch count set to 0 just before the path
+and read just after:
 
 - the CartPole-v1 headline of ``bench.py``: chained ``cartpole_rollout_fused``
   blocks of 4096 envs x 2048 steps with bf16 and f32 observations, after one
@@ -17,7 +18,11 @@ the path and read just after:
 - ``TorchVectorEnv`` over CartPole at 4096 envs, and ``entry()`` at 256 envs;
 - ``TorchVectorEnv(HalfCheetahFunctional(), 4096, max_episode_steps=1000)``:
   reset, four steps, a masked reset of every other lane, ``rollout(100)``.
-  Each env step is one launch of the generated articulated kernel.
+  Each env step is one launch of the generated articulated kernel;
+- ``TorchVectorEnv(LunarLanderFunctional(), 4096, max_episode_steps=1000)``:
+  reset, four steps, a masked reset of every other lane, ``rollout(200)``.
+  Each env step launches the generated planar kernel twice: the transition
+  and the settle tick of the reset drawn for every lane.
 
 It holds each kernel against its plain PyTorch version on the card and times
 both. It prints the card's name and power limit, one ``{"kernels": [...]}``
@@ -70,6 +75,20 @@ ART_ROLLOUT = 100
 # (tests/ops/test_pallas_articulated.py:110-117: q rtol 2e-4 / atol 2e-3, qd
 # rtol 2e-3 / atol 0.15), which stay for comparisons with make_dynamics.
 ART_Q_ATOL, ART_QD_ATOL = 1e-5, 1e-4
+
+PLANAR_GRAVITY = -10.0
+PLANAR_TIME_LIMIT = 1000
+PLANAR_WARM_STEPS = 4
+PLANAR_ROLLOUT = 200
+# Kernel and twin run the same generated program and round alike, so they are
+# held at the same-program atol of tests/test_torch_planar.py (the twin
+# against the JAX row program), inside the JAX kernel test's tolerances
+# (tests/ops/test_pallas_planar.py:107-110: bodies 2e-4, impulses 1e-4).
+# Flags are exact.
+PLANAR_ATOL = 1e-5
+# An env's call reads 68 floats (18 body, 9 external, 11 terrain, 10 joint and
+# 20 contact impulses) and writes 48 floats and 10 one-byte flags.
+PLANAR_BYTES_PER_ENV = 4 * 68 + 4 * 48 + 10
 
 
 def check(cond, message: str) -> None:
@@ -382,6 +401,188 @@ def compare_articulated_with_twin(step, q, qd, ctrl) -> tuple[float, float, int]
     return errs[0], errs[1], small
 
 
+def run_lunar_lander(dev, n: int = NUM_ENVS) -> float:
+    """LunarLander-v3 under ``TorchVectorEnv``: reset, a few sampled steps, a
+    masked reset of every other lane, then ``rollout(PLANAR_ROLLOUT)``.
+    Returns the rollout's host-clock env-steps/s."""
+    from gymnasium_tpu_torch.envs.box2d.lunar_lander import LunarLanderFunctional
+    from gymnasium_tpu_torch.functional import tree_map
+    from gymnasium_tpu_torch.vector import TorchVectorEnv
+
+    env = TorchVectorEnv(LunarLanderFunctional(), n, max_episode_steps=PLANAR_TIME_LIMIT, device=dev)
+    obs, _ = env.reset(seed=0)
+    terrain_reset = env.carry.state["terrain"].clone()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for _ in range(PLANAR_WARM_STEPS):
+        actions = env.single_action_space.sample_torch(gen, (n,))
+        obs, reward, term, trunc, _ = env.step(actions)
+    check(bool(torch.isfinite(obs).all() and torch.isfinite(reward).all()), "lunar_lander step not finite")
+    check(not bool(env.carry.prev_done.any()), "a lunar_lander lane ended within the first steps")
+    check(torch.equal(env.carry.state["terrain"], terrain_reset), "terrain changed over steps without a reset")
+
+    mask = np.zeros(n, np.bool_)
+    mask[::2] = True
+    keep = torch.from_numpy(~mask).to(dev)
+    before = tree_map(torch.clone, env.carry.state)
+    mobs, _ = env.reset(options={"reset_mask": mask})
+    for key, leaf in env.carry.state.items():
+        check(leaf.dtype == before[key].dtype, f"masked reset changed the dtype of {key}")
+        check(torch.equal(leaf[keep], before[key][keep]), f"masked reset moved kept {key}")
+    check(not torch.equal(env.carry.state["terrain"][~keep], before["terrain"][~keep]),
+          "masked reset kept the terrain of reset lanes")
+    check(torch.equal(mobs[keep], obs[keep]), "masked reset changed kept lanes' obs")
+
+    terrain0 = env.carry.state["terrain"].clone()
+    done0 = env.carry.prev_done.clone()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    carry, traj = env.rollout(PLANAR_ROLLOUT)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    check(traj.obs.shape == (PLANAR_ROLLOUT, n, 8), f"lunar_lander obs shape {tuple(traj.obs.shape)}")
+    check(bool(torch.isfinite(traj.obs).all()), "lunar_lander rollout obs not finite")
+    check(bool(torch.isfinite(traj.reward).all()), "lunar_lander rollout reward not finite")
+    for key in ("leg1", "leg2", "done"):
+        check(carry.state[key].dtype == torch.bool, f"lunar_lander {key} is not bool after the rollout")
+    ended = traj.terminated
+    check(bool(ended.any()), "no lunar_lander lane crashed or landed in the rollout")
+    ended_reward = traj.reward[ended]
+    check(bool(((ended_reward == -100.0) | (ended_reward == 100.0)).all()),
+          "a terminated lunar_lander step's reward is not -100 or +100")
+    # a lane resets on the step after a done and draws a new terrain then;
+    # a lane with no done before the last step keeps its terrain
+    reset = done0 | (traj.terminated[:-1] | traj.truncated[:-1]).any(dim=0)
+    changed = (carry.state["terrain"] != terrain0).any(dim=1)
+    check(torch.equal(changed, reset), "terrain changed on a lane that did not reset, or kept on one that did")
+    print(f"lunar_lander rollout: {int(ended.sum())} terminations "
+          f"({int((ended_reward == -100.0).sum())} crashed, {int((ended_reward == 100.0).sum())} landed), "
+          f"{int(reset.sum())} of {n} lanes reset", flush=True)
+    return n * PLANAR_ROLLOUT / seconds
+
+
+def planar_states(n: int, dev, seed: int = 0):
+    """Inputs of the lander's planar step, in four groups by lane index mod 4.
+
+    0. ``tests/ops/test_pallas_planar.py::_random_lander_states``: the hull
+       3.4-6 m up with random velocities, external forces and impulses;
+       each leg turned 0.05 rad against the hull, past its hip limit.
+    1. The same, with the leg corners within 3 cm of the ground under the hull.
+    2. The creation pose of ``initial_state_pre`` with no force and no
+       impulses: the reset tick's input, hip joints violated.
+    3. The hull 0.5-1.5 m beyond either end of the terrain and 1.2-2 m deep
+       in the ground, so the terrain index clips and the position pass's
+       contact correction hits its clamp.
+    """
+    from gymnasium_tpu_torch.envs.dynamics import lunar_lander as dyn
+
+    rng = np.random.default_rng(seed)
+    terrain_u = rng.uniform(0, 1, (n, dyn.CHUNKS + 1)).astype(np.float32)
+    force_u = rng.uniform(-1, 1, (n, 2)).astype(np.float32)
+    pre = dyn.initial_state_pre(torch.from_numpy(terrain_u), torch.from_numpy(force_u), dyn.LunarParams())
+    terrain = pre["terrain"].numpy()
+    group = np.arange(n) % 4
+    near, pose, deep = group == 1, group == 2, group == 3
+
+    hx = dyn.W / 2 + rng.uniform(-1, 1, n)
+    hy = rng.uniform(3.4, 6.0, n)
+    ang = rng.uniform(-0.4, 0.4, n)
+    xs = np.linspace(0, dyn.W, dyn.CHUNKS)
+    ground = np.array([np.interp(x, xs, h) for x, h in zip(hx, terrain)])
+    # the leg corners sit 0.3 + LEG_H / SCALE, about 0.57 m, below the hull centre
+    hy[near] = ground[near] + 0.3 + dyn.LEG_H / dyn.SCALE + rng.uniform(-0.03, 0.03, near.sum())
+    ang[near] = rng.uniform(-0.1, 0.1, near.sum())
+    left = deep & (rng.uniform(size=n) < 0.5)
+    right = deep & ~left
+    hx[left] = rng.uniform(-1.5, -0.5, left.sum())
+    hx[right] = dyn.W + rng.uniform(0.5, 1.5, right.sum())
+    end_ground = np.where(hx < 0, terrain[:, 0], terrain[:, -1])
+    hy[deep] = end_ground[deep] - rng.uniform(1.2, 2.0, deep.sum())
+
+    bodies = np.zeros((n, 3, 6), np.float32)
+    bodies[:, 0, 0], bodies[:, 0, 1], bodies[:, 0, 2] = hx, hy, ang
+    bodies[:, 0, 3:6] = rng.uniform(-1, 1, (n, 3))
+    for i, sgn in enumerate((-1.0, 1.0)):
+        bodies[:, 1 + i, 0] = bodies[:, 0, 0] - sgn * dyn.LEG_AWAY / dyn.SCALE
+        bodies[:, 1 + i, 1] = bodies[:, 0, 1] - 0.3
+        bodies[:, 1 + i, 2] = bodies[:, 0, 2] + sgn * 0.05
+        bodies[:, 1 + i, 3:6] = rng.uniform(-1, 1, (n, 3))
+    ext = np.zeros((n, 3, 3), np.float32)
+    ext[:, 0, :] = rng.uniform(-5, 5, (n, 3))
+    jimp = rng.uniform(-0.05, 0.05, (n, 2, 5)).astype(np.float32)
+    cimp = rng.uniform(0, 0.05, (n, dyn.N_CONTACTS, 2)).astype(np.float32)
+    bodies[pose] = pre["body"].numpy()[pose]
+    ext[pose], jimp[pose], cimp[pose] = 0.0, 0.0, 0.0
+    return tuple(torch.from_numpy(x).to(dev) for x in (bodies, ext, terrain, jimp, cimp))
+
+
+def planar_branch_lanes(step, bodies, external, terrain, jimp, cimp) -> dict:
+    """Lanes whose first tick reaches each side of the solver, counted from
+    the inputs with plain float64 arithmetic at the input pose."""
+    t = step.tables
+    b, terr = bodies.double(), terrain.double()
+    ang = b[:, :, 2]
+    idx = torch.tensor(t.c_body, device=b.device)
+    pts = torch.tensor(t.c_point, dtype=torch.float64, device=b.device)
+    cb, sb = torch.cos(ang[:, idx]), torch.sin(ang[:, idx])
+    rx = pts[:, 0] * cb - pts[:, 1] * sb
+    ry = pts[:, 0] * sb + pts[:, 1] * cb
+    u = (b[:, idx, 0] + rx) / t.spacing
+    xc = u.clamp(0.0, t.chunks - 1 - 1e-6)
+    i0 = torch.floor(xc).long()
+    h0 = terr.gather(1, i0)
+    h1 = terr.gather(1, (i0 + 1).clamp(max=t.chunks - 1))
+    depth = h0 + (xc - i0) * (h1 - h0) - (b[:, idx, 1] + ry)
+    j_angle = ang[:, t.j_b] - ang[:, t.j_a] - torch.tensor(t.j_ref, dtype=torch.float64, device=b.device)
+    lower = torch.tensor(t.j_lower, dtype=torch.float64, device=b.device)
+    upper = torch.tensor(t.j_upper, dtype=torch.float64, device=b.device)
+    over = (j_angle - lower).clamp(max=0.0) + (j_angle - upper).clamp(min=0.0)
+    lanes = {
+        "active_contact": (depth > 0).any(1),
+        "dropped_warm_impulse": ((depth <= 0) & (cimp != 0).any(-1)).any(1),
+        "lower_limit": (j_angle < lower).any(1),
+        "upper_limit": (j_angle > upper).any(1),
+        "clamped_contact_correction": (t.baumgarte * (depth - t.slop) > t.max_corr).any(1),
+        "clamped_angle_correction": (over.abs() > 8.0 * 3.14159265 / 180.0).any(1),
+        "clipped_terrain_index": ((u < 0) | (u > t.chunks - 1 - 1e-6)).any(1),
+    }
+    return {name: int(hit.sum()) for name, hit in lanes.items()}
+
+
+def compare_planar_with_twin(step, inputs) -> dict:
+    """One kernel call against the plain twin on the same inputs. Raises
+    beyond the same-program tolerance, on any differing flag, if two calls
+    differ in a bit, or if a side of the solver is reached by no lane.
+    Returns the largest deviations and the branch counts."""
+    out = step(*inputs)
+    again = step(*inputs)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(out, again)), f"{step.name}: same input, different bits")
+    ref = step.reference(*inputs)
+    result = {}
+    for label, got, want in zip(("bodies", "jimp", "cimp"), out[:3], ref[:3]):
+        check(bool(torch.isfinite(got).all()), f"{step.name}: kernel {label} not finite")
+        err = float((got - want).abs().max())
+        check(err <= PLANAR_ATOL, f"{step.name}: kernel {label} differs from the twin by {err} > {PLANAR_ATOL}")
+        result[f"max_abs_err_{label}"] = err
+    check(out[3].dtype == torch.bool, f"{step.name}: flags are {out[3].dtype}, not bool")
+    result["flag_mismatches"] = int((out[3] != ref[3]).sum())
+    check(result["flag_mismatches"] == 0, f"{step.name}: {result['flag_mismatches']} flags differ from the twin")
+    result["flags_set"] = int(out[3].sum())
+    result["bit_equal"] = all(torch.equal(a, b) for a, b in zip(out, ref))
+    branches = planar_branch_lanes(step, *inputs)
+    missing = [name for name, count in branches.items() if count == 0]
+    check(not missing, f"{step.name}: no lane reaches {missing}")
+    result["branch_lanes"] = branches
+    return result
+
+
+def planar_bound_ms(step, n: int) -> tuple[float, str]:
+    """Each env reads 68 floats and writes 48 floats and 10 flag bytes once,
+    and runs the operations the generator emitted (cos, sin, floor, divide,
+    select and compare count one each) at the float32 rate."""
+    return bound(n * PLANAR_BYTES_PER_ENV, n * step.source.ops_per_env / FP32_OPS_PER_S)
+
+
 def run_entry() -> None:
     from gymnasium_tpu_torch.entry import entry
 
@@ -398,9 +599,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    from gymnasium_tpu_torch.envs.dynamics.lunar_lander import lander_step
     from gymnasium_tpu_torch.ops import articulated_step as art
     from gymnasium_tpu_torch.ops import build
     from gymnasium_tpu_torch.ops import cartpole_rollout as cr
+    from gymnasium_tpu_torch.ops import planar_step as pl
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -413,9 +616,12 @@ def main() -> int:
     # -- build every kernel at once -------------------------------------------
     start = time.perf_counter()
     steps = {name: art.fused_step(name, ART_FRAME_SKIP) for name in ART_MODELS}
+    planar = lander_step(PLANAR_GRAVITY)
     generated = {step.build_name: step.source.text for step in steps.values()}
+    generated[planar.build_name] = planar.source.text
     print(f"generate: {time.perf_counter() - start:.2f} s; operations an env-call: "
-          + ", ".join(f"{name} {step.source.ops_per_env}" for name, step in steps.items()), flush=True)
+          + ", ".join(f"{name} {step.source.ops_per_env}" for name, step in steps.items())
+          + f", lunar_lander {planar.source.ops_per_env}", flush=True)
     start = time.perf_counter()
     built = build.build(build.KERNELS, generated)
     print(f"build: {time.perf_counter() - start:.2f} s for {sorted(built)}", flush=True)
@@ -426,16 +632,18 @@ def main() -> int:
         print(info["log"].strip(), flush=True)
 
     # -- main path: each path with every launch count at 0 just before --------
-    # Counts by kernel: the CartPole rollout, and each articulated build by
-    # its name; a launch of any other articulated build shows as a key too.
-    art_zero = {step.build_name: 0 for step in steps.values()}
+    # Counts by kernel: the CartPole rollout, and each generated build by its
+    # name; a launch of any other generated build shows as a key too.
+    gen_zero = {step.build_name: 0 for step in steps.values()}
+    gen_zero[planar.build_name] = 0
 
     def counted(label, fn):
         cr.launches = 0
         art.launches.clear()
+        pl.launches.clear()
         out = fn()
         torch.cuda.synchronize()
-        counts = {"cartpole_rollout_fused": cr.launches, **art_zero, **art.launches}
+        counts = {"cartpole_rollout_fused": cr.launches, **gen_zero, **art.launches, **pl.launches}
         print(f"path {label}: launches {counts}", flush=True)
         return out, counts
 
@@ -449,17 +657,23 @@ def main() -> int:
     vec_rate, vec_counts = counted("cartpole TorchVectorEnv", lambda: run_vector_env(dev))
     _, entry_counts = counted("entry()", run_entry)
     hc_rate, hc_counts = counted("half_cheetah TorchVectorEnv", lambda: run_half_cheetah(dev))
-    check(head_counts == {"cartpole_rollout_fused": 2 * HEADLINE_BLOCKS, **art_zero},
+    ll_rate, ll_counts = counted("lunar_lander TorchVectorEnv", lambda: run_lunar_lander(dev))
+    check(head_counts == {"cartpole_rollout_fused": 2 * HEADLINE_BLOCKS, **gen_zero},
           f"headline launches {head_counts}")
     check(not any(vec_counts.values()) and not any(entry_counts.values()),
           "the CartPole TorchVectorEnv or entry() launched a kernel")
-    hc_want = {"cartpole_rollout_fused": 0, **art_zero,
+    hc_want = {"cartpole_rollout_fused": 0, **gen_zero,
                steps["half_cheetah"].build_name: ART_WARM_STEPS + ART_ROLLOUT}
     check(hc_counts == hc_want, f"half_cheetah path launches {hc_counts}, want {hc_want}")
+    # reset, then two launches a step (transition, reset tick), the masked reset
+    ll_want = {"cartpole_rollout_fused": 0, **gen_zero,
+               planar.build_name: 1 + 2 * PLANAR_WARM_STEPS + 1 + 2 * PLANAR_ROLLOUT}
+    check(ll_counts == ll_want, f"lunar_lander path launches {ll_counts}, want {ll_want}")
     main_launches = head_counts["cartpole_rollout_fused"]
     print(f"main path: host-clock env-steps/s headline bf16={headline['torch.bfloat16']:.0f} "
           f"f32={headline['torch.float32']:.0f}, CartPole TorchVectorEnv.rollout(256)={vec_rate:.0f}, "
-          f"HalfCheetah TorchVectorEnv.rollout({ART_ROLLOUT})={hc_rate:.0f}", flush=True)
+          f"HalfCheetah TorchVectorEnv.rollout({ART_ROLLOUT})={hc_rate:.0f}, "
+          f"LunarLander TorchVectorEnv.rollout({PLANAR_ROLLOUT})={ll_rate:.0f}", flush=True)
     for name, times in block_ms.items():
         print(f"headline host-clock ms per block, obs={name}: "
               + " ".join(f"{t:.4f}" for t in times), flush=True)
@@ -495,6 +709,12 @@ def main() -> int:
         print(f"articulated kernel vs twin ({name}, N={NUM_ENVS}, frame_skip {ART_FRAME_SKIP}): "
               f"max|dq|={art_errs[name][0]:.3e} max|dqd|={art_errs[name][1]:.3e}; deterministic; "
               f"{art_errs[name][2]} lanes on the small-angle side", flush=True)
+
+    # -- the planar kernel against its twin -----------------------------------
+    planar_inputs = planar_states(NUM_ENVS, dev)
+    planar_cmp = compare_planar_with_twin(planar, planar_inputs)
+    print(f"planar kernel vs twin (lunar_lander, N={NUM_ENVS}, substeps {planar.substeps}): {planar_cmp}; "
+          "deterministic", flush=True)
 
     # -- times ----------------------------------------------------------------
     results = {}
@@ -561,6 +781,35 @@ def main() -> int:
                 "ok": True,
             }
         )
+    planar_ms = cuda_ms(lambda: planar(*planar_inputs), 50, 5)
+    planar_plain_ms = cuda_ms(lambda: planar.reference(*planar_inputs), 1, 1)
+    planar_bound, planar_bound_by = planar_bound_ms(planar, NUM_ENVS)
+    print(f"planar_step[lunar_lander] N={NUM_ENVS}: {planar_ms:.4f} ms/call, bound {planar_bound:.4f} ms "
+          f"({planar_bound_by}), {planar_bound / planar_ms:.2%} of bound; "
+          f"plain twin {planar_plain_ms:.2f} ms/call", flush=True)
+    kernels.append(
+        {
+            "name": "planar_step[lunar_lander]",
+            "route": "cuda",
+            "source": "gymnasium_tpu_torch/csrc/planar_step.cuh",
+            "generator": "gymnasium_tpu_torch/ops/planar_codegen.py",
+            "replaces": "gymnasium_tpu/ops/pallas_planar.py:37",
+            "launches": ll_counts[planar.build_name],
+            "on_main_path": ll_counts[planar.build_name] > 0,
+            "max_abs_err": max(planar_cmp[f"max_abs_err_{k}"] for k in ("bodies", "jimp", "cimp")),
+            **planar_cmp,
+            "ms": planar_ms,
+            "plain_ms": planar_plain_ms,
+            "bound_ms": planar_bound,
+            "bound_by": planar_bound_by,
+            "library_ms": None,
+            "substeps": planar.substeps,
+            "ops_per_env": planar.source.ops_per_env,
+            "nvcc_s": built.get(planar.build_name, {}).get("seconds"),
+            **ptxas.get(planar.build_name, {}),
+            "ok": True,
+        }
+    )
     print(json.dumps({"kernels": kernels}), flush=True)
     result = {"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}
     print(json.dumps(result), flush=True)

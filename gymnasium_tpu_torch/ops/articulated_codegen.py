@@ -13,17 +13,11 @@ quaternion exponential.
 Sparsity is folded in Python as the JAX generator folds it: a python float
 ``0.0`` is a structural zero, and constants combine in float64 until they
 meet a per-env value, where they round to float32 once. The generator is
-written once, over a small ops namespace (``cos``, ``sin``, ``sqrt``,
-``maximum``, ``minimum``, ``where``, ``clip``; comparisons and arithmetic
-through Python operators), and runs over two backends:
-
-- :class:`TorchOps`: the per-env values are ``(N,)`` float32 tensors, and the
-  generator computes the substep itself. This is the plain PyTorch twin.
-- :class:`SymOps`: the values are :class:`Sym` nodes. Each operation appends
-  one node, equal nodes are shared, and :func:`generate_source` emits the
-  live nodes as one C statement each (``const float t7 = t3 * t5;``), with
-  every constant as a float32 literal. The result is the CUDA source of the
-  kernel, and the count of each kind of operation it holds.
+written once, over the ops namespace of :mod:`gymnasium_tpu_torch.ops.codegen`,
+and runs over its two backends: over ``TorchOps`` it computes the substep
+itself (the plain PyTorch twin); over ``SymOps`` :func:`generate_source`
+emits the live nodes as one C statement each, which gives the CUDA source of
+the kernel and the count of each kind of operation it holds.
 
 Both backends run the JAX row program's operations in its order, with the
 same rounded constants.
@@ -35,8 +29,8 @@ import collections
 import dataclasses
 
 import numpy as np
-import torch
 
+from gymnasium_tpu_torch.ops.codegen import GeneratedSource, Sym, SymOps, _live, _ref, _statement
 from gymnasium_tpu_torch.physics.articulated import (
     HINGE,
     SLIDE,
@@ -53,9 +47,6 @@ __all__ = [
     "model_tables",
     "make_substep",
     "clip_controls",
-    "TorchOps",
-    "Sym",
-    "SymOps",
     "GeneratedSource",
     "generate_source",
 ]
@@ -551,263 +542,6 @@ def make_substep(t: ModelTables, ops, crows):
         return pos_new + quat + joints_new, qd_new
 
     return substep
-
-
-# ---------------------------------------------------------------------------
-# Backend (a): torch tensors, the plain twin.
-
-
-class TorchOps:
-    """The ops namespace over float32 tensors on ``device``.
-
-    A python number that reaches an op becomes a float32 tensor there, as a
-    weakly typed python scalar does in ``jnp``.
-    """
-
-    def __init__(self, device):
-        self.device = device
-
-    def _tensor(self, x) -> torch.Tensor:
-        if isinstance(x, torch.Tensor):
-            return x
-        return torch.tensor(float(x), dtype=torch.float32, device=self.device)
-
-    def cos(self, x):
-        return torch.cos(self._tensor(x))
-
-    def sin(self, x):
-        return torch.sin(self._tensor(x))
-
-    def sqrt(self, x):
-        return torch.sqrt(self._tensor(x))
-
-    def maximum(self, a, b):
-        if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
-            return torch.maximum(a, b)
-        if isinstance(a, torch.Tensor):
-            return torch.clamp_min(a, float(b))
-        if isinstance(b, torch.Tensor):
-            return torch.clamp_min(b, float(a))
-        return self._tensor(max(np.float32(a), np.float32(b)))
-
-    def minimum(self, a, b):
-        if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
-            return torch.minimum(a, b)
-        if isinstance(a, torch.Tensor):
-            return torch.clamp_max(a, float(b))
-        if isinstance(b, torch.Tensor):
-            return torch.clamp_max(b, float(a))
-        return self._tensor(min(np.float32(a), np.float32(b)))
-
-    def where(self, cond, a, b):
-        if isinstance(cond, (bool, np.bool_)):
-            return self._tensor(a if cond else b)
-        return torch.where(cond, a, b)
-
-    def clip(self, x, lo: float, hi: float):
-        return torch.clamp(self._tensor(x), lo, hi)
-
-
-# ---------------------------------------------------------------------------
-# Backend (b): symbolic nodes, emitted as C.
-
-_C_BINARY = {"add": "+", "sub": "-", "mul": "*", "div": "/", "gt": ">", "lt": "<", "or": "||"}
-_C_CALL = {"sqrt": "sqrtf", "cos": "cosf", "sin": "sinf", "max": "fmaxf", "min": "fminf"}
-_BOOL_RESULT = frozenset({"gt", "lt", "or"})
-# operations on constants only are folded in float32, as the card would round them
-_FOLD = {
-    "add": lambda a, b: a + b,
-    "sub": lambda a, b: a - b,
-    "mul": lambda a, b: a * b,
-    "div": lambda a, b: a / b,
-    "neg": lambda a: -a,
-    "sqrt": np.sqrt,
-    "max": np.maximum,
-    "min": np.minimum,
-    "gt": lambda a, b: np.bool_(a > b),
-    "lt": lambda a, b: np.bool_(a < b),
-    "or": lambda a, b: np.bool_(a or b),
-    "select": lambda c, a, b: a if c else b,
-}
-
-
-class Sym:
-    """One value of the emitted program: an input, a constant or an operation."""
-
-    __slots__ = ("prog", "id", "kind", "args", "dtype", "varying", "value")
-
-    def __init__(self, prog, kind, args=(), dtype="f", varying=False, value=None):
-        self.prog, self.kind, self.args = prog, kind, args
-        self.dtype, self.varying, self.value = dtype, varying, value
-        self.id = len(prog.nodes)
-        prog.nodes.append(self)
-
-    def __add__(self, o):
-        return self.prog.op("add", self, o)
-
-    def __radd__(self, o):
-        return self.prog.op("add", o, self)
-
-    def __sub__(self, o):
-        return self.prog.op("sub", self, o)
-
-    def __rsub__(self, o):
-        return self.prog.op("sub", o, self)
-
-    def __mul__(self, o):
-        return self.prog.op("mul", self, o)
-
-    def __rmul__(self, o):
-        return self.prog.op("mul", o, self)
-
-    def __truediv__(self, o):
-        return self.prog.op("div", self, o)
-
-    def __rtruediv__(self, o):
-        return self.prog.op("div", o, self)
-
-    def __neg__(self):
-        return self.prog.op("neg", self)
-
-    def __gt__(self, o):
-        return self.prog.op("gt", self, o)
-
-    def __lt__(self, o):
-        return self.prog.op("lt", self, o)
-
-    def __or__(self, o):
-        return self.prog.op("or", self, o)
-
-    def __bool__(self):
-        raise TypeError("a symbolic value has no truth value: the program cannot branch on data")
-
-
-class SymOps:
-    """The ops namespace over :class:`Sym` nodes; it owns the node list."""
-
-    def __init__(self):
-        self.nodes: list[Sym] = []
-        self._memo: dict = {}
-
-    def input(self, name: str, varying: bool) -> Sym:
-        return Sym(self, "input", dtype="f", varying=varying, value=name)
-
-    def const(self, value) -> Sym:
-        if isinstance(value, (bool, np.bool_)):
-            key, dtype, value = ("const", bool(value)), "b", np.bool_(value)
-        else:
-            value = np.float32(value)
-            if not np.isfinite(value):
-                raise ValueError(f"the program holds a non-finite constant {value}")
-            key, dtype = ("const", "f", value.tobytes()), "f"
-        node = self._memo.get(key)
-        if node is None:
-            node = self._memo[key] = Sym(self, "const", dtype=dtype, value=value)
-        return node
-
-    def op(self, kind: str, *args) -> Sym:
-        args = tuple(a if isinstance(a, Sym) else self.const(a) for a in args)
-        if all(a.kind == "const" for a in args) and kind in _FOLD:
-            return self.const(_FOLD[kind](*(a.value for a in args)))
-        key = (kind,) + tuple(a.id for a in args)
-        node = self._memo.get(key)
-        if node is None:
-            if kind == "select":
-                dtype = args[1].dtype
-            else:
-                dtype = "b" if kind in _BOOL_RESULT else "f"
-            node = self._memo[key] = Sym(
-                self, kind, args, dtype=dtype, varying=any(a.varying for a in args)
-            )
-        return node
-
-    def cos(self, x):
-        return self.op("cos", x)
-
-    def sin(self, x):
-        return self.op("sin", x)
-
-    def sqrt(self, x):
-        return self.op("sqrt", x)
-
-    def maximum(self, a, b):
-        return self.op("max", a, b)
-
-    def minimum(self, a, b):
-        return self.op("min", a, b)
-
-    def where(self, cond, a, b):
-        if isinstance(cond, (bool, np.bool_)):
-            pick = a if cond else b
-            return pick if isinstance(pick, Sym) else self.const(pick)
-        return self.op("select", cond, a, b)
-
-    def clip(self, x, lo: float, hi: float):
-        # jnp.clip is minimum(maximum(x, lo), hi)
-        return self.op("min", self.op("max", x, lo), hi)
-
-
-def _literal(value) -> str:
-    if isinstance(value, np.bool_):
-        return "true" if value else "false"
-    text = "%.9g" % float(value)
-    if not any(ch in text for ch in ".e"):
-        text += ".0"
-    text += "f"
-    return f"({text})" if text.startswith("-") else text
-
-
-def _ref(node: Sym) -> str:
-    if node.kind == "const":
-        return _literal(node.value)
-    if node.kind == "input":
-        return node.value
-    return f"t{node.id}"
-
-
-def _statement(node: Sym) -> str:
-    ctype = "bool" if node.dtype == "b" else "float"
-    args = [_ref(a) for a in node.args]
-    if node.kind in _C_BINARY:
-        expr = f"{args[0]} {_C_BINARY[node.kind]} {args[1]}"
-    elif node.kind in _C_CALL:
-        expr = f"{_C_CALL[node.kind]}({', '.join(args)})"
-    elif node.kind == "neg":
-        expr = f"-{args[0]}"
-    elif node.kind == "select":
-        expr = f"{args[0]} ? {args[1]} : {args[2]}"
-    else:
-        raise ValueError(f"no C form for {node.kind}")
-    return f"const {ctype} t{node.id} = {expr};"
-
-
-def _live(outputs) -> list[Sym]:
-    """The operation nodes the outputs depend on, in creation order."""
-    seen, stack = set(), [o for o in outputs if isinstance(o, Sym)]
-    while stack:
-        node = stack.pop()
-        if node.id in seen:
-            continue
-        seen.add(node.id)
-        stack.extend(node.args)
-    prog = outputs[0].prog
-    return [prog.nodes[i] for i in sorted(seen) if prog.nodes[i].kind not in ("const", "input")]
-
-
-@dataclasses.dataclass(frozen=True)
-class GeneratedSource:
-    """The emitted CUDA source of one ``(model, frame_skip)`` and its counts."""
-
-    name: str
-    frame_skip: int
-    text: str
-    prologue_ops: dict  # kind -> count, run once a call (control clip, gear)
-    substep_ops: dict  # kind -> count, run frame_skip times a call
-
-    @property
-    def ops_per_env(self) -> int:
-        """Operations one env's call runs: the prologue plus every substep."""
-        return sum(self.prologue_ops.values()) + self.frame_skip * sum(self.substep_ops.values())
 
 
 def generate_source(model: ArticulatedModel, frame_skip: int, name: str) -> GeneratedSource:

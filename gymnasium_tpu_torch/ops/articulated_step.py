@@ -22,12 +22,12 @@ import torch
 from gymnasium_tpu_torch.envs.mujoco.mujoco_env import load_model
 from gymnasium_tpu_torch.ops import build
 from gymnasium_tpu_torch.ops.articulated_codegen import (
-    TorchOps,
     clip_controls,
     generate_source,
     make_substep,
     model_tables,
 )
+from gymnasium_tpu_torch.ops.codegen import TorchOps
 from gymnasium_tpu_torch.physics.articulated import ArticulatedModel
 
 __all__ = ["make_fused_step", "fused_step", "launches"]

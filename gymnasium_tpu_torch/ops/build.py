@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` launcher. It is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under the
 package's ``build/`` directory (named by a hash of the source, the headers of
-``csrc/`` and the flags, so an edit rebuilds) and loaded with ``ctypes``.
-Generated sources (the articulated substep, emitted per model) are written
-under ``build/gen/`` first and built the same way. Nothing is built when a
+``csrc/`` it includes and the flags, so an edit rebuilds) and loaded with
+``ctypes``. Generated sources (the articulated substep emitted per model, the
+planar solver step emitted per world) are written under ``build/gen/`` first
+and built the same way. Nothing is built when a
 module is imported: the first launch builds, or a caller builds every kernel
 up front with :func:`build`, one ``nvcc`` process per source, all at once.
 """
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -51,10 +53,14 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc was not found on PATH or under CUDA_HOME (/usr/local/cuda)")
 
 
+_INCLUDE = re.compile(rb'^#include "([\w.]+\.cuh)"', re.MULTILINE)
+
+
 def _digest(text: bytes) -> str:
+    """Hash of a source, the ``csrc/`` headers it includes and the flags."""
     digest = hashlib.sha256(text)
-    for header in sorted(SOURCE_DIR.glob("*.cuh")):
-        digest.update(header.read_bytes())
+    for header in sorted(set(_INCLUDE.findall(text))):
+        digest.update((SOURCE_DIR / header.decode()).read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return digest.hexdigest()[:16]
 

@@ -9,9 +9,17 @@ no JAX, so on a machine without it run::
 import pytest
 import torch
 
-from chip_smoke import articulated_states, compare_articulated_with_twin, compare_rollout_with_twin
+from chip_smoke import (
+    articulated_states,
+    compare_articulated_with_twin,
+    compare_planar_with_twin,
+    compare_rollout_with_twin,
+    planar_states,
+)
+from gymnasium_tpu_torch.envs.dynamics.lunar_lander import lander_step
 from gymnasium_tpu_torch.ops import articulated_step as art
 from gymnasium_tpu_torch.ops import cartpole_rollout as cr
+from gymnasium_tpu_torch.ops import planar_step as pl
 
 pytestmark = pytest.mark.gpu
 
@@ -94,3 +102,33 @@ def test_articulated_kernel_takes_strided_inputs(cuda):
     out = step(q, qd, strided)
     ref = step(q, qd, ctrl)
     assert all(torch.equal(a, b) for a, b in zip(out, ref))
+
+
+@pytest.mark.parametrize("n", [1000, 4096])
+def test_planar_kernel_matches_twin(cuda, n):
+    """One call of both substeps on the mixed lander inputs (the last block
+    ragged at 1000); within the same-program tolerance of the twin, flags
+    exact, deterministic, and every side of the solver reached."""
+    step = lander_step(-10.0)
+    inputs = planar_states(n, cuda, seed=3)
+    before = pl.launches[step.build_name]
+    result = compare_planar_with_twin(step, inputs)
+    assert pl.launches[step.build_name] == before + 2
+    assert result["flag_mismatches"] == 0
+
+
+def test_planar_kernel_takes_strided_inputs(cuda):
+    step = lander_step(-10.0)
+    bodies, ext, terrain, jimp, cimp = planar_states(256, cuda, seed=4)
+    strided = [x.transpose(0, -1).contiguous().transpose(0, -1) for x in (bodies, terrain, cimp)]
+    assert not any(x.is_contiguous() for x in strided)
+    out = step(strided[0], ext, strided[1], jimp, strided[2])
+    ref = step(bodies, ext, terrain, jimp, cimp)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+
+
+def test_planar_kernel_rejects_mixed_devices(cuda):
+    step = lander_step(-10.0)
+    bodies, ext, terrain, jimp, cimp = planar_states(8, cuda)
+    with pytest.raises(ValueError):
+        step(bodies, ext, terrain.cpu(), jimp, cimp)
