@@ -26,16 +26,31 @@
 //
 // Bound: the function must write 16 B obs + 4 B reward + 1 B terminated +
 // 1 B truncated = 22 B per env-step (14 B with bf16 obs). At N=4096, S=2048
-// that is 184.5 MB, about 55 us at the H100's 3.35 TB/s (about 35 us with
-// bf16 obs); the arithmetic is negligible beside it. But only N threads are
-// live (4096 at the benchmark shape, a few warps per SM), so the serial
-// chain of each step (Philox rounds, precise sinf/cosf, two IEEE divides)
-// is likely to set the time rather than bandwidth. Stores are coalesced for
-// free: obs[s, c, n] has n contiguous and neighbouring threads own
+// that is 184.5 MB, about 55 us at the H100's 3.35 TB/s (with bf16 obs the
+// Philox integer operations bound it, at about 49 us). Stores are coalesced
+// for free: obs[s, c, n] has n contiguous and neighbouring threads own
 // neighbouring envs.
 //
-// The build uses precise sinf/cosf and -fmad=false (no FMA contraction) so
-// that every float operation rounds where the plain version's does.
+// What sets the time instead, measured on an NVIDIA H100 80GB HBM3 at 700 W
+// (chip_smoke.py, tools/port_planar_probe.py): only N threads are live, 128
+// warps at N=4096, one a scheduler at most, and each runs 2048 steps as one
+// dependent chain. The loop body is 310 SASS instructions, about 200 of them
+// on a step's usual path, at about 4 clocks each. The design keeps what it
+// can off that chain. A draw depends on (env, step) alone, so step s + 1's
+// Philox block is drawn during step s, where the compiler interleaves it
+// with the range reduction of sincosf; one sincosf replaces sinf and cosf;
+// the reset values are selected after the transition instead of branching
+// around it (the compiler still skips their block when no lane of a warp is
+// done). 0.80 ms a call, from 0.91; blocks of 32, 64 and 128 threads take
+// the same time. Taken back one at a time (the probe's ablations), sinf and
+// cosf cost 0.06 ms, the draw at the top of its step and the branch under
+// 0.01 ms each: the compiler already overlapped the draw. What is left on
+// the chain: four IEEE divides, each behind its slow-path call, which the
+// compiler neither overlaps nor keeps the constants in registers across.
+//
+// The build uses precise sinf/cosf/sincosf and -fmad=false (no FMA
+// contraction) so that every float operation rounds where the plain version's
+// does.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -43,7 +58,7 @@
 
 namespace {
 
-constexpr int kBlock = 64;  // small blocks spread N=4096 over 64 SMs
+constexpr int kBlock = 64;  // threads a block; 32 and 128 take as long at N=4096
 
 struct Constants {
   float gravity;
@@ -102,32 +117,34 @@ __global__ void __launch_bounds__(kBlock) cartpole_rollout_kernel(
   int32_t t = steps[e];
   bool done = prev_done[e];
 
+  // A draw depends on (env, step) alone, so step s + 1's block is drawn
+  // while step s runs: its Philox rounds overlap the physics.
+  uint4 r = philox4x32_10(make_uint4(e, 0u, 0u, 0u), seed, 0u);
   for (int s = 0; s < num_steps; ++s) {
-    const uint4 r = philox4x32_10(make_uint4(e, s, 0u, 0u), seed, 0u);
+    const uint4 r_next = philox4x32_10(make_uint4(e, s + 1, 0u, 0u), seed, 0u);
 
-    if (done) {
-      x = reset_value(r.x, p.reset_bound);
-      x_dot = reset_value(r.y, p.reset_bound);
-      theta = reset_value(r.z, p.reset_bound);
-      theta_dot = reset_value(r.w, p.reset_bound);
-      t = 0;
-    } else {
-      // Same operation order as envs/dynamics/cartpole.py::accelerations.
-      const float force = (r.x & 1u) ? p.force_mag : -p.force_mag;
-      const float costheta = cosf(theta);
-      const float sintheta = sinf(theta);
-      const float temp =
-          (force + p.polemass_length * (theta_dot * theta_dot) * sintheta) / p.total_mass;
-      const float thetaacc =
-          (p.gravity * sintheta - costheta * temp) /
-          (p.length * (4.0f / 3.0f - p.masspole * (costheta * costheta) / p.total_mass));
-      const float xacc = temp - p.polemass_length * thetaacc * costheta / p.total_mass;
-      x = x + p.tau * x_dot;
-      x_dot = x_dot + p.tau * xacc;
-      theta = theta + p.tau * theta_dot;
-      theta_dot = theta_dot + p.tau * thetaacc;
-      t = t + 1;
-    }
+    // The transition runs on every lane, in the operation order of
+    // envs/dynamics/cartpole.py::accelerations; a lane that was done then
+    // takes its reset state instead. No branch holds the trig and the
+    // divides back.
+    const float force = (r.x & 1u) ? p.force_mag : -p.force_mag;
+    float sintheta, costheta;
+    sincosf(theta, &sintheta, &costheta);
+    const float temp =
+        (force + p.polemass_length * (theta_dot * theta_dot) * sintheta) / p.total_mass;
+    const float thetaacc =
+        (p.gravity * sintheta - costheta * temp) /
+        (p.length * (4.0f / 3.0f - p.masspole * (costheta * costheta) / p.total_mass));
+    const float xacc = temp - p.polemass_length * thetaacc * costheta / p.total_mass;
+    const float nx = x + p.tau * x_dot;
+    const float nx_dot = x_dot + p.tau * xacc;
+    const float ntheta = theta + p.tau * theta_dot;
+    const float ntheta_dot = theta_dot + p.tau * thetaacc;
+    x = done ? reset_value(r.x, p.reset_bound) : nx;
+    x_dot = done ? reset_value(r.y, p.reset_bound) : nx_dot;
+    theta = done ? reset_value(r.z, p.reset_bound) : ntheta;
+    theta_dot = done ? reset_value(r.w, p.reset_bound) : ntheta_dot;
+    t = done ? 0 : t + 1;
 
     const bool te =
         !done && (fabsf(x) > p.x_threshold || fabsf(theta) > p.theta_threshold);
@@ -143,6 +160,7 @@ __global__ void __launch_bounds__(kBlock) cartpole_rollout_kernel(
     term[f] = te;
     trunc[f] = tr;
     done = te || tr;
+    r = r_next;
   }
 
   final_state[e] = x;

@@ -5,8 +5,8 @@
 // kernel lays 1024 envs out as (8, 128) row blocks and runs one program per
 // block. Here each thread owns one env: it loads the env's 68 floats (18 body,
 // 9 external, 11 terrain, 10 joint impulse, 20 contact impulse for the lander)
-// into registers, runs `substeps` solver ticks of straight-line code and
-// stores 48 floats and 10 contact flags. The flags are written as one byte
+// into registers, runs `substeps` solver ticks of scalar code and stores 48
+// floats and 10 contact flags. The flags are written as one byte
 // each straight into the torch.bool output. Any N works; the last block is
 // masked by a bounds check.
 //
@@ -14,23 +14,36 @@
 // substeps), a struct with the widths kBodies, kJoints, kContacts, kChunks
 // and a static run(body, ext, terrain, jimp, cimp, flags) that holds the whole
 // call, one C statement per float operation of the JAX row program, in its
-// order, with its float32 constants. The generated file includes this header
-// and ends with PLANAR_ENTRY_POINTS(struct). Under nvcc that defines the C
-// launcher planar_step_launch, loaded with ctypes. Under a plain C++ compiler
-// it defines the host loop planar_step_host instead, so a test can build the
+// order, with its float32 constants; the solver iterations are C loops. The
+// generated file includes this header and ends with
+// PLANAR_ENTRY_POINTS(struct). Under nvcc that defines the C launcher
+// planar_step_launch, loaded with ctypes. Under a plain C++ compiler it
+// defines the host loop planar_step_host instead, so a test can build the
 // same text with g++ and hold it against the plain PyTorch twin.
 //
 // Bound: an env moves 474 B (68 floats in, 48 floats and 10 flag bytes out)
-// while it runs some thousands of float operations a tick (the generator
+// and runs 15,085 float operations a call for the lander (the generator
 // counts them), so operations bound it, at one float32 operation a lane a
-// clock (-fmad=false). With one thread per env, N=4096 gives 128 warps, one
-// a scheduler on 32 SMs: the kernel is latency-bound by the dependent chain
-// of each env's ticks (the sequential-impulse solver is one long chain),
-// far from that bound. Blocks of 128 threads keep the four warps that share
-// an SM on one copy of the long instruction stream.
+// clock (-fmad=false): 1.85 us at N=4096 on an H100. The solver is one long
+// dependent chain an env, and N=4096 is 128 warps, at most one a scheduler,
+// so the chain's latency sets the time, not that bound.
 //
-// The build uses precise sinf/cosf, IEEE division and -fmad=false, so every
-// operation rounds where the plain twin's does, and a contact flag
+// Design against that, measured on an NVIDIA H100 80GB HBM3 at 700 W
+// (tools/port_planar_probe.py): the first port unrolled all 8 velocity and 4
+// position iterations, 20,760 SASS instructions (332 KB) a pass of the
+// substep loop, more than an SM's instruction caches hold: about 5 clocks
+// an instruction run. The generator now keeps each set of iterations as
+// one C loop that is not unrolled, with its invariants hoisted, and takes
+// each angle's sine and cosine from one sincosf (17 sites instead of 118):
+// 4,344 SASS instructions (69 KB; loop bodies of 868 and 2,219), 148
+// registers, no spills, the same bits, and 0.054 ms of device time a call
+// instead of the first port's 0.116, at about 4 clocks an instruction.
+// Blocks of 32 threads put the 128 warps on 128 SMs, one each: 0.054 ms,
+// against 0.056 at 64 and 0.060 at 128 threads. Two envs a thread would
+// give each scheduler two chains.
+//
+// The build uses precise sinf/cosf/sincosf, IEEE division and -fmad=false,
+// so every operation rounds where the plain twin's does, and a contact flag
 // (depth > 0) flips on the same inputs on both.
 
 #pragma once
@@ -49,7 +62,7 @@
 
 namespace planar {
 
-constexpr int kBlock = 128;  // threads a block
+constexpr int kBlock = 32;  // threads a block
 
 template <typename Step>
 struct Widths {

@@ -1,9 +1,10 @@
 """Robot models of the MuJoCo-class envs.
 
 Counterpart of ``load_model`` in the JAX package's ``envs/mujoco/mujoco_env.py``
-for the compiled ``.npz`` specs. The port reads those files in place, from the
-JAX package's model directory (:data:`MODEL_DIR`); it imports nothing from
-there. Compiling an ``.xml`` MJCF file is not ported yet.
+for the compiled ``.npz`` specs. The port keeps its own copy of those files,
+byte for byte the JAX package's, in ``models/`` beside this module
+(:data:`MODEL_DIR`), so an installed port reads nothing of the JAX package.
+Compiling an ``.xml`` MJCF file is not ported yet.
 """
 
 from __future__ import annotations
@@ -18,8 +19,8 @@ from gymnasium_tpu_torch.physics.articulated import ArticulatedModel, BodySpec, 
 
 __all__ = ["MODEL_DIR", "load_model"]
 
-#: The compiled robot specs, ``<name>.npz``, shared with the JAX package.
-MODEL_DIR = Path(__file__).resolve().parents[3] / "gymnasium_tpu" / "envs" / "mujoco" / "models"
+#: The compiled robot specs, ``<name>.npz``.
+MODEL_DIR = Path(__file__).resolve().parent / "models"
 
 
 def load_model(name: str) -> tuple[ArticulatedModel, dict]:

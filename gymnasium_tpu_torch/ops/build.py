@@ -65,18 +65,17 @@ def _digest(text: bytes) -> str:
     return digest.hexdigest()[:16]
 
 
-def library_path(name: str) -> Path:
-    """Where the shared library of ``csrc/<name>.cu`` is built."""
+def library_path(name: str, text: str | None = None) -> Path:
+    """Where the shared library of ``csrc/<name>.cu``, or of the generated
+    source ``text`` when given, is built."""
+    if text is not None:
+        return generated_source_path(name, text).with_suffix(".so")
     return BUILD_DIR / f"lib{name}-{_digest((SOURCE_DIR / f'{name}.cu').read_bytes())}.so"
 
 
 def generated_source_path(name: str, text: str) -> Path:
     """Where the generated source ``text`` named ``name`` is written."""
     return GEN_DIR / f"{name}-{_digest(text.encode())}.cu"
-
-
-def _generated_library_path(name: str, text: str) -> Path:
-    return generated_source_path(name, text).with_suffix(".so")
 
 
 def build(names=KERNELS, generated: dict[str, str] | None = None) -> dict[str, dict]:
@@ -128,9 +127,7 @@ def load(name: str, text: str | None = None) -> ctypes.CDLL:
     if lib is None:
         if text is None:
             build((name,))
-            path = library_path(name)
         else:
             build((), {name: text})
-            path = _generated_library_path(name, text)
-        lib = _loaded[key] = ctypes.CDLL(str(path))
+        lib = _loaded[key] = ctypes.CDLL(str(library_path(name, text)))
     return lib

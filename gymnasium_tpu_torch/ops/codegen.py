@@ -1,9 +1,10 @@
 """The two backends the port's substep generators run over.
 
 A generator (``ops/articulated_codegen.py``, ``ops/planar_codegen.py``) writes
-its program once, over a small ops namespace (``cos``, ``sin``, ``sqrt``,
-``floor``, ``abs``, ``maximum``, ``minimum``, ``where``, ``clip``;
-arithmetic and comparisons through Python operators), and runs over:
+its program once, over a small ops namespace (``cos``, ``sin``, ``sincos``,
+``sqrt``, ``floor``, ``abs``, ``maximum``, ``minimum``, ``where``, ``clip``,
+and the loop ``repeat``; arithmetic and comparisons through Python
+operators), and runs over:
 
 - :class:`TorchOps`: the per-env values are ``(N,)`` float32 tensors, and the
   generator computes the program itself. This is a kernel's plain PyTorch
@@ -12,6 +13,14 @@ arithmetic and comparisons through Python operators), and runs over:
   one node, equal nodes are shared, and :func:`_statement` emits a live node
   (:func:`_live`) as one C statement (``const float t7 = t3 * t5;``), with
   every constant as a float32 literal (:func:`_literal`).
+
+``repeat(n, carried, body)`` runs ``body`` n times over a flat list of
+per-env values. Over ``TorchOps`` it is that Python loop. Over ``SymOps`` it
+traces ``body`` once on fresh loop-carried values, and :func:`emit` writes it
+as one ``for`` loop that is not unrolled. Every node of the body that does
+not depend on the carried values is emitted once, before the loop: those are
+the nodes that sharing equal nodes computes once in the unrolled program, so
+both forms run the same operations, with the same rounding.
 
 A python float stays a python float until it meets a per-env value, so
 constants fold in float64 and round to float32 once, as a weakly typed python
@@ -26,7 +35,7 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["TorchOps", "Sym", "SymOps", "GeneratedSource"]
+__all__ = ["TorchOps", "Sym", "SymOps", "GeneratedSource", "emit", "op_counts"]
 
 
 # ---------------------------------------------------------------------------
@@ -53,6 +62,18 @@ class TorchOps:
 
     def sin(self, x):
         return torch.sin(self._tensor(x))
+
+    def sincos(self, x):
+        """``(sin(x), cos(x))``."""
+        x = self._tensor(x)
+        return torch.sin(x), torch.cos(x)
+
+    def repeat(self, n: int, carried, body):
+        """``body`` applied ``n`` times to the list ``carried``."""
+        carried = list(carried)
+        for _ in range(n):
+            carried = list(body(carried))
+        return carried
 
     def sqrt(self, x):
         return torch.sqrt(self._tensor(x))
@@ -105,6 +126,9 @@ _C_CALL = {
     "max": "fmaxf", "min": "fminf",
 }
 _BOOL_RESULT = frozenset({"gt", "lt", "ge", "or"})
+# nodes that name a value but are no statement of their own: a loop-carried
+# value, a loop's result, one result of a sincos
+_NO_STATEMENT = frozenset({"const", "input", "carry", "loopout", "part"})
 # operations on constants only are folded in float32, as the card would round them
 _FOLD = {
     "add": lambda a, b: a + b,
@@ -125,14 +149,35 @@ _FOLD = {
 }
 
 
+class _Loop:
+    """One ``repeat``: its trip count, the loop it sits in, its carried values."""
+
+    def __init__(self, n: int, parent):
+        self.n, self.parent = n, parent
+        self.depth = 1 + (parent.depth if parent is not None else 0)
+        self.carries: list = []
+
+    def trips(self) -> int:
+        """Passes of this loop's body a pass of the code around every loop."""
+        return self.n * (self.parent.trips() if self.parent is not None else 1)
+
+
+def _depth(scope) -> int:
+    return 0 if scope is None else scope.depth
+
+
 class Sym:
-    """One value of the emitted program: an input, a constant or an operation."""
+    """One value of the emitted program: an input, a constant or an operation.
 
-    __slots__ = ("prog", "id", "kind", "args", "dtype", "varying", "value")
+    ``scope`` is the innermost loop whose carried values it depends on (None
+    outside every loop): the node is emitted in that loop's body.
+    """
 
-    def __init__(self, prog, kind, args=(), dtype="f", varying=False, value=None):
+    __slots__ = ("prog", "id", "kind", "args", "dtype", "varying", "value", "scope")
+
+    def __init__(self, prog, kind, args=(), dtype="f", varying=False, value=None, scope=None):
         self.prog, self.kind, self.args = prog, kind, args
-        self.dtype, self.varying, self.value = dtype, varying, value
+        self.dtype, self.varying, self.value, self.scope = dtype, varying, value, scope
         self.id = len(prog.nodes)
         prog.nodes.append(self)
 
@@ -185,6 +230,7 @@ class SymOps:
     def __init__(self):
         self.nodes: list[Sym] = []
         self._memo: dict = {}
+        self._loops: list[_Loop] = []  # the loops whose body is being traced, innermost last
 
     def input(self, name: str, varying: bool) -> Sym:
         return Sym(self, "input", dtype="f", varying=varying, value=name)
@@ -206,6 +252,10 @@ class SymOps:
         args = tuple(a if isinstance(a, Sym) else self.const(a) for a in args)
         if all(a.kind == "const" for a in args) and kind in _FOLD:
             return self.const(_FOLD[kind](*(a.value for a in args)))
+        # checked before the memo, which may hold the same node from the body
+        scope = max((a.scope for a in args), key=_depth)
+        if scope is not None and scope not in self._loops:
+            raise ValueError("a value computed inside a repeat body is used after the loop")
         key = (kind,) + tuple(a.id for a in args)
         node = self._memo.get(key)
         if node is None:
@@ -214,9 +264,53 @@ class SymOps:
             else:
                 dtype = "b" if kind in _BOOL_RESULT else "f"
             node = self._memo[key] = Sym(
-                self, kind, args, dtype=dtype, varying=any(a.varying for a in args)
+                self, kind, args, dtype=dtype, varying=any(a.varying for a in args), scope=scope
             )
         return node
+
+    def _part(self, node: Sym, index: int, kind: str = "part") -> Sym:
+        """Result ``index`` of a node with several (a sincos, a loop)."""
+        key = (kind, node.id, index)
+        part = self._memo.get(key)
+        if part is None:
+            dtype = node.value.carries[index].dtype if kind == "loopout" else "f"
+            part = self._memo[key] = Sym(
+                self, kind, (node,), dtype=dtype, varying=node.varying, value=index,
+                scope=node.scope,
+            )
+        return part
+
+    def sincos(self, x):
+        """``(sin(x), cos(x))`` from one ``sincosf`` call."""
+        node = self.op("sincos", x)
+        return self._part(node, 0), self._part(node, 1)
+
+    def repeat(self, n: int, carried, body):
+        """``body`` applied ``n`` times to the list ``carried``, as one C loop.
+
+        The body is traced once, on fresh loop-carried values; it must return
+        as many values, of the same types, and no value computed from the
+        carried ones may leave it but through its result. Returns the values
+        after the last pass. With ``n`` 0 or 1 there is no loop.
+        """
+        carried = [c if isinstance(c, Sym) else self.const(c) for c in carried]
+        if n < 2:
+            return list(body(carried)) if n == 1 else carried
+        loop = _Loop(n, self._loops[-1] if self._loops else None)
+        loop.carries = [
+            Sym(self, "carry", dtype=c.dtype, varying=True, scope=loop) for c in carried
+        ]
+        self._loops.append(loop)
+        try:
+            out = list(body(list(loop.carries)))
+        finally:
+            self._loops.pop()
+        out = [o if isinstance(o, Sym) else self.const(o) for o in out]
+        if [o.dtype for o in out] != [c.dtype for c in carried]:
+            raise ValueError("a repeat body must return one value of each carried type, in order")
+        node = Sym(self, "loop", tuple(carried) + tuple(out), dtype=None, varying=True,
+                   value=loop, scope=loop.parent)
+        return [self._part(node, i, "loopout") for i in range(len(carried))]
 
     def cos(self, x):
         return self.op("cos", x)
@@ -265,12 +359,25 @@ def _ref(node: Sym) -> str:
         return _literal(node.value)
     if node.kind == "input":
         return node.value
+    if node.kind == "carry":
+        return f"c{node.id}"
+    if node.kind == "loopout":  # after the loop, its carried variable holds the result
+        return _ref(node.args[0].value.carries[node.value])
+    if node.kind == "part":
+        return f"t{node.args[0].id}{'sc'[node.value]}"
     return f"t{node.id}"
 
 
+def _ctype(node: Sym) -> str:
+    return "bool" if node.dtype == "b" else "float"
+
+
 def _statement(node: Sym) -> str:
-    ctype = "bool" if node.dtype == "b" else "float"
+    ctype = _ctype(node)
     args = [_ref(a) for a in node.args]
+    if node.kind == "sincos":
+        s, c = f"t{node.id}s", f"t{node.id}c"
+        return f"float {s}, {c}; sincosf({args[0]}, &{s}, &{c});"
     if node.kind in _C_BINARY:
         expr = f"{args[0]} {_C_BINARY[node.kind]} {args[1]}"
     elif node.kind in _C_CALL:
@@ -285,7 +392,7 @@ def _statement(node: Sym) -> str:
 
 
 def _live(outputs) -> list[Sym]:
-    """The operation nodes the outputs depend on, in creation order."""
+    """The statement and loop nodes the outputs depend on, in creation order."""
     seen, stack = set(), [o for o in outputs if isinstance(o, Sym)]
     while stack:
         node = stack.pop()
@@ -294,7 +401,52 @@ def _live(outputs) -> list[Sym]:
         seen.add(node.id)
         stack.extend(node.args)
     prog = outputs[0].prog
-    return [prog.nodes[i] for i in sorted(seen) if prog.nodes[i].kind not in ("const", "input")]
+    return [prog.nodes[i] for i in sorted(seen) if prog.nodes[i].kind not in _NO_STATEMENT]
+
+
+def emit(nodes, live, indent: str, no_unroll: str) -> list[str]:
+    """C lines of ``nodes`` (live nodes outside every loop, in creation
+    order): a statement each, and a loop node as its carried variables, then
+    ``no_unroll`` and a ``for`` loop over the live nodes of its body, each
+    body indented two more spaces."""
+    body_of: dict = {}
+    for node in live:
+        if node.scope is not None:
+            body_of.setdefault(node.scope, []).append(node)
+
+    def block(block_nodes, ind):
+        lines = []
+        for node in block_nodes:
+            if node.kind != "loop":
+                lines.append(ind + _statement(node))
+                continue
+            loop, k = node.value, len(node.value.carries)
+            inits, outs = node.args[:k], node.args[k:]
+            carries, inner = loop.carries, ind + "  "
+            lines += [f"{ind}{_ctype(c)} {_ref(c)} = {_ref(i)};" for c, i in zip(carries, inits)]
+            lines += [ind + no_unroll, f"{ind}for (int it = 0; it < {loop.n}; ++it) {{"]
+            lines += block(body_of.get(loop, []), inner)
+            lines += [
+                f"{inner}const {_ctype(c)} n{_ref(c)} = {_ref(o)};" for c, o in zip(carries, outs)
+            ]
+            lines += [f"{inner}{_ref(c)} = n{_ref(c)};" for c in carries]
+            lines.append(f"{ind}}}")
+        return lines
+
+    return block(nodes, indent)
+
+
+def op_counts(nodes) -> dict:
+    """Operations the ``nodes`` run, by kind: a node in a loop body once a
+    pass, a ``sincos`` as one ``sin`` and one ``cos``."""
+    counts: dict = {}
+    for node in nodes:
+        if node.kind == "loop":
+            continue
+        trips = node.scope.trips() if node.scope is not None else 1
+        for kind in ("sin", "cos") if node.kind == "sincos" else (node.kind,):
+            counts[kind] = counts.get(kind, 0) + trips
+    return counts
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,8 +2,8 @@
 
 Counterpart of the generator inside the JAX package's
 ``ops/pallas_planar.py::make_fused_planar_step``. From the static tables of a
-:class:`~gymnasium_tpu_torch.physics.planar.PlanarWorld` it unrolls one tick
-of the sequential-impulse solver as straight-line scalar code:
+:class:`~gymnasium_tpu_torch.physics.planar.PlanarWorld` it writes one tick
+of the sequential-impulse solver as scalar code:
 
 - gravity and external forces integrate into the velocities;
 - the joint impulses ``[motor, low, up, px, py]`` and the contact impulses
@@ -26,16 +26,30 @@ with its constant forms (``px * (1.0 / spacing)``, ``(ms - rel) * (1.0 /
 k_ang)``, the clip top ``chunks - 1 - 1e-6``), so over ``TorchOps`` it is
 the plain twin and over ``SymOps`` :func:`generate_planar_source` emits the
 kernel's C text.
+
+The emitted text keeps the velocity and position iterations as two C loops
+(``ops.repeat``) and takes each angle's sine and cosine from one
+``sincosf``. For the lander that is 2.0k statements instead of the 7.5k of
+the iterations unrolled, and on an H100 a fifth of the machine code, which
+runs about twice as fast (PERF.md). The unrolled program runs the same
+operations, with the same rounding.
 """
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 
 import numpy as np
 
-from gymnasium_tpu_torch.ops.codegen import GeneratedSource, Sym, SymOps, _live, _ref, _statement
+from gymnasium_tpu_torch.ops.codegen import (
+    GeneratedSource,
+    Sym,
+    SymOps,
+    _live,
+    _ref,
+    emit,
+    op_counts,
+)
 from gymnasium_tpu_torch.physics.planar import PlanarWorld
 
 __all__ = [
@@ -142,7 +156,9 @@ def make_substep(t: PlanarTables, ops):
     """One solver tick ``(body, ext, t_rows, jimp, cimp) -> (body', jimp',
     cimp', flags)`` over lists of per-env values: ``body`` [B][6], ``ext``
     [B][3], ``t_rows`` [chunks], ``jimp`` [J][5], ``cimp`` [C][2]. The flags
-    are the pre-step ``depth > 0`` of each contact."""
+    are the pre-step ``depth > 0`` of each contact. The solver iterations
+    run through ``ops.repeat``, each angle's sine and cosine through
+    ``ops.sincos``."""
     B, J, C, chunks = t.nbody, t.njoint, t.ncontact, t.chunks
     dt, g, inv_m, inv_i = t.dt, t.gravity, t.inv_m, t.inv_i
     j_a, j_b, ms, mt = t.j_a, t.j_b, t.motor_speed, t.motor_torque
@@ -182,8 +198,8 @@ def make_substep(t: PlanarTables, ops):
                 vy[b] = vy[b] + ext[b][1] * (inv_m[b] * dt)
                 w[b] = w[b] + ext[b][2] * (inv_i[b] * dt)
 
-        cos = [ops.cos(ang[b]) for b in range(B)]
-        sin = [ops.sin(ang[b]) for b in range(B)]
+        pairs = [ops.sincos(a) for a in ang]
+        sin, cos = [s for s, _ in pairs], [c for _, c in pairs]
 
         # joint anchor arms (pre-step pose)
         arms = []
@@ -240,7 +256,10 @@ def make_substep(t: PlanarTables, ops):
             w[b] = w[b] + (rx * jn - ry * jt) * inv_i[b]
 
         # --- velocity iterations ------------------------------------------------
-        for _ in range(t.velocity_iterations):
+        def velocity_iteration(carried):
+            vx, vy, w, acc_m, acc_lo, acc_up, acc_jx, acc_jy, acc_n, acc_t = _split(
+                carried, (B, B, B, J, J, J, J, J, C, C)
+            )
             for j in range(J):
                 a, b, rax, ray, rbx, rby = arms[j]
                 k_ang = max(inv_i[a] + inv_i[b], 1e-9)
@@ -318,6 +337,16 @@ def make_substep(t: PlanarTables, ops):
                 acc_t[k] = ta
                 vx[b] = vx[b] + jt * inv_m[b]
                 w[b] = w[b] - ry * jt * inv_i[b]
+            return vx + vy + w + acc_m + acc_lo + acc_up + acc_jx + acc_jy + acc_n + acc_t
+
+        carried = ops.repeat(
+            t.velocity_iterations,
+            vx + vy + w + acc_m + acc_lo + acc_up + acc_jx + acc_jy + acc_n + acc_t,
+            velocity_iteration,
+        )
+        vx, vy, w, acc_m, acc_lo, acc_up, acc_jx, acc_jy, acc_n, acc_t = _split(
+            carried, (B, B, B, J, J, J, J, J, C, C)
+        )
 
         # --- integrate positions -------------------------------------------------
         for b in range(B):
@@ -326,11 +355,12 @@ def make_substep(t: PlanarTables, ops):
             ang[b] = ang[b] + w[b] * dt
 
         # --- position pass (contacts first, then joints) ------------------------
-        for _ in range(t.position_iterations):
+        def position_iteration(carried):
+            x, y, ang = _split(carried, (B, B, B))
             for k in range(C):
                 b = t.c_body[k]
                 px_, py_ = t.c_point[k]
-                cb, sb = ops.cos(ang[b]), ops.sin(ang[b])
+                sb, cb = ops.sincos(ang[b])
                 rx = px_ * cb - py_ * sb
                 ry = px_ * sb + py_ * cb
                 wx = x[b] + rx
@@ -353,8 +383,8 @@ def make_substep(t: PlanarTables, ops):
                 ang[a] = ang[a] - corr * (inv_i[a] / k_ang)
                 ang[b] = ang[b] + corr * (inv_i[b] / k_ang)
 
-                ca, sa = ops.cos(ang[a]), ops.sin(ang[a])
-                cb, sb = ops.cos(ang[b]), ops.sin(ang[b])
+                sa, ca = ops.sincos(ang[a])
+                sb, cb = ops.sincos(ang[b])
                 ax_, ay_ = t.anchor_a[j]
                 bx_, by_ = t.anchor_b[j]
                 rax = ax_ * ca - ay_ * sa
@@ -376,6 +406,10 @@ def make_substep(t: PlanarTables, ops):
                 y[b] = y[b] + iy * inv_m[b]
                 ang[a] = ang[a] - (rax * iy - ray * ix) * inv_i[a]
                 ang[b] = ang[b] + (rbx * iy - rby * ix) * inv_i[b]
+            return x + y + ang
+
+        carried = ops.repeat(t.position_iterations, x + y + ang, position_iteration)
+        x, y, ang = _split(carried, (B, B, B))
 
         body_out = [[x[b], y[b], ang[b], vx[b], vy[b], w[b]] for b in range(B)]
         jimp_out = [[acc_m[j], acc_lo[j], acc_up[j], acc_jx[j], acc_jy[j]] for j in range(J)]
@@ -383,6 +417,15 @@ def make_substep(t: PlanarTables, ops):
         return body_out, jimp_out, cimp_out, flags
 
     return substep
+
+
+def _split(values, sizes):
+    """``values`` cut into consecutive lists of the given sizes."""
+    out, start = [], 0
+    for size in sizes:
+        out.append(list(values[start : start + size]))
+        start += size
+    return out
 
 
 def generate_planar_source(
@@ -417,10 +460,12 @@ def generate_planar_source(
     outputs = [x if isinstance(x, Sym) else ops.const(x) for x in state_out + flags]
 
     live = _live(outputs)
-    prologue = [n for n in live if not n.varying]
-    loop = [n for n in live if n.varying]
-    prologue_ops = dict(collections.Counter(n.kind for n in prologue))
-    substep_ops = dict(collections.Counter(n.kind for n in loop))
+    outer = [n for n in live if n.scope is None]
+    prologue = [n for n in outer if not n.varying]
+    loop = [n for n in outer if n.varying]
+    inner = [n for n in live if n.scope is not None]
+    prologue_ops = op_counts(prologue)
+    substep_ops = op_counts(loop + inner)
 
     def counts(c):
         return ", ".join(f"{k} {v}" for k, v in sorted(c.items()))
@@ -449,13 +494,13 @@ def generate_planar_source(
     ]
     lines += [f"{ind2}const float e{i} = ext[{i}];" for i in range(3 * B)]
     lines += [f"{ind2}const float h{i} = terrain[{i}];" for i in range(chunks)]
-    lines += [ind2 + _statement(n) for n in prologue]
+    lines += emit(prologue, live, ind2, "PLANAR_NO_UNROLL")
     lines += [f"{ind2}float s{i} = body[{i}];" for i in range(n_body)]
     lines += [f"{ind2}float j{i} = jimp[{i}];" for i in range(n_jimp)]
     lines += [f"{ind2}float k{i} = cimp[{i}];" for i in range(n_cimp)]
     lines += [f"{ind2}bool f{k} = false;" for k in range(C)]
     lines += [f"{ind2}PLANAR_NO_UNROLL", f"{ind2}for (int sub = 0; sub < {substeps}; ++sub) {{"]
-    lines += [ind3 + _statement(n) for n in loop]
+    lines += emit(loop, live, ind3, "PLANAR_NO_UNROLL")
     new_state = outputs[: len(state)]
     lines += [f"{ind3}const float n{var} = {_ref(o)};" for var, o in zip(state, new_state)]
     lines += [f"{ind3}{var} = n{var};" for var in state]

@@ -21,6 +21,7 @@ springs then amplify that.
 import ctypes
 import shutil
 import subprocess
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -28,11 +29,13 @@ import numpy as np
 import pytest
 import torch
 
+from gymnasium_tpu.envs.mujoco import mujoco_env as jax_mujoco_env
 from gymnasium_tpu.envs.mujoco.mujoco_env import load_model as jax_load_model
 from gymnasium_tpu.ops.pallas_articulated import BLOCK_ENVS
 from gymnasium_tpu.ops.pallas_articulated import make_fused_step as jax_make_fused_step
 from gymnasium_tpu.physics.articulated import init_qpos as jax_init_qpos
 from gymnasium_tpu.physics.articulated import make_dynamics
+from gymnasium_tpu_torch.envs.mujoco import mujoco_env
 from gymnasium_tpu_torch.envs.mujoco.mujoco_env import MODEL_DIR, load_model
 from gymnasium_tpu_torch.ops import articulated_step
 from gymnasium_tpu_torch.ops.articulated_codegen import generate_source
@@ -46,6 +49,12 @@ QD_TOL = {"rtol": 2e-3, "atol": 0.15}
 # same order, so only sin/cos ULPs differ (largest seen: 1.5e-7 in q, 6e-6 in qd)
 SAME_PROGRAM_TOL = ({"rtol": 0.0, "atol": 1e-5}, {"rtol": 0.0, "atol": 1e-4})
 PROBE = np.asarray([0, 7, 130, 1023])
+# the compiled robot specs the JAX package ships, of which the port keeps a copy
+JAX_MODEL_DIR = Path(jax_mujoco_env._MODEL_DIR)
+MODELS = (
+    "ant", "half_cheetah", "hopper", "humanoid", "humanoidstandup", "inverted_double_pendulum",
+    "inverted_pendulum", "pusher", "pusher_v5", "reacher", "swimmer", "walker2d", "walker2d_v5",
+)
 
 
 def _states(model, n, seed=0):
@@ -214,3 +223,26 @@ def test_models_load_in_place():
     np.testing.assert_array_equal(init_qpos(model), jax_init_qpos(jmodel))
     with pytest.raises(NotImplementedError):
         load_model("custom.xml")
+
+
+def test_port_keeps_every_model_of_the_jax_package():
+    assert sorted(p.stem for p in JAX_MODEL_DIR.glob("*.npz")) == list(MODELS)
+    assert sorted(p.stem for p in MODEL_DIR.glob("*.npz")) == list(MODELS)
+
+
+@pytest.mark.parametrize("name", MODELS)
+def test_port_model_is_a_byte_copy(name):
+    assert (MODEL_DIR / f"{name}.npz").read_bytes() == (JAX_MODEL_DIR / f"{name}.npz").read_bytes()
+
+
+def test_load_model_reads_the_port_directory(monkeypatch, tmp_path):
+    port_dir = Path(mujoco_env.__file__).resolve().parent / "models"
+    assert MODEL_DIR == port_dir and "gymnasium_tpu_torch" in port_dir.parts
+    # a model found only in MODEL_DIR loads, so load_model reads nothing else
+    want = load_model("reacher")[0].nq
+    (tmp_path / "only_here.npz").write_bytes((port_dir / "reacher.npz").read_bytes())
+    monkeypatch.setattr(mujoco_env, "MODEL_DIR", tmp_path)
+    try:
+        assert load_model("only_here")[0].nq == want
+    finally:
+        mujoco_env._load_npz_model.cache_clear()

@@ -20,6 +20,7 @@ from gymnasium_tpu_torch.envs.dynamics.lunar_lander import lander_step
 from gymnasium_tpu_torch.ops import articulated_step as art
 from gymnasium_tpu_torch.ops import cartpole_rollout as cr
 from gymnasium_tpu_torch.ops import planar_step as pl
+from tools.port_planar_probe import unrolled_step
 
 pytestmark = pytest.mark.gpu
 
@@ -47,6 +48,21 @@ def test_kernel_matches_twin_step_by_step(cuda, n):
     torch.cuda.synchronize()
     assert cr.launches == before + 1
     max_err, _, _ = compare_rollout_with_twin(state, steps, prev_done, 11, out)
+    assert max_err <= 2e-5
+
+
+def test_ragged_batch_lanes_equal_the_same_lanes_of_a_full_batch(cuda):
+    """N=100 leaves the last block part empty; a lane's draws depend on
+    (env, step) alone, so its outputs are those of the same lane at N=4096."""
+    state, steps, prev_done = _inputs(4096, cuda, seed=2)
+    full = cr.cartpole_rollout_fused(state, steps, prev_done, 7, 700)
+    part_in = (state[:, :100].contiguous(), steps[:100].contiguous(), prev_done[:100].contiguous())
+    part = cr.cartpole_rollout_fused(*part_in, 7, 700)
+    torch.cuda.synchronize()
+    lanes = [full[0][:, :100], full[1][:100], full[2][:100], full[3][..., :100], *(x[:, :100] for x in full[4:])]
+    for got, want in zip(part, lanes):
+        assert torch.equal(got, want)
+    max_err, _, _ = compare_rollout_with_twin(*part_in, 7, part)
     assert max_err <= 2e-5
 
 
@@ -115,6 +131,20 @@ def test_planar_kernel_matches_twin(cuda, n):
     result = compare_planar_with_twin(step, inputs)
     assert pl.launches[step.build_name] == before + 2
     assert result["flag_mismatches"] == 0
+
+
+def test_planar_rolled_kernel_gives_the_unrolled_bits(cuda):
+    """The kernel (solver iterations as loops, one sincosf an angle) against
+    the first port's program, unrolled with sinf and cosf, at the workload's N."""
+    step = lander_step(-10.0)
+    unrolled = unrolled_step(step)
+    inputs = planar_states(4096, cuda, seed=5)
+    for a, b in zip(step(*inputs), unrolled(*inputs)):
+        torch.cuda.synchronize()
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b)
+    assert pl.launches[unrolled.build_name] >= 1
 
 
 def test_planar_kernel_takes_strided_inputs(cuda):

@@ -13,13 +13,15 @@ reached (asserted). Three comparisons:
   JAX kernel test's tolerances (``test_pallas_planar.py:107-110``);
 - the generated kernel source compiled for the host with ``g++`` (the same
   text ``nvcc`` builds, whose ``run`` is ``__host__ __device__``) against the
-  twin.
+  twin, and against the same program emitted with its solver iterations
+  unrolled (``tools/port_planar_probe.py::unrolled_step``), bit for bit.
 
 Each case states its tolerance and records the largest deviation it saw.
 Flags are compared exactly.
 """
 
 import ctypes
+import hashlib
 import shutil
 import subprocess
 
@@ -36,6 +38,7 @@ from gymnasium_tpu_torch.envs.dynamics import lunar_lander as dyn
 from gymnasium_tpu_torch.ops import planar_step
 from gymnasium_tpu_torch.ops.build import SOURCE_DIR
 from gymnasium_tpu_torch.ops.planar_codegen import generate_planar_source
+from tools.port_planar_probe import unrolled_generator, unrolled_step
 
 N = 512
 WIDTHS = {"bodies": 18, "external": 9, "terrain": 11, "jimp": 10, "cimp": 20}
@@ -117,45 +120,98 @@ def test_twin_matches_chained_world_step(request, inputs, twin):
     _check(request, twin, want, ENGINE_TOL)
 
 
-def test_emitted_source_matches_twin_on_host(request, tmp_path, inputs, twin):
+def _host_run(tmp_path, text, inputs):
+    """Build an emitted source with the host ``g++`` and run it on ``inputs``.
+
+    ``-fno-builtin`` keeps ``fminf``/``fmaxf`` library calls: as builtins g++
+    may return either zero when both operands are zeros of opposite sign (C
+    leaves it open), and picks differently in the rolled and unrolled forms.
+    """
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs a host g++")
-    src = tmp_path / "planar.cpp"
-    src.write_text(dyn.lander_step(-10.0).source.text)
-    lib_path = tmp_path / "libplanar.so"
+    digest = hashlib.sha256(text.encode()).hexdigest()[:12]
+    src, lib_path = tmp_path / f"planar-{digest}.cpp", tmp_path / f"libplanar-{digest}.so"
+    src.write_text(text)
     subprocess.run(
-        [gxx, "-O1", "-ffp-contract=off", "-shared", "-fPIC", "-I", str(SOURCE_DIR),
+        [gxx, "-O1", "-ffp-contract=off", "-fno-builtin", "-shared", "-fPIC", "-I", str(SOURCE_DIR),
          "-x", "c++", "-o", str(lib_path), str(src)],
         check=True, capture_output=True,
     )
     host_step = ctypes.CDLL(str(lib_path)).planar_step_host
     host_step.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int]
     ins = [np.ascontiguousarray(x) for x in inputs]
+    n = ins[0].shape[0]
     outs = [np.empty_like(ins[0]), np.empty_like(ins[3]), np.empty_like(ins[4]),
-            np.empty((N, 10), np.bool_)]
-    host_step(*(x.ctypes.data for x in ins + outs), N)
-    _check(request, twin, tuple(outs), SAME_PROGRAM_TOL)
+            np.empty((n, ins[4].shape[1]), np.bool_)]
+    host_step(*(x.ctypes.data for x in ins + outs), n)
+    return tuple(outs)
+
+
+def test_emitted_source_matches_twin_on_host(request, tmp_path, inputs, twin):
+    outs = _host_run(tmp_path, dyn.lander_step(-10.0).source.text, inputs)
+    _check(request, twin, outs, SAME_PROGRAM_TOL)
+
+
+def test_rolled_source_gives_the_unrolled_bits_on_host(tmp_path, inputs):
+    """Both forms call the same host ``sinf``/``cosf`` (glibc's ``sincosf``
+    gives their bits), so any differing bit is a fault of the loop emission."""
+    step = dyn.lander_step(-10.0)
+    rolled = _host_run(tmp_path, step.source.text, inputs)
+    unrolled = _host_run(tmp_path, unrolled_step(step).source.text, inputs)
+    for label, a, b in zip(("bodies", "jimp", "cimp", "flags"), rolled, unrolled):
+        assert a.tobytes() == b.tobytes(), f"{label}: the rolled form's bits differ"
 
 
 def test_generated_source_is_stable_and_counted():
     step = dyn.lander_step(-10.0)
     world = step.world
-    a = generate_planar_source(world, 11, dyn.W / 10, dyn._MOTOR_SPEED, dyn._MOTOR_TORQUE, 2, "x")
-    b = generate_planar_source(world, 11, dyn.W / 10, dyn._MOTOR_SPEED, dyn._MOTOR_TORQUE, 2, "x")
-    assert a.text == b.text
-    statements = sum(line.strip().startswith(("const float t", "const bool t")) for line in a.text.splitlines())
+    args = (world, 11, dyn.W / 10, dyn._MOTOR_SPEED, dyn._MOTOR_TORQUE, 2, "x")
+    a = generate_planar_source(*args)
+    assert a.text == generate_planar_source(*args).text
+    with unrolled_generator():
+        unrolled = generate_planar_source(*args)
+    lines = [line.strip() for line in a.text.splitlines()]
+    assert "PLANAR_NO_UNROLL" in lines and "for (int sub = 0; sub < 2; ++sub) {" in lines
+    # the velocity and position iterations are one loop each, not unrolled
+    for iterations in (world.velocity_iterations, world.position_iterations):
+        loop = f"for (int it = 0; it < {iterations}; ++it) {{"
+        assert lines.count(loop) == 1 and lines[lines.index(loop) - 1] == "PLANAR_NO_UNROLL"
+    # one sincosf an angle: 3 bodies before the velocity pass; in a position
+    # iteration one a contact and two a joint
+    sites = len(world.bodies.inv_mass) + len(world.contacts.body) + 2 * len(world.joints.body_a)
+    assert sum(line.count("sincosf(") for line in lines) == sites
+    assert not any("sinf(" in line or " cosf(" in line for line in lines)
+    # the counts are of operations run, the loops' bodies times their trips,
+    # and equal the unrolled form's: the bound's yardstick does not move
+    assert a.prologue_ops == unrolled.prologue_ops and a.substep_ops == unrolled.substep_ops
+    assert a.ops_per_env == sum(a.prologue_ops.values()) + 2 * sum(a.substep_ops.values()) == 15085
+    assert a.substep_ops["sin"] == a.substep_ops["cos"] == len(world.bodies.inv_mass) + world.position_iterations * (
+        len(world.contacts.body) + 2 * len(world.joints.body_a))
+    # the unrolled text has a statement for each operation
+    statements = sum(line.strip().startswith(("const float t", "const bool t")) for line in unrolled.text.splitlines())
     assert statements == sum(a.prologue_ops.values()) + sum(a.substep_ops.values())
-    assert a.ops_per_env == sum(a.prologue_ops.values()) + 2 * sum(a.substep_ops.values())
-    assert "PLANAR_NO_UNROLL" in a.text and "for (int sub = 0; sub < 2; ++sub)" in a.text
+    assert len(a.text.splitlines()) * 3 < len(unrolled.text.splitlines())
     # the external-force terms are hoisted out of the substep loop
     assert a.prologue_ops == {"mul": 9}
     # one terrain lookup a contact before the velocity pass and one in each
     # position iteration, each a floor and a select over the 9 inner chunks
     lookups = len(world.contacts.body) * (1 + world.position_iterations)
     assert a.substep_ops["floor"] == lookups and a.substep_ops["ge"] == 9 * lookups
-    assert a.substep_ops["cos"] == a.substep_ops["sin"]
     assert step.source.ops_per_env == a.ops_per_env
+
+
+def test_unrolled_trace_is_the_first_port_program():
+    """The probe's unrolled form is the program the kernel's first port
+    emitted: 7,809 lines, no solver loop, 59 ``sinf`` and 59 ``cosf``."""
+    step = dyn.lander_step(-10.0)
+    unrolled = unrolled_step(step)
+    assert unrolled.build_name != step.build_name
+    lines = [line.strip() for line in unrolled.source.text.splitlines()]
+    assert len(lines) == 7809 and not any(line.startswith("for (int it") for line in lines)
+    text = unrolled.source.text
+    assert text.count("= sinf(") == text.count("= cosf(") == 59 and "sincosf(" not in text
+    assert unrolled.source.ops_per_env == step.source.ops_per_env == 15085
 
 
 def test_build_name_carries_gravity():

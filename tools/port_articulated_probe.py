@@ -20,9 +20,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import re
-import shutil
-import subprocess
 import sys
 from pathlib import Path
 
@@ -34,12 +31,6 @@ BATCHES = (1024, 4096, 16384, 65536)
 FRAME_SKIPS = (1, 5)
 
 
-def sass_instructions(lib: Path) -> int:
-    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    out = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True, check=True)
-    return len(re.findall(r"/\*[0-9a-f]{4,}\*/\s+\S", out.stdout))
-
-
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--models", nargs="+", default=["half_cheetah", "ant"])
@@ -48,7 +39,7 @@ def main() -> int:
         print("port_articulated_probe: no CUDA device is available", file=sys.stderr)
         return 2
 
-    from chip_smoke import articulated_states, card_line, cuda_ms
+    from chip_smoke import articulated_states, card_line, cuda_ms, sass_instructions
     from gymnasium_tpu_torch.envs.mujoco.mujoco_env import load_model
     from gymnasium_tpu_torch.ops import build
     from gymnasium_tpu_torch.ops.articulated_step import make_fused_step
@@ -62,8 +53,7 @@ def main() -> int:
     print(card_line(), flush=True)
     results = []
     for step in steps:
-        lib = build.generated_source_path(step.build_name, step.source.text).with_suffix(".so")
-        sass = sass_instructions(lib)
+        sass = sass_instructions(build.library_path(step.build_name, step.source.text))
         for n in BATCHES:
             inputs = articulated_states(step.model, n, dev)
             ms = cuda_ms(lambda: step(*inputs), 50, 5)
