@@ -25,8 +25,12 @@ and read just after:
   and the settle tick of the reset drawn for every lane.
 
 It holds each kernel against its plain PyTorch version on the card and times
-both. A kernel's ``ms`` is its own time on the card, ``torch.profiler``'s
-kernel durations; ``events_ms`` is CUDA events around back-to-back calls,
+both; the articulated and planar kernels must equal their twins in every
+value. Each ``articulated_step[...]`` entry also gives the kernel's warp
+layout (``parts`` warps a group of 32 envs, ``env_groups`` groups a block,
+``phases``, values ``exchanged`` and their loads, ``recomputed_ops``,
+``shared_bytes_per_block``). A kernel's ``ms`` is its own time on the card,
+``torch.profiler``'s kernel durations; ``events_ms`` is CUDA events around back-to-back calls,
 which read the host's launch pace where a call's host work outlasts its
 kernel. It counts each library's SASS instructions with ``cuobjdump``. It
 prints the card's name and power limit, one ``{"kernels": [...]}`` line, and
@@ -75,11 +79,12 @@ ART_TIME_LIMIT = 1000
 ART_WARM_STEPS = 4
 ART_ROLLOUT = 100
 # Kernel and twin run the same generated program and round alike
-# (-fmad=false, precise math), so they are held at the same-program atol of
-# tests/test_torch_articulated.py, inside the JAX kernel test's tolerances
-# (tests/ops/test_pallas_articulated.py:110-117: q rtol 2e-4 / atol 2e-3, qd
-# rtol 2e-3 / atol 0.15), which stay for comparisons with make_dynamics.
-ART_Q_ATOL, ART_QD_ATOL = 1e-5, 1e-4
+# (-fmad=false, precise math), in either layout of the kernel, so they are
+# held to equal values (max |error| 0): inside the same-program atol of
+# tests/test_torch_articulated.py (1e-5 in q, 1e-4 in qd) and the JAX kernel
+# test's tolerances (tests/ops/test_pallas_articulated.py:110-117: q rtol
+# 2e-4 / atol 2e-3, qd rtol 2e-3 / atol 0.15), which stay for comparisons
+# with make_dynamics.
 
 PLANAR_GRAVITY = -10.0
 PLANAR_TIME_LIMIT = 1000
@@ -135,19 +140,24 @@ def device_ms(fn, kernel: str, iters: int) -> float:
     """Mean device time a call of ``fn`` of the kernels whose name holds
     ``kernel``, from ``torch.profiler`` (CUPTI's kernel durations). CUDA
     events around back-to-back calls (:func:`cuda_ms`) read the host's pace
-    instead when a call's host work outlasts its kernel."""
+    instead when a call's host work outlasts its kernel. The profiler drops
+    a trace's events now and then: a trace that did not see every launch is
+    taken again, up to five times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
-    check(len(times) == iters, f"the profiler saw {len(times)} launches of {kernel}, want {iters}")
-    return sum(times) / iters / 1e3
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+        check(len(times) <= iters, f"the profiler saw {len(times)} launches of {kernel}, more than {iters}")
+        if len(times) == iters:
+            return sum(times) / iters / 1e3
+    raise RuntimeError(f"chip_smoke check failed: the profiler saw {len(times)} of {iters} launches of {kernel}")
 
 
 def rollout_bytes(n: int, s: int, obs_dtype: torch.dtype) -> int:
@@ -419,26 +429,30 @@ def small_angle_lanes(model, qd_out) -> int:
     return int((th2 <= 1e-10).sum())
 
 
-def compare_articulated_with_twin(step, q, qd, ctrl) -> tuple[float, float, int]:
-    """One kernel call against the plain twin on the same inputs. Raises
-    beyond the same-program tolerance, if two calls differ in a bit, or if
-    a free root's states never reach the small-angle side of its quaternion
-    exponential. Returns ``(max |dq|, max |dqd|, small-angle lanes)``."""
+def compare_articulated_with_twin(step, q, qd, ctrl) -> tuple[float, float, int, bool]:
+    """One kernel call against the plain twin on the same inputs. Raises if a
+    bit differs from the twin's (zero signs too), if two calls differ in a
+    bit, or if a free root's states never reach the small-angle side of its
+    quaternion exponential. Returns ``(max |dq|, max |dqd|, small-angle
+    lanes, True)``: the bits are equal."""
     out = step(q, qd, ctrl)
     again = step(q, qd, ctrl)
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(out, again)), f"{step.name}: same input, different bits")
     ref = step.reference(q, qd, ctrl)
     errs = []
-    for label, got, want, atol in (("q", out[0], ref[0], ART_Q_ATOL), ("qd", out[1], ref[1], ART_QD_ATOL)):
+    for label, got, want in (("q", out[0], ref[0]), ("qd", out[1], ref[1])):
         check(bool(torch.isfinite(got).all()), f"{step.name}: kernel {label} not finite")
         err = float((got - want).abs().max())
-        check(err <= atol, f"{step.name}: kernel {label} differs from the twin by up to {err} > {atol}")
+        check(torch.equal(got, want), f"{step.name}: kernel {label} differs from the twin by up to {err}")
         errs.append(err)
     small = small_angle_lanes(step.model, out[1]) if step.model.root_free else 0
     check(not step.model.root_free or small >= q.shape[0] // 8,
           f"{step.name}: only {small} lanes took the small-angle side of the quaternion exponential")
-    return errs[0], errs[1], small
+    # torch.equal holds -0.0 equal to 0.0; the bits tell the zeros' signs apart too
+    bit_equal = all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(out, ref))
+    check(bit_equal, f"{step.name}: kernel and twin differ in the sign of a zero")
+    return errs[0], errs[1], small, bit_equal
 
 
 def run_lunar_lander(dev, n: int = NUM_ENVS) -> float:
@@ -749,9 +763,10 @@ def main() -> int:
     for name, step in steps.items():
         art_inputs[name] = articulated_states(step.model, NUM_ENVS, dev)
         art_errs[name] = compare_articulated_with_twin(step, *art_inputs[name])
-        print(f"articulated kernel vs twin ({name}, N={NUM_ENVS}, frame_skip {ART_FRAME_SKIP}): "
-              f"max|dq|={art_errs[name][0]:.3e} max|dqd|={art_errs[name][1]:.3e}; deterministic; "
-              f"{art_errs[name][2]} lanes on the small-angle side", flush=True)
+        print(f"articulated kernel vs twin ({name}, N={NUM_ENVS}, frame_skip {ART_FRAME_SKIP}, "
+              f"layout {step.source.layout}): max|dq|={art_errs[name][0]:.3e} max|dqd|={art_errs[name][1]:.3e}, "
+              f"bit_equal={art_errs[name][3]}; deterministic; {art_errs[name][2]} lanes on the small-angle side",
+              flush=True)
 
     # -- the planar kernel against its twin -----------------------------------
     planar_inputs = planar_states(NUM_ENVS, dev)
@@ -802,7 +817,7 @@ def main() -> int:
     for name, step in steps.items():
         inputs = art_inputs[name]
         art_events_ms = cuda_ms(lambda: step(*inputs), 50, 5)
-        art_ms = device_ms(lambda: step(*inputs), "step_kernel", 50)
+        art_ms = device_ms(lambda: step(*inputs), "kernel<ArticulatedStep>", 50)
         art_plain_ms = cuda_ms(lambda: step.reference(*inputs), 1, 1)
         art_bound, art_bound_by = articulated_bound_ms(step, NUM_ENVS)
         print(f"articulated_step[{name}] N={NUM_ENVS}: device {art_ms:.4f} ms/call, events {art_events_ms:.4f} ms, "
@@ -827,8 +842,10 @@ def main() -> int:
                 "bound_ms": art_bound,
                 "bound_by": art_bound_by,
                 "library_ms": None,
+                "bit_equal": art_errs[name][3],
                 "frame_skip": ART_FRAME_SKIP,
                 "small_angle_lanes": art_errs[name][2],
+                **step.source.layout,
                 "ops_per_env": step.source.ops_per_env,
                 "sass_instructions": sass[step.build_name],
                 "code_bytes": SASS_BYTES * sass[step.build_name],

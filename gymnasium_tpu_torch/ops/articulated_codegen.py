@@ -30,7 +30,17 @@ import dataclasses
 
 import numpy as np
 
-from gymnasium_tpu_torch.ops.codegen import GeneratedSource, Sym, SymOps, _live, _ref, _statement
+from gymnasium_tpu_torch.ops.codegen import (
+    GeneratedSource,
+    Sym,
+    SymOps,
+    _ctype,
+    _expression,
+    _live,
+    _ref,
+    _statement,
+)
+from gymnasium_tpu_torch.ops.warp_partition import SHARED_BYTES_MAX, partition, sincos_pairs
 from gymnasium_tpu_torch.physics.articulated import (
     HINGE,
     SLIDE,
@@ -49,7 +59,17 @@ __all__ = [
     "clip_controls",
     "GeneratedSource",
     "generate_source",
+    "substep_program",
+    "WARP_PARTS",
+    "ENV_GROUPS",
 ]
+
+#: Warps that share each group of 32 envs, one partition of the substep each,
+#: by robot, and groups of 32 envs a block. Chosen from the sweep of
+#: ``tools/port_articulated_probe.py`` on an H100 (PERF.md). A robot not
+#: listed runs one thread an env, 128 threads a block.
+WARP_PARTS = {"half_cheetah": 4, "ant": 8}
+ENV_GROUPS = {"half_cheetah": 2, "ant": 1}
 
 # ---------------------------------------------------------------------------
 # Folding helpers: a python float 0.0 is a structural zero, 1.0 a unit.
@@ -544,19 +564,13 @@ def make_substep(t: ModelTables, ops, crows):
     return substep
 
 
-def generate_source(model: ArticulatedModel, frame_skip: int, name: str) -> GeneratedSource:
-    """Emit the kernel source of ``frame_skip`` substeps of ``model``.
+def substep_program(t: ModelTables):
+    """One substep over symbolic nodes: ``(prologue, body, outputs)``.
 
-    The text defines ``struct ArticulatedStep`` with the model's widths and a
-    ``__host__ __device__`` ``run(q, qd, ctrl)`` that steps one env in
-    registers, then instantiates the fixed kernel and entry points of
-    ``csrc/articulated_step.cuh``. Under ``nvcc`` that gives the launcher
-    ``articulated_step_launch``; under a plain C++ compiler the host loop
-    ``articulated_step_host``, which tests the same text without a card.
+    ``prologue`` are the live nodes that depend on the controls alone (run
+    once a call), ``body`` the live nodes of the substep in creation order,
+    ``outputs`` the new ``q`` then ``qd`` values (nodes, constants included).
     """
-    if frame_skip < 1:
-        raise ValueError(f"frame_skip must be at least 1, got {frame_skip}")
-    t = model_tables(model)
     ops = SymOps()
     crows = [ops.input(f"c{a}", varying=False) for a in range(t.nu)]
     qrows = [ops.input(f"q{i}", varying=True) for i in range(t.nq)]
@@ -564,15 +578,61 @@ def generate_source(model: ArticulatedModel, frame_skip: int, name: str) -> Gene
     substep = make_substep(t, ops, clip_controls(t, ops, crows))
     q_new, qd_new = substep(qrows, qdrows)
     outputs = [x if isinstance(x, Sym) else ops.const(x) for x in q_new + qd_new]
-
     live = _live(outputs)
-    prologue = [n for n in live if not n.varying]
-    body = [n for n in live if n.varying]
+    return [n for n in live if not n.varying], [n for n in live if n.varying], outputs
+
+
+def generate_source(
+    model: ArticulatedModel, frame_skip: int, name: str, parts: int | None = None, groups: int | None = None
+) -> GeneratedSource:
+    """Emit the kernel source of ``frame_skip`` substeps of ``model``.
+
+    The text defines ``struct ArticulatedStep`` with the model's widths and a
+    ``__host__ __device__`` ``run`` that steps one env, then instantiates the
+    fixed kernel and entry points of ``csrc/articulated_step.cuh``. Under
+    ``nvcc`` that gives the launcher ``articulated_step_launch``; under a
+    plain C++ compiler the host loop ``articulated_step_host``, which tests
+    the same text without a card.
+
+    ``parts`` warps share each group of 32 envs and ``groups`` groups share
+    a block; by default the robot's entries of :data:`WARP_PARTS` and
+    :data:`ENV_GROUPS`. With one part, ``run(q, qd, ctrl)`` holds the whole
+    step in one thread's registers. With more, the substep's operations are
+    partitioned over the warps (:func:`~gymnasium_tpu_torch.ops.warp_partition.partition`)
+    and ``run<part>(q, qd, ctrl, x)`` is one partition, exchanging values
+    through the group's shared memory ``x`` between phases.
+    """
+    if frame_skip < 1:
+        raise ValueError(f"frame_skip must be at least 1, got {frame_skip}")
+    parts = WARP_PARTS.get(name, 1) if parts is None else parts
+    groups = ENV_GROUPS.get(name, 1) if groups is None else groups
+    if parts < 1 or groups < 1 or parts * groups > 32 or groups > 15:
+        raise ValueError(f"{parts} warps a group and {groups} groups a block do not fit a block")
+    t = model_tables(model)
+    prologue, body, outputs = substep_program(t)
     prologue_ops = dict(collections.Counter(n.kind for n in prologue))
     substep_ops = dict(collections.Counter(n.kind for n in body))
 
     def counts(c):
         return ", ".join(f"{k} {v}" for k, v in sorted(c.items()))
+
+    if parts > 1:
+        wp = partition(body, parts, t.nq + t.nv)
+        if wp.shared_bytes(groups) > SHARED_BYTES_MAX:
+            raise ValueError(f"{name} on {parts} warps needs {wp.shared_bytes(groups)} B of shared memory a "
+                             f"block of {groups} groups, more than {SHARED_BYTES_MAX}")
+        lines = _partitioned_lines(t, frame_skip, name, counts(prologue_ops), counts(substep_ops),
+                                   prologue, outputs, wp, groups)
+        layout = {
+            "parts": parts,
+            "env_groups": groups,
+            "phases": wp.phases,
+            "exchanged": wp.exchanged,
+            "exchange_loads": wp.exchange_loads,
+            "recomputed_ops": len(wp.recomputed),
+            "shared_bytes_per_block": wp.shared_bytes(groups),
+        }
+        return GeneratedSource(name, frame_skip, "\n".join(lines), prologue_ops, substep_ops, layout)
 
     ind2, ind3 = " " * 4, " " * 6
     lines = [
@@ -601,4 +661,90 @@ def generate_source(model: ArticulatedModel, frame_skip: int, name: str) -> Gene
     lines += [f"{ind2}q[{i}] = q{i};" for i in range(t.nq)]
     lines += [f"{ind2}qd[{i}] = v{i};" for i in range(t.nv)]
     lines += ["  }", "};", "", "ART_ENTRY_POINTS(ArticulatedStep)", ""]
-    return GeneratedSource(name, frame_skip, "\n".join(lines), prologue_ops, substep_ops)
+    layout = {"parts": 1, "env_groups": 4, "phases": 1, "exchanged": 0, "exchange_loads": 0,
+              "recomputed_ops": 0, "shared_bytes_per_block": 0}
+    return GeneratedSource(name, frame_skip, "\n".join(lines), prologue_ops, substep_ops, layout)
+
+
+def _partitioned_lines(t, frame_skip, name, prologue_counts, substep_counts, prologue, outputs, wp, groups):
+    """The text of a step whose substep runs on ``wp.parts`` warps.
+
+    ``run<kPart>`` holds, inside the ``frame_skip`` loop, every phase's block
+    of every partition, each guarded by ``ART_PART(p)``: on the card a warp
+    instantiates its own partition, and the other blocks fold away; on the
+    host ``run<-1>`` runs each phase's partitions in order for one env.
+    Every body value is declared at the top of a substep and assigned where
+    its partition computes or loads it. After the last phase each new
+    ``q``/``qd`` value is stored by its owner to slots ``0 .. kNq + kNv - 1``,
+    and after the barrier every partition reads them back.
+    """
+    ind2, ind3, ind4 = " " * 4, " " * 6, " " * 8
+    lines = [
+        f"// Generated by gymnasium_tpu_torch/ops/articulated_codegen.py for {name},",
+        f"// frame_skip {frame_skip}. Do not edit: edit the generator.",
+        f"// Once a call: {prologue_counts or 'nothing'}.",
+        f"// Each substep: {substep_counts}.",
+        f"// Partitioned over {wp.parts} warps in {wp.phases} phases: {wp.exchanged} values exchanged "
+        f"({wp.exchange_loads} loads), {len(wp.recomputed)} operations recomputed, {wp.slots} slots an env.",
+        '#include "articulated_step.cuh"',
+        "",
+        "struct ArticulatedStep {",
+        f"  static constexpr int kNq = {t.nq};",
+        f"  static constexpr int kNv = {t.nv};",
+        f"  static constexpr int kNu = {t.nu};",
+        f"  static constexpr int kParts = {wp.parts};",
+        f"  static constexpr int kGroups = {groups};",
+        f"  static constexpr int kSlots = {wp.slots};",
+        "  template <int kPart, typename X>",
+        "  static ART_FN void run(const float* q, const float* qd, const float* ctrl, X& x) {",
+    ]
+    lines += [f"{ind2}const float c{a} = ctrl[{a}];" for a in range(t.nu)]
+    lines += [ind2 + _statement(n) for n in prologue]
+    lines += [f"{ind2}float q{i} = q[{i}];" for i in range(t.nq)]
+    lines += [f"{ind2}float v{i} = qd[{i}];" for i in range(t.nv)]
+    lines += [f"{ind2}ART_NO_UNROLL", f"{ind2}for (int s = 0; s < {frame_skip}; ++s) {{"]
+    body = sorted({n.id: n for phase in wp.blocks for block in phase for n in block}.values(), key=lambda n: n.id)
+    for ctype in ("float", "bool"):
+        names = [f"t{n.id}" for n in body if _ctype(n) == ctype]
+        lines += [f"{ind3}{ctype} {', '.join(names[i:i + 16])};" for i in range(0, len(names), 16)]
+
+    def load(n, slot):
+        return f"t{n.id} = x[{slot}] != 0.0f;" if n.dtype == "b" else f"t{n.id} = x[{slot}];"
+
+    def store(n, slot):
+        return f"x[{slot}] = t{n.id} ? 1.0f : 0.0f;" if n.dtype == "b" else f"x[{slot}] = t{n.id};"
+
+    def statements(nodes):
+        """One assignment a node; the sine and cosine of one angle from one
+        call of ``art::sin_cos`` (a ``sincosf``, out of line on the card)."""
+        pairs = {n.id: (s, c) for s, c in sincos_pairs(nodes) for n in (s, c)}
+        out = []
+        for n in nodes:
+            if n.id not in pairs:
+                out.append(f"t{n.id} = {_expression(n)};")
+            elif n is min(pairs[n.id], key=lambda m: m.id):
+                s, c = pairs[n.id]
+                out.append(f"{{ const art::SinCos sc = art::sin_cos({_ref(n.args[0])}); "
+                           f"t{s.id} = sc.s; t{c.id} = sc.c; }}")
+        return out
+
+    for k in range(wp.phases):
+        if k:
+            lines.append(f"{ind3}x.sync();")
+        for p in range(wp.parts):
+            block = ([load(n, s) for n, s in wp.loads[k][p]]
+                     + statements(wp.blocks[k][p])
+                     + [store(n, s) for n, s in wp.stores[k][p]])
+            if block:
+                lines += [f"{ind3}if (ART_PART({p})) {{"] + [ind4 + s for s in block] + [f"{ind3}}}"]
+    if wp.phases == 1:  # the carried stores must follow the previous substep's reads
+        lines.append(f"{ind3}x.sync();")
+    new = [f"q{i}" for i in range(t.nq)] + [f"v{i}" for i in range(t.nv)]
+    for p in range(wp.parts):
+        owned = [f"x[{i}] = {_ref(o)};" for i, o in enumerate(outputs) if wp.owner.get(o.id, 0) == p]
+        if owned:
+            lines += [f"{ind3}if (ART_PART({p})) {{"] + [ind4 + s for s in owned] + [f"{ind3}}}"]
+    lines.append(f"{ind3}x.sync();")
+    lines += [f"{ind3}{var} = x[{i}];" for i, var in enumerate(new)]
+    lines += [f"{ind2}}}", "  }", "};", "", "ART_PARTS_ENTRY_POINTS(ArticulatedStep)", ""]
+    return lines

@@ -373,22 +373,24 @@ def _ctype(node: Sym) -> str:
 
 
 def _statement(node: Sym) -> str:
-    ctype = _ctype(node)
-    args = [_ref(a) for a in node.args]
     if node.kind == "sincos":
-        s, c = f"t{node.id}s", f"t{node.id}c"
-        return f"float {s}, {c}; sincosf({args[0]}, &{s}, &{c});"
+        s, c, x = f"t{node.id}s", f"t{node.id}c", _ref(node.args[0])
+        return f"float {s}, {c}; sincosf({x}, &{s}, &{c});"
+    return f"const {_ctype(node)} t{node.id} = {_expression(node)};"
+
+
+def _expression(node: Sym) -> str:
+    """The C expression of a statement node's value."""
+    args = [_ref(a) for a in node.args]
     if node.kind in _C_BINARY:
-        expr = f"{args[0]} {_C_BINARY[node.kind]} {args[1]}"
-    elif node.kind in _C_CALL:
-        expr = f"{_C_CALL[node.kind]}({', '.join(args)})"
-    elif node.kind == "neg":
-        expr = f"-{args[0]}"
-    elif node.kind == "select":
-        expr = f"{args[0]} ? {args[1]} : {args[2]}"
-    else:
-        raise ValueError(f"no C form for {node.kind}")
-    return f"const {ctype} t{node.id} = {expr};"
+        return f"{args[0]} {_C_BINARY[node.kind]} {args[1]}"
+    if node.kind in _C_CALL:
+        return f"{_C_CALL[node.kind]}({', '.join(args)})"
+    if node.kind == "neg":
+        return f"-{args[0]}"
+    if node.kind == "select":
+        return f"{args[0]} ? {args[1]} : {args[2]}"
+    raise ValueError(f"no C form for {node.kind}")
 
 
 def _live(outputs) -> list[Sym]:
@@ -459,6 +461,7 @@ class GeneratedSource:
     text: str
     prologue_ops: dict  # kind -> count, run once a call
     substep_ops: dict  # kind -> count, run `substeps` times a call
+    layout: dict | None = None  # how the kernel lays the work over threads, where the generator says
 
     @property
     def ops_per_env(self) -> int:

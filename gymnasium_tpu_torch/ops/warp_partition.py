@@ -1,0 +1,296 @@
+"""Partition a generated substep's operations over the warps that share 32 envs.
+
+The articulated kernel runs ``G`` warps on each group of 32 envs: lane ``l``
+of every warp is env ``l``, and warp ``g`` runs partition ``g`` of the
+substep's operation DAG. This module makes that partition on the CPU, from
+the live body nodes of :mod:`gymnasium_tpu_torch.ops.codegen`:
+
+- every node goes to one partition and one **phase**. Between phases the
+  group's warps meet at a barrier, and a node may read a value that another
+  partition made only in an earlier phase; that value goes through shared
+  memory (one store by its owner, one load by each partition that reads it);
+- a node whose single user is another node stays with that user, so the
+  chains that feed one value (a contact's force, a mass-matrix entry with
+  its Jacobian products, a running sum) never cross partitions; the sine
+  and cosine of one angle stay together, to be emitted as one ``sincosf``
+  (its range reduction once: less code for the warp to fetch). These
+  clusters are placed by a greedy list schedule: phase by phase, the least
+  loaded partition takes the ready cluster of highest priority (its longest
+  latency path to an output), less a penalty for each operand it would have
+  to load; a partition may chain its own results within a phase. The phase
+  budget is chosen among a few by the schedule's estimated time;
+- a cheap node (one add, multiply, compare, select...) that another
+  partition would load is recomputed there instead when that partition
+  already holds its operands. Each recomputation is listed;
+- exchanged values share slots where their lifetimes, in phases, do not
+  overlap. The first ``carried`` slots hold the values carried from one
+  substep to the next.
+
+Every node is still the same operation on the same operands, so every value
+keeps its bits. With one partition there is nothing to place.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import heapq
+
+__all__ = ["WarpPartition", "partition", "sincos_pairs", "SHARED_BYTES_MAX"]
+
+#: Latency in clocks of one operation, as the schedule counts it: sqrt and
+#: the IEEE divide 20, sin and cos 40, everything else 4.
+LATENCY = collections.defaultdict(lambda: 4, {"div": 20, "sqrt": 20, "sin": 40, "cos": 40})
+_EXCHANGE = 4  # clocks a shared-memory store or load adds to its warp's phase
+_BARRIER = 40  # clocks a barrier between phases costs
+_LOAD_PENALTY = 12  # priority a cluster loses for each operand its partition must load
+_CHEAP = frozenset({"add", "sub", "mul", "neg", "max", "min", "gt", "lt", "ge", "or", "select"})
+_BUDGET_FRACTIONS = (1 / 32, 1 / 16, 1 / 8, 1 / 4, 1 / 2)
+#: Shared memory one block may use on an H100 (227 KB, dynamic above 48 KB).
+SHARED_BYTES_MAX = 232_448
+
+
+@dataclasses.dataclass(frozen=True)
+class WarpPartition:
+    """Where each body node of one substep runs, and what the warps exchange.
+
+    ``blocks[k][p]`` are the nodes partition ``p`` computes in phase ``k``
+    (recomputations included), in creation order; ``loads[k][p]`` the
+    ``(node, slot)`` it reads from shared memory at the start of that phase,
+    ``stores[k][p]`` those it writes at its end.
+    """
+
+    parts: int
+    phases: int
+    blocks: list
+    loads: list
+    stores: list
+    owner: dict  # node id -> the partition that computes it
+    recomputed: list  # (node, partition, phase): computed again there
+    slots: int  # exchange floats an env, the carried slots first
+    carried: int
+    estimate: int  # clocks of one substep in the schedule's own cost model (not a measurement)
+
+    @property
+    def exchanged(self) -> int:
+        """Values that cross partitions through shared memory, a substep."""
+        return sum(len(s) for phase in self.stores for s in phase)
+
+    @property
+    def exchange_loads(self) -> int:
+        return sum(len(s) for phase in self.loads for s in phase)
+
+    def shared_bytes(self, groups: int) -> int:
+        """Exchange buffer of a block of ``groups`` groups of 32 envs."""
+        return 4 * 32 * self.slots * groups
+
+
+def sincos_pairs(nodes):
+    """``(sin, cos)`` node pairs of one argument among ``nodes``."""
+    sines = {n.args[0].id: n for n in nodes if n.kind == "sin"}
+    return [(sines[n.args[0].id], n) for n in nodes if n.kind == "cos" and n.args[0].id in sines]
+
+
+class _Graph:
+    """The body nodes as indices: operands, users, costs, priorities, clusters."""
+
+    def __init__(self, body):
+        self.body = body
+        index = {n.id: i for i, n in enumerate(body)}
+        self.n = len(body)
+        self.preds = [sorted({index[a.id] for a in n.args if a.id in index}) for n in body]
+        self.users = [[] for _ in body]
+        for i, ps in enumerate(self.preds):
+            for j in ps:
+                self.users[j].append(i)
+        self.cost = [LATENCY[n.kind] for n in body]
+        self.level = [0] * self.n  # longest latency path to an output
+        for i in reversed(range(self.n)):
+            self.level[i] = self.cost[i] + max((self.level[u] for u in self.users[i]), default=0)
+        # a node with one user joins that user's cluster, and the sine and
+        # cosine of one angle share a cluster, so they can be one sincosf
+        root = list(range(self.n))
+        for i in reversed(range(self.n)):
+            if len(self.users[i]) == 1:
+                root[i] = root[self.users[i][0]]
+        for i, j in sincos_pairs(body):
+            i, j = index[i.id], index[j.id]
+            if root[i] == i and root[j] == j:  # each read by several nodes: no cycle can form
+                root = [i if r == j else r for r in root]
+        self.cluster = root
+        members = collections.defaultdict(list)
+        for i in range(self.n):
+            members[root[i]].append(i)
+        self.members = dict(members)
+        self.ext = {c: sorted({j for i in m for j in self.preds[i] if root[j] != c}) for c, m in members.items()}
+        self.cusers = collections.defaultdict(set)
+        for c, ext in self.ext.items():
+            for j in ext:
+                self.cusers[root[j]].add(c)
+        self.ccost = {c: sum(self.cost[i] for i in m) for c, m in members.items()}
+        self.clevel = {c: max(self.level[i] for i in m) for c, m in members.items()}
+
+
+def _place(g: _Graph, parts: int, budget: float):
+    """Greedy phase schedule of the clusters; returns (phase, part) by cluster."""
+    remaining = {c: len({g.cluster[j] for j in ext}) for c, ext in g.ext.items()}
+    where: dict = {}
+    pool = [(-g.clevel[c], c) for c, r in remaining.items() if r == 0]
+    heapq.heapify(pool)
+    held = [set() for _ in range(parts)]
+    phase = 0
+    while len(where) < len(g.members):
+        local = [[] for _ in range(parts)]
+        load = [0.0] * parts
+        idle = [False] * parts
+        blocked = []
+
+        def missing(c, p):
+            return sum(1 for j in g.ext[c] if j not in held[p])
+
+        while True:
+            open_parts = [p for p in range(parts) if not idle[p] and load[p] < budget]
+            if not open_parts:
+                break
+            p = min(open_parts, key=lambda q: load[q])
+            while local[p] and local[p][0][1] in where:
+                heapq.heappop(local[p])
+            best = None
+            if local[p]:
+                c = local[p][0][1]
+                best = (g.clevel[c] - _LOAD_PENALTY * missing(c, p), -c, c, "local")
+            looked = []
+            while pool and len(looked) < 8:
+                item = heapq.heappop(pool)
+                if item[1] not in where:
+                    looked.append(item)
+            for _, c in looked:
+                key = (g.clevel[c] - _LOAD_PENALTY * missing(c, p), -c, c, "pool")
+                if best is None or key > best:
+                    best = key
+            for item in looked:
+                if best is None or item[1] != best[2] or best[3] != "pool":
+                    heapq.heappush(pool, item)
+            if best is None:
+                idle[p] = True
+                continue
+            c = best[2]
+            if best[3] == "local":
+                heapq.heappop(local[p])
+            load[p] += g.ccost[c] + _EXCHANGE * missing(c, p)
+            where[c] = (phase, p)
+            held[p].update(g.ext[c])
+            held[p].update(g.members[c])
+            for u in g.cusers[c]:
+                remaining[u] -= 1
+                if remaining[u] == 0:
+                    now = {where[g.cluster[j]][1] for j in g.ext[u] if where[g.cluster[j]][0] == phase}
+                    if now == {p}:
+                        heapq.heappush(local[p], (-g.clevel[u], u))
+                    else:
+                        blocked.append(u)
+        for p in range(parts):
+            blocked += [c for _, c in local[p] if c not in where]
+        for c in set(blocked):
+            heapq.heappush(pool, (-g.clevel[c], c))
+        if not any(where.get(c, (-1,))[0] == phase for c in g.members):
+            raise RuntimeError("no cluster could be placed: the cluster graph has a cycle")
+        phase += 1
+    return where, phase
+
+
+def _finish(g: _Graph, where, phases: int, parts: int, carried: int):
+    """Recomputation, exchange slots and the estimate of one placement."""
+    node_phase = [where[g.cluster[i]][0] for i in range(g.n)]
+    node_part = [where[g.cluster[i]][1] for i in range(g.n)]
+    computed = [dict() for _ in range(parts)]  # node -> phase, per partition
+    for i in range(g.n):
+        computed[node_part[i]][i] = node_phase[i]
+    need: dict = {}  # (node, partition) -> first phase the partition reads it
+    for i in range(g.n):
+        q, k = node_part[i], node_phase[i]
+        for j in g.preds[i]:
+            if node_part[j] != q:
+                need[(j, q)] = min(need.get((j, q), phases), k)
+    recomputed = []
+    changed = True
+    while changed:
+        changed = False
+        for (j, q), k in sorted(need.items()):
+            if (j, q) not in need or g.body[j].kind not in _CHEAP:
+                continue
+            if all(computed[q].get(x, phases) <= k or need.get((x, q), phases) <= k for x in g.preds[j]):
+                del need[(j, q)]
+                computed[q][j] = k
+                recomputed.append((j, q, k))
+                changed = True
+    # a slot is free again after the last phase that reads it
+    last_read = collections.defaultdict(int)
+    for (j, q), k in need.items():
+        last_read[j] = max(last_read[j], k)
+    slot_of: dict = {}
+    free: list = []
+    busy: list = []  # (last read phase, slot)
+    top = carried
+    for j in sorted(last_read, key=lambda x: (node_phase[x], x)):
+        w = node_phase[j]
+        while busy and busy[0][0] < w:
+            heapq.heappush(free, heapq.heappop(busy)[1])
+        if free:
+            s = heapq.heappop(free)
+        else:
+            s, top = top, top + 1
+        slot_of[j] = s
+        heapq.heappush(busy, (last_read[j], s))
+    seg = [[0] * parts for _ in range(phases)]
+    for p in range(parts):
+        for i, k in computed[p].items():
+            seg[k][p] += g.cost[i]
+    for (j, q), k in need.items():
+        seg[k][q] += _EXCHANGE
+    for j in slot_of:
+        seg[node_phase[j]][node_part[j]] += _EXCHANGE
+    estimate = sum(max(s) for s in seg) + _BARRIER * phases
+    return node_phase, node_part, computed, need, recomputed, slot_of, top, estimate
+
+
+def partition(body, parts: int, carried: int) -> WarpPartition:
+    """Place the live body nodes (creation order, no loop nodes) of one
+    substep on ``parts`` warps; ``carried`` slots are kept for the values
+    carried between substeps."""
+    if parts < 1:
+        raise ValueError(f"parts must be at least 1, got {parts}")
+    if any(n.kind in ("loop", "sincos") for n in body):
+        raise ValueError("the warp partition takes straight-line statements only")
+    g = _Graph(body)
+    total = sum(g.cost)
+    best = None
+    for fraction in _BUDGET_FRACTIONS if parts > 1 else (1.0,):
+        where, phases = _place(g, parts, max(total / parts * fraction, 1.0))
+        result = _finish(g, where, phases, parts, carried)
+        key = (result[-1], result[-2])  # estimate, then slots
+        if best is None or key < best[0]:
+            best = (key, phases, result)
+    _, phases, (node_phase, node_part, computed, need, recomputed, slot_of, slots, estimate) = best
+    blocks = [[[] for _ in range(parts)] for _ in range(phases)]
+    for p in range(parts):
+        for i, k in sorted(computed[p].items()):
+            blocks[k][p].append(body[i])
+    loads = [[[] for _ in range(parts)] for _ in range(phases)]
+    for (j, q), k in sorted(need.items()):
+        loads[k][q].append((body[j], slot_of[j]))
+    stores = [[[] for _ in range(parts)] for _ in range(phases)]
+    for j in sorted(slot_of):
+        stores[node_phase[j]][node_part[j]].append((body[j], slot_of[j]))
+    return WarpPartition(
+        parts=parts,
+        phases=phases,
+        blocks=blocks,
+        loads=loads,
+        stores=stores,
+        owner={body[i].id: node_part[i] for i in range(g.n)},
+        recomputed=[(body[j], q, k) for j, q, k in recomputed],
+        slots=slots,
+        carried=carried,
+        estimate=estimate,
+    )

@@ -140,15 +140,16 @@ def test_twin_matches_make_dynamics(request, robot, frame_skip):
     _check(request, (tq[PROBE], tqd[PROBE]), (np.asarray(jq), np.asarray(jqd)), Q_TOL, QD_TOL)
 
 
-@pytest.mark.parametrize("robot, frame_skip", [("reacher", 2), ("half_cheetah", 5), ("ant", 1)])
-def test_emitted_source_matches_twin_on_host(request, tmp_path, robot, frame_skip):
+def _host_step(tmp_path, robot, frame_skip, parts=None):
+    """The generated source (the robot's own layout, or ``parts`` warps)
+    built with the host ``g++``: ``step(q, qd, ctrl) -> (q', qd')``."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs a host g++")
     model, _ = load_model(robot)
-    src = tmp_path / f"{robot}.cpp"
-    src.write_text(generate_source(model, frame_skip, robot).text)
-    lib_path = tmp_path / f"lib{robot}.so"
+    src = tmp_path / f"{robot}_{parts}.cpp"
+    src.write_text(generate_source(model, frame_skip, robot, parts=parts).text)
+    lib_path = tmp_path / f"lib{robot}_{parts}.so"
     subprocess.run(
         [gxx, "-O1", "-ffp-contract=off", "-shared", "-fPIC", "-I", str(SOURCE_DIR),
          "-x", "c++", "-o", str(lib_path), str(src)],
@@ -157,18 +158,50 @@ def test_emitted_source_matches_twin_on_host(request, tmp_path, robot, frame_ski
     host_step = ctypes.CDLL(str(lib_path)).articulated_step_host
     host_step.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int]
 
+    def step(q, qd, ctrl):
+        cq, cqd = np.empty_like(q), np.empty_like(qd)
+        host_step(q.ctypes.data, qd.ctypes.data, ctrl.ctypes.data, cq.ctypes.data, cqd.ctypes.data, len(q))
+        return cq, cqd
+
+    return step
+
+
+@pytest.mark.parametrize("robot, frame_skip", [("reacher", 2), ("half_cheetah", 5), ("ant", 1)])
+def test_emitted_source_matches_twin_on_host(request, tmp_path, robot, frame_skip):
+    """The robot's own layout: warp-specialised for half_cheetah and ant
+    (``articulated_codegen.WARP_PARTS``), run on the host one partition after
+    another, phase by phase."""
+    model, _ = load_model(robot)
     q, qd, ctrl = _states(model, 512, seed=2)
-    cq, cqd = np.empty_like(q), np.empty_like(qd)
-    host_step(q.ctypes.data, qd.ctypes.data, ctrl.ctypes.data, cq.ctypes.data, cqd.ctypes.data, len(q))
+    cq, cqd = _host_step(tmp_path, robot, frame_skip)(q, qd, ctrl)
     _check(request, _twin(robot, frame_skip, q, qd, ctrl), (cq, cqd), *SAME_PROGRAM_TOL)
     if model.root_free:
         assert _small_angle_lanes(model, cqd) >= len(q) // 8
 
 
+@pytest.mark.parametrize(
+    "robot, frame_skip, parts",
+    [("half_cheetah", 5, 2), ("half_cheetah", 5, 8), ("ant", 1, 2), ("ant", 1, 4), ("hopper", 4, 2),
+     ("reacher", 2, 2)],
+)
+def test_partitioned_source_gives_the_one_thread_bits_on_host(tmp_path, robot, frame_skip, parts):
+    """The partitioned text and the one-thread text, both built with ``g++``,
+    give the same bits on every lane. (Both stand within the same-program
+    tolerance of the twin, not at its bits: the host's ``sinf``/``cosf``
+    differ from torch's CPU kernels by an ULP. On the card the kernel equals
+    the twin in every bit: ``chip_smoke.compare_articulated_with_twin``.)"""
+    model, _ = load_model(robot)
+    q, qd, ctrl = _states(model, 256, seed=5)
+    got = _host_step(tmp_path, robot, frame_skip, parts)(q, qd, ctrl)
+    want = _host_step(tmp_path, robot, frame_skip, 1)(q, qd, ctrl)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
+
+
 def test_generated_source_is_stable_and_counted():
     model, _ = load_model("half_cheetah")
-    a = generate_source(model, 5, "half_cheetah")
-    b = generate_source(model, 5, "half_cheetah")
+    a = generate_source(model, 5, "half_cheetah", parts=1)
+    b = generate_source(model, 5, "half_cheetah", parts=1)
     assert a.text == b.text
     # one statement a counted operation, each substep looped, not unrolled
     statements = sum(line.strip().startswith("const float t") or line.strip().startswith("const bool t")

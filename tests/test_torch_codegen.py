@@ -1,4 +1,5 @@
-"""The shared backends of the port's generators (``ops/codegen.py``).
+"""The shared backends of the port's generators (``ops/codegen.py``), and the
+warp partition of the articulated substep (``ops/warp_partition.py``).
 
 The articulated and planar generators emit C through the same symbolic
 backend. The articulated sources are pinned by digest, so a change to the
@@ -10,7 +11,9 @@ loop over torch tensors and one C loop, with its invariants hoisted, over
 symbolic nodes; ``sincos`` is one ``sincosf``.
 """
 
+import collections
 import hashlib
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,11 +21,18 @@ import pytest
 import torch
 
 from gymnasium_tpu_torch.envs.mujoco.mujoco_env import load_model
-from gymnasium_tpu_torch.ops.articulated_codegen import generate_source
+from gymnasium_tpu_torch.ops.articulated_codegen import (
+    ENV_GROUPS,
+    WARP_PARTS,
+    generate_source,
+    model_tables,
+    substep_program,
+)
 from gymnasium_tpu_torch.ops.codegen import SymOps, TorchOps, _live, _statement, emit, op_counts
+from gymnasium_tpu_torch.ops.warp_partition import SHARED_BYTES_MAX, partition
 
-# sha256 of the emitted text, recorded before the backends moved out of
-# ops/articulated_codegen.py
+# sha256 of the emitted text with one thread an env (parts=1), recorded
+# before the backends moved out of ops/articulated_codegen.py
 ARTICULATED_DIGESTS = {
     ("half_cheetah", 5): "1e02e1201d4d7c684aaa2eb37d8288f51206f31bb13ebd1a8c3b2c4e17efee05",
     ("ant", 1): "65d19f8ae8454a63bccbe3af3bb9e2f88e1a0aa4dc8b1f8288779739cf01f518",
@@ -32,7 +42,7 @@ ARTICULATED_DIGESTS = {
 @pytest.mark.parametrize("robot, frame_skip", sorted(ARTICULATED_DIGESTS))
 def test_articulated_source_is_byte_identical(robot, frame_skip):
     model, _ = load_model(robot)
-    text = generate_source(model, frame_skip, robot).text
+    text = generate_source(model, frame_skip, robot, parts=1).text
     assert hashlib.sha256(text.encode()).hexdigest() == ARTICULATED_DIGESTS[(robot, frame_skip)]
 
 
@@ -180,3 +190,103 @@ def test_sincos_is_one_call_and_the_twin_is_sin_and_cos():
     v = torch.from_numpy(np.random.default_rng(2).uniform(-40, 40, 129).astype(np.float32))
     ts, tc = TorchOps("cpu").sincos(v)
     assert torch.equal(ts, torch.sin(v)) and torch.equal(tc, torch.cos(v))
+
+
+# ---------------------------------------------------------------------------
+# The warp partition of the articulated substep (ops/warp_partition.py)
+
+
+def _substep_body(robot):
+    """The tables, live body nodes and outputs of one substep."""
+    t = model_tables(load_model(robot)[0])
+    _, body, outputs = substep_program(t)
+    return t, body, outputs
+
+
+def _run_phases(body, outputs, wp):
+    """Walk every partition phase by phase as the warps would, with the group's
+    slots as one table: each operand a partition reads must be its own (computed
+    or loaded before), each load must find its value in its slot, written in an
+    earlier phase, and no slot is written in a phase in which it is read."""
+    body_ids = {n.id for n in body}
+    held = [set() for _ in range(wp.parts)]
+    slots = {}  # slot -> (node id, phase written)
+    for k in range(wp.phases):
+        read = {s for p in range(wp.parts) for _, s in wp.loads[k][p]}
+        written = [s for p in range(wp.parts) for _, s in wp.stores[k][p]]
+        assert not read & set(written), f"phase {k} reads and writes one slot"
+        assert len(written) == len(set(written)), f"two partitions write one slot in phase {k}"
+        for p in range(wp.parts):
+            for n, s in wp.loads[k][p]:
+                assert wp.owner[n.id] != p and s >= wp.carried
+                assert slots.get(s, (None,))[0] == n.id and slots[s][1] < k, f"t{n.id} is not in slot {s}"
+                held[p].add(n.id)
+            for n in wp.blocks[k][p]:
+                missing = [a.id for a in n.args if a.id in body_ids and a.id not in held[p]]
+                assert not missing, f"partition {p} reads {missing} in phase {k} before it has them"
+                held[p].add(n.id)
+        for p in range(wp.parts):
+            for n, s in wp.stores[k][p]:
+                assert wp.owner[n.id] == p and n.id in held[p]
+                slots[s] = (n.id, k)
+    for o in outputs:  # each new q, qd is held by the partition that stores it
+        assert o.id not in body_ids or o.id in held[wp.owner[o.id]]
+
+
+PARTITION_CASES = [("half_cheetah", 2), ("half_cheetah", WARP_PARTS["half_cheetah"]), ("ant", 2),
+                   ("ant", WARP_PARTS["ant"]), ("hopper", 2), ("hopper", 4), ("reacher", 2), ("reacher", 4)]
+
+
+@pytest.mark.parametrize("robot, parts", PARTITION_CASES)
+def test_warp_partition_places_every_node_once_and_reads_only_earlier_phases(robot, parts):
+    t, body, outputs = _substep_body(robot)
+    wp = partition(body, parts, t.nq + t.nv)
+    assert wp.parts == parts and wp.phases >= 2
+    # every live node has one owner and is computed there once; any other
+    # partition computes it only as a listed recomputation of a cheap node
+    assert set(wp.owner) == {n.id for n in body} and set(wp.owner.values()) == set(range(parts))
+    places = collections.Counter((n.id, p) for phase in wp.blocks for p, block in enumerate(phase) for n in block)
+    assert all(c == 1 for c in places.values())
+    again = {(n.id, p) for n, p, _ in wp.recomputed}
+    assert set(places) == {(i, p) for i, p in wp.owner.items()} | again
+    assert all(p != wp.owner[n.id] and n.kind in ("add", "sub", "mul", "neg", "max", "min", "gt", "lt", "ge", "or",
+                                                 "select") for n, p, _ in wp.recomputed)
+    _run_phases(body, outputs, wp)
+    # the operations computed once are the one-thread program's, kind by kind
+    model, _ = load_model(robot)
+    once = collections.Counter(n.kind for n in body)
+    assert once == collections.Counter(generate_source(model, 1, robot, parts=1).substep_ops)
+    assert sum(collections.Counter(n.kind for n, _, _ in wp.recomputed).values()) == len(wp.recomputed)
+    assert wp.exchanged == len({n.id for phase in wp.stores for s in phase for n, _ in s})
+
+
+@pytest.mark.parametrize("robot", sorted(WARP_PARTS))
+def test_shipped_layout_fits_the_shared_memory_of_a_block(robot):
+    model, _ = load_model(robot)
+    layout = generate_source(model, 5, robot).layout
+    assert (layout["parts"], layout["env_groups"]) == (WARP_PARTS[robot], ENV_GROUPS[robot])
+    assert 0 < layout["shared_bytes_per_block"] <= SHARED_BYTES_MAX
+    assert layout["shared_bytes_per_block"] == 4 * 32 * ENV_GROUPS[robot] * int(
+        generate_source(model, 5, robot).text.split("kSlots = ")[1].split(";")[0])
+
+
+def test_a_layout_over_the_shared_memory_of_a_block_raises():
+    model, _ = load_model("ant")
+    with pytest.raises(ValueError, match="shared memory"):
+        generate_source(model, 5, "ant", parts=8, groups=2)
+    with pytest.raises(ValueError, match="do not fit a block"):
+        generate_source(model, 5, "ant", parts=8, groups=5)
+
+
+def test_partitioned_text_guards_every_block_and_fuses_sine_and_cosine():
+    model, _ = load_model("half_cheetah")
+    src = generate_source(model, 5, "half_cheetah", parts=4, groups=1)
+    text = src.text
+    assert "ART_PARTS_ENTRY_POINTS(ArticulatedStep)" in text and "ART_ENTRY_POINTS(" not in text
+    assert "template <int kPart, typename X>" in text and "static constexpr int kParts = 4;" in text
+    loop = text.split("for (int s = 0; s < 5; ++s) {")[1]
+    assert loop.count("x.sync();") == src.layout["phases"]
+    # one sincosf an angle, out of line: HalfCheetah's seven hinges
+    assert loop.count("art::sin_cos(") == 7 and not re.search(r"\b(sinf|cosf|sincosf)\(", loop)
+    # the one-thread text is untouched by the layout
+    assert "x.sync()" not in generate_source(model, 5, "half_cheetah", parts=1).text

@@ -20,6 +20,7 @@ from gymnasium_tpu_torch.envs.dynamics.lunar_lander import lander_step
 from gymnasium_tpu_torch.ops import articulated_step as art
 from gymnasium_tpu_torch.ops import cartpole_rollout as cr
 from gymnasium_tpu_torch.ops import planar_step as pl
+from tools.port_articulated_probe import layout
 from tools.port_planar_probe import unrolled_step
 
 pytestmark = pytest.mark.gpu
@@ -101,13 +102,27 @@ def test_rejects_non_contiguous_state(cuda):
 
 @pytest.mark.parametrize("robot, n", [("half_cheetah", 1000), ("ant", 333)])
 def test_articulated_kernel_matches_twin(cuda, robot, n):
-    """One call of 5 substeps, at a batch that leaves the last block ragged;
-    within the same-program tolerance of the twin and deterministic."""
+    """One call of 5 substeps, at a batch that leaves the last block ragged:
+    equal to the twin, deterministic."""
     step = art.fused_step(robot, 5)
     inputs = articulated_states(step.model, n, cuda, seed=3)
     before = art.launches[step.build_name]
     compare_articulated_with_twin(step, *inputs)
     assert art.launches[step.build_name] == before + 2
+
+
+@pytest.mark.parametrize("parts, groups", [(1, 4), (2, 3), (8, 2)])
+def test_articulated_layouts_give_the_same_bits(cuda, parts, groups):
+    """One thread an env, and warp-specialised layouts whose last block holds
+    groups past the batch's end (N=1000), against the shipped layout: each a
+    copy of the step carrying the generator's text for its layout."""
+    step = art.fused_step("half_cheetah", 5)
+    other = layout(step, parts, groups)
+    inputs = articulated_states(step.model, 1000, cuda, seed=6)
+    for a, b in zip(other(*inputs), step(*inputs)):
+        torch.cuda.synchronize()
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert art.launches[other.build_name] >= 1
 
 
 def test_articulated_kernel_takes_strided_inputs(cuda):
