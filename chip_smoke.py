@@ -22,7 +22,16 @@ and read just after:
 - ``TorchVectorEnv(LunarLanderFunctional(), 4096, max_episode_steps=1000)``:
   reset, four steps, a masked reset of every other lane, ``rollout(200)``.
   Each env step launches the generated planar kernel twice: the transition
-  and the settle tick of the reset drawn for every lane.
+  and the settle tick of the reset drawn for every lane;
+- the PPO trainer at ``tools/bench_ppo.py``'s widths: CartPole-v1 (4096 envs,
+  64 steps a rollout, hidden (128, 128)) and HalfCheetah-v5 (4096 x 64,
+  hidden (256, 256), with NormalizeObservation, NormalizeReward and
+  EpisodeStatistics), bf16 hidden layers: one untimed train step, three
+  timed ones and one under ``torch.profiler`` for the phase split (rollout,
+  value pass with GAE, update). Each HalfCheetah env step of a rollout is
+  one launch of the articulated kernel, 64 a train step. A float32
+  HalfCheetah train step at 256 envs x 16 steps with injected draws is then
+  held against the same step on the CPU.
 
 It holds each kernel against its plain PyTorch version on the card and times
 both; the articulated and planar kernels must equal their twins in every
@@ -33,8 +42,9 @@ layout (``parts`` warps a group of 32 envs, ``env_groups`` groups a block,
 ``torch.profiler``'s kernel durations; ``events_ms`` is CUDA events around back-to-back calls,
 which read the host's launch pace where a call's host work outlasts its
 kernel. It counts each library's SASS instructions with ``cuobjdump``. It
-prints the card's name and power limit, one ``{"kernels": [...]}`` line, and
-last the line ``{"ok": true, "device": {...}}``. Any failed check
+prints the card's name and power limit, one ``{"ppo": {...}}`` line, one
+``{"kernels": [...]}`` line, and last the line ``{"ok": true, "device":
+{...}}``. Any failed check
 raises, so the exit code is 0 only when every phase passed. Without a CUDA
 device it exits non-zero and prints no result.
 """
@@ -99,6 +109,15 @@ PLANAR_ROLLOUT = 200
 # An env's call reads 68 floats (18 body, 9 external, 11 terrain, 10 joint and
 # 20 contact impulses) and writes 48 floats and 10 one-byte flags.
 PLANAR_BYTES_PER_ENV = 4 * 68 + 4 * 48 + 10
+
+PPO_ROLLOUT = 64  # tools/bench_ppo.py:70-84
+PPO_TIMED_STEPS = 3
+PPO_PHASES = ("ppo.rollout", "ppo.advantages", "ppo.update")
+PPO_CHECK_ENVS, PPO_CHECK_STEPS = 256, 16
+# The device step against the CPU step: the tolerance of the CPU parity test
+# with JAX at HalfCheetah (tests/test_torch_ppo_halfcheetah.py), whose
+# transition is likewise the kernel on one side and the twin on the other.
+PPO_CHECK_TOL = 1e-5
 
 
 def check(cond, message: str) -> None:
@@ -637,6 +656,200 @@ def planar_bound_ms(step, n: int) -> tuple[float, str]:
     return bound(n * PLANAR_BYTES_PER_ENV, n * step.source.ops_per_env / FP32_OPS_PER_S)
 
 
+def ppo_case(name: str, n: int = NUM_ENVS, rollout: int = PPO_ROLLOUT, compute_dtype=torch.bfloat16):
+    """``(func_env, config, wrappers)`` of a PPO workload of ``tools/bench_ppo.py``,
+    HalfCheetah with the episode statistics of the multichip dry run added."""
+    from gymnasium_tpu_torch.train.ppo import PPOConfig
+    from gymnasium_tpu_torch.wrappers import EpisodeStatistics, NormalizeObservation, NormalizeReward
+
+    if name == "cartpole":
+        from gymnasium_tpu_torch.envs.phys2d.cartpole import CartPoleFunctional
+
+        config = PPOConfig(num_envs=n, rollout_steps=rollout, hidden_sizes=(128, 128), compute_dtype=compute_dtype)
+        return CartPoleFunctional(), config, ()
+    from gymnasium_tpu_torch.envs.mujoco.half_cheetah import HalfCheetahFunctional
+
+    config = PPOConfig(num_envs=n, rollout_steps=rollout, hidden_sizes=(256, 256), max_episode_steps=ART_TIME_LIMIT,
+                       compute_dtype=compute_dtype)
+    return HalfCheetahFunctional(), config, (NormalizeObservation(), NormalizeReward(), EpisodeStatistics())
+
+
+def ppo_phase_times(step, state, kernel: str | None, launches: int):
+    """One train step under ``torch.profiler``: for each phase, its span on
+    the device's timeline (the range its ``record_function`` shows there),
+    the device time of the kernels that start inside that span (one stream
+    runs them in order, so the backward's kernels, launched from autograd's
+    own thread, count in the update), and the host time of its range; the
+    device's busy time and the wall time of the step. A trace that did not
+    see ``launches`` launches of ``kernel`` is taken again with another train
+    step, up to five times (the profiler drops a trace's events now and
+    then); ``profiled_steps`` counts the steps taken."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    for tries in range(1, 6):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            state, _ = step(state)
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+        events = prof.events()
+        # a record_function range also shows on the device's timeline: not a kernel
+        device = [e for e in events if e.device_type == cuda and not e.is_user_annotation]
+        seen = sum(kernel in e.name for e in device) if kernel else 0
+        if seen == launches:
+            break
+    check(seen == launches, f"the profiler saw {seen} of {launches} launches of {kernel}")
+    phases = {}
+    for name in PPO_PHASES:
+        host = [e for e in events if e.name == name and e.device_type == cpu]
+        spans = [e.time_range for e in events if e.name == name and e.device_type == cuda and e.is_user_annotation]
+        check(len(host) == 1 and spans, f"{name}: {len(host)} host ranges, {len(spans)} device spans")
+        lo, hi = min(r.start for r in spans), max(r.end for r in spans)
+        inside = [e.time_range.elapsed_us() for e in device if lo <= e.time_range.start < hi]
+        phases[name] = {"device_ms": sum(inside) / 1e3, "kernels": len(inside), "device_span_ms": (hi - lo) / 1e3,
+                        "host_ms": host[0].cpu_time_total / 1e3}
+    busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
+    check(busy_ms > 0 and all(p["device_ms"] > 0 for p in phases.values()), f"no device time in {phases}")
+    return state, {"phases": phases, "device_busy_ms": busy_ms, "kernels": len(device),
+                   "profiled_wall_ms": wall_ms, "device_busy_share": busy_ms / wall_ms, "profiled_steps": tries}
+
+
+def run_ppo(dev, name: str, n: int = NUM_ENVS, rollout: int = PPO_ROLLOUT, timed: int = PPO_TIMED_STEPS) -> dict:
+    """The port's PPO trainer: one untimed train step, ``timed`` steps each
+    ended by a synchronise, then one under the profiler. Checks that every
+    metric is finite and the parameters changed, that CartPole finished
+    episodes, that the normalisation counts grew by a batch an env step, and
+    that a HalfCheetah train step launched the articulated kernel once an env
+    step. Returns the host-clock env-steps/s, the step times and the phase
+    split."""
+    from gymnasium_tpu_torch.ops import articulated_step as art
+    from gymnasium_tpu_torch.train.ppo import init_ppo, make_train_step
+
+    func_env, config, wrappers = ppo_case(name, n, rollout)
+    state, env_params = init_ppo(func_env, config, seed=0, wrappers=wrappers, device=dev)
+    step = make_train_step(func_env, config, env_params, wrappers)
+    before = [p.detach().clone() for p in state.policy.parameters()]
+    build = getattr(func_env, "_step", None)
+    build_name = build.build_name if build is not None else None
+
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    state, metrics = step(state)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - start) * 1e3
+    all_metrics, times, counts = [metrics], [], []
+    for k in range(timed):
+        launched = art.launches[build_name] if build_name else 0
+        start = time.perf_counter()
+        state, metrics = step(state)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+        if build_name:
+            per_step = art.launches[build_name] - launched
+            check(per_step == rollout, f"{name}: {per_step} articulated launches in a train step, want {rollout}")
+        all_metrics.append(metrics)
+        if wrappers:
+            counts.append((float(state.env_carry.wrappers[0].count), float(state.env_carry.wrappers[1].rms.count)))
+    state, profiled = ppo_phase_times(step, state, "ArticulatedStep" if build_name else None,
+                                      rollout if build_name else 0)
+
+    for i, m in enumerate(all_metrics):
+        for key, value in m.items():
+            check(bool(torch.isfinite(value.float())), f"{name} step {i}: {key} = {value}")
+        if name == "cartpole":
+            check(int(m["episodes_finished"]) > 0, f"cartpole step {i}: no episode finished")
+    after = list(state.policy.parameters())
+    check(all(bool(torch.isfinite(p).all()) for p in after), f"{name}: a parameter is not finite")
+    check(any(not torch.equal(a, b) for a, b in zip(after, before)), f"{name}: no parameter changed")
+    steps_taken = 1 + timed + profiled["profiled_steps"]
+    check(int(state.update_count) == steps_taken, f"{name}: update_count {int(state.update_count)}, want {steps_taken}")
+    batch = n * rollout
+    for k, (obs_count, rew_count) in enumerate(counts, start=2):
+        want = 1e-4 + n * (1 + rollout * k)
+        check(abs(obs_count - want) <= 1e-6 * want, f"{name}: obs count {obs_count} after {k} steps, want {want}")
+    for (_, a), (_, b) in zip(counts, counts[1:]):
+        check(b - a == batch, f"{name}: the return statistics grew by {b - a}, want {batch}")
+    mean_ms = sum(times) / len(times)
+    result = {
+        "num_envs": n,
+        "rollout_steps": rollout,
+        "hidden_sizes": list(config.hidden_sizes),
+        "wrappers": [type(w).__name__ for w in wrappers],
+        "env_steps_per_s": batch * timed / (sum(times) / 1e3),
+        # device time of the profiled step over the mean host time of a timed
+        # one: the profiler slows the host, not the kernels
+        "device_busy_share_of_timed_step": profiled["device_busy_ms"] / mean_ms,
+        "step_ms": times,
+        "first_step_ms": first_ms,
+        **profiled,
+        "metrics": {k: float(v) for k, v in all_metrics[-1].items()},
+    }
+    if build_name:
+        result["articulated_launches_per_step"] = rollout
+    print(f"ppo {name}: {result['env_steps_per_s']:.4e} env-steps/s host clock, step ms "
+          + " ".join(f"{t:.2f}" for t in times)
+          + "; phases " + ", ".join(f"{k} device {v['device_ms']:.3f} ms host {v['host_ms']:.3f} ms"
+                                    for k, v in profiled["phases"].items())
+          + f"; device busy {profiled['device_busy_ms']:.3f} ms, {profiled['device_busy_share']:.2%} of the "
+          f"profiled step, {result['device_busy_share_of_timed_step']:.2%} of a timed one", flush=True)
+    return result
+
+
+def move_carry(src, like, dev):
+    """``src``'s tensors moved to ``dev``, with ``like``'s generator (a tree
+    of one structure on that device)."""
+    from gymnasium_tpu_torch.functional import tree_map
+
+    return tree_map(lambda a, b: a.to(dev) if isinstance(a, torch.Tensor) else b, src, like)
+
+
+def compare_ppo_with_cpu(dev, n: int = PPO_CHECK_ENVS, rollout: int = PPO_CHECK_STEPS) -> dict:
+    """One float32 HalfCheetah train step with the wrapper stack and injected
+    draws on ``dev`` against the same step on the CPU, from one state. Raises
+    if a metric, wrapper statistic, observation or parameter differs by more
+    than ``PPO_CHECK_TOL`` (relative and absolute). Returns the largest
+    deviation of each."""
+    from gymnasium_tpu_torch.train.ppo import PPODraws, init_ppo, make_train_step
+
+    func_env, config, wrappers = ppo_case("half_cheetah", n, rollout, torch.float32)
+    cpu_state, env_params = init_ppo(func_env, config, seed=1, wrappers=wrappers, device="cpu")
+    dev_state, _ = init_ppo(func_env, config, seed=1, wrappers=wrappers, device=dev)
+    dev_state = dev_state._replace(env_carry=move_carry(cpu_state.env_carry, dev_state.env_carry, dev),
+                                   obs=cpu_state.obs.to(dev))
+    g = torch.Generator().manual_seed(2)
+    nu = func_env.action_space.shape[0]
+    draws = PPODraws(torch.randn((rollout, n, nu), generator=g),
+                     torch.stack([torch.randperm(rollout, generator=g) for _ in range(config.update_epochs)]))
+    step = make_train_step(func_env, config, env_params, wrappers)
+    cpu_new, cpu_metrics = step(cpu_state, draws)
+    dev_new, dev_metrics = step(dev_state, PPODraws(*(x.to(dev) for x in draws)))
+    torch.cuda.synchronize()
+
+    def deviation(label, got, want):
+        got, want = got.detach().cpu().double(), want.detach().double()
+        err = float((got - want).abs().max())
+        rel = float(((got - want).abs() / (PPO_CHECK_TOL + PPO_CHECK_TOL * want.abs())).max())
+        check(rel <= 1.0, f"ppo device vs cpu: {label} differs by {err}")
+        return err
+
+    errs = {key: deviation(key, dev_metrics[key], cpu_metrics[key]) for key in ("loss", "reward_per_step", "mean_value")}
+    check(int(dev_metrics["episodes_finished"]) == int(cpu_metrics["episodes_finished"]), "episodes_finished differ")
+    (d_obs, d_rew, d_eps), (c_obs, c_rew, c_eps) = dev_new.env_carry.wrappers, cpu_new.env_carry.wrappers
+    errs["obs_statistics"] = max(deviation("obs " + k, getattr(d_obs, k), getattr(c_obs, k)) for k in ("mean", "var"))
+    errs["return_statistics"] = max(deviation("return " + k, getattr(d_rew.rms, k), getattr(c_rew.rms, k))
+                                    for k in ("mean", "var"))
+    errs["episode_return"] = deviation("episode return", d_eps.episode_return, c_eps.episode_return)
+    check(torch.equal(d_eps.episode_length.cpu(), c_eps.episode_length), "episode lengths differ")
+    errs["obs"] = deviation("obs", dev_new.obs, cpu_new.obs)
+    errs["parameters"] = max(deviation(name, p, q) for (name, p), (_, q)
+                             in zip(dev_new.policy.named_parameters(), cpu_new.policy.named_parameters()))
+    print(f"ppo half_cheetah train step on the card vs the CPU (float32, N={n}, T={rollout}, injected draws, "
+          f"TF32 off): largest deviations {errs}", flush=True)
+    return errs
+
+
 def run_entry() -> None:
     from gymnasium_tpu_torch.entry import entry
 
@@ -888,6 +1101,29 @@ def main() -> int:
             "ok": True,
         }
     )
+    # -- the PPO trainer, a path of its own ----------------------------------
+    # It runs after the kernel timings: its profiled train steps come after
+    # every device_ms trace, in the order the earlier slices ran them.
+    ppo, ppo_counts = {}, {}
+    for name in ("cartpole", "half_cheetah"):
+        ppo[name], ppo_counts[name] = counted(f"ppo {name}", lambda: run_ppo(dev, name))
+    check(not any(ppo_counts["cartpole"].values()), f"the CartPole PPO path launched {ppo_counts['cartpole']}")
+    # an untimed, the timed and the profiled train steps, one launch an env step
+    train_steps = 1 + PPO_TIMED_STEPS + ppo["half_cheetah"]["profiled_steps"]
+    ppo_want = {"cartpole_rollout_fused": 0, **gen_zero, steps["half_cheetah"].build_name: PPO_ROLLOUT * train_steps}
+    check(ppo_counts["half_cheetah"] == ppo_want,
+          f"half_cheetah PPO path launches {ppo_counts['half_cheetah']}, want {ppo_want}")
+    print(f"main path: host-clock env-steps/s through PPO CartPole={ppo['cartpole']['env_steps_per_s']:.0f}, "
+          f"HalfCheetah={ppo['half_cheetah']['env_steps_per_s']:.0f}", flush=True)
+    ppo["device_vs_cpu"] = compare_ppo_with_cpu(dev)
+    print(json.dumps({"ppo": {"card": card_line(), **ppo}}), flush=True)
+    for entry in kernels:
+        if entry["name"] == "articulated_step[half_cheetah]":
+            build_name = steps["half_cheetah"].build_name
+            entry["launches_by_path"] = {"half_cheetah TorchVectorEnv": entry["launches"],
+                                         "ppo half_cheetah": ppo_counts["half_cheetah"][build_name]}
+            entry["launches"] += ppo_counts["half_cheetah"][build_name]
+
     print(json.dumps({"kernels": kernels}), flush=True)
     result = {"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}
     print(json.dumps(result), flush=True)

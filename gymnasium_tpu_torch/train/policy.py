@@ -1,10 +1,12 @@
 """The PPO policy network of the torch port, and weights carried over from JAX.
 
-Counterpart of ``_mlp_init``/``_mlp_apply`` in the JAX package's
-``train/ppo.py``: an orthogonally initialised tanh MLP whose hidden layers
-run in ``compute_dtype`` (bf16 by default) and whose final layer takes
-``compute_dtype`` operands but accumulates and returns float32, because
-logits feed a log-softmax where bf16 resolution would bite.
+Counterpart of ``_mlp_init``/``_mlp_apply`` and the parameter tree of
+``init_ppo`` in the JAX package's ``train/ppo.py``: an orthogonally
+initialised tanh MLP whose hidden layers run in ``compute_dtype`` (bf16 by
+default) and whose final layer takes ``compute_dtype`` operands but
+accumulates and returns float32, because logits feed a log-softmax where bf16
+resolution would bite. :class:`ActorCritic` holds the policy and value MLPs
+and, for Box actions, the state-independent ``log_std``.
 """
 
 from __future__ import annotations
@@ -17,7 +19,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["MLP", "categorical", "mlp_from_jax_params"]
+__all__ = [
+    "MLP",
+    "ActorCritic",
+    "categorical",
+    "gumbel",
+    "mlp_from_jax_params",
+    "ppo_params_from_jax",
+    "wrapper_states_from_jax",
+]
 
 
 class MLP(nn.Module):
@@ -67,10 +77,72 @@ def mlp_from_jax_params(params, compute_dtype: torch.dtype = torch.bfloat16) -> 
     return mlp
 
 
+class ActorCritic(nn.Module):
+    """The PPO parameters: ``pi`` (logits or Gaussian means), ``v`` (the
+    value) and, for continuous actions, ``log_std``, a zero-initialised
+    parameter of the action's width."""
+
+    def __init__(
+        self,
+        obs_dim: int,
+        hidden_sizes: Sequence[int],
+        act_out: int,
+        continuous: bool,
+        compute_dtype: torch.dtype = torch.bfloat16,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        sizes = (obs_dim, *hidden_sizes)
+        self.pi = MLP((*sizes, act_out), compute_dtype, generator)
+        self.v = MLP((*sizes, 1), compute_dtype, generator)
+        self.log_std = nn.Parameter(torch.zeros(act_out)) if continuous else None
+
+    @property
+    def continuous(self) -> bool:
+        return self.log_std is not None
+
+
+def ppo_params_from_jax(params, compute_dtype: torch.dtype = torch.bfloat16) -> ActorCritic:
+    """Build an :class:`ActorCritic` from the JAX ``{"pi", "v"[, "log_std"]}`` tree
+    of ``init_ppo`` (numpy arrays)."""
+    pi = mlp_from_jax_params(params["pi"], compute_dtype)
+    v = mlp_from_jax_params(params["v"], compute_dtype)
+    continuous = "log_std" in params
+    sizes = [layer.in_features for layer in pi.layers]
+    policy = ActorCritic(sizes[0], sizes[1:], pi.layers[-1].out_features, continuous, compute_dtype)
+    policy.pi, policy.v = pi, v
+    if continuous:
+        with torch.no_grad():
+            policy.log_std.copy_(torch.tensor(np.asarray(params["log_std"], dtype=np.float32)))
+    return policy
+
+
+def wrapper_states_from_jax(states, device: str | torch.device = "cpu"):
+    """The port's wrapper states from JAX ones (``RmsState``,
+    ``NormalizeRewardState``, ``EpisodeStatsState``, ``None``, or tuples of
+    them, with numpy or JAX array leaves), each leaf keeping its dtype."""
+    from gymnasium_tpu_torch.wrappers import func
+
+    def convert(x):
+        if x is None:
+            return None
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return getattr(func, type(x).__name__)(*(convert(c) for c in x))
+        if isinstance(x, (tuple, list)):
+            return type(x)(convert(c) for c in x)
+        return torch.from_numpy(np.array(x)).to(device)
+
+    return convert(states)
+
+
+def gumbel(generator: torch.Generator, shape, device=None) -> torch.Tensor:
+    """Standard Gumbel draws, ``-log(-log(u))`` with ``u`` clamped away from 0."""
+    tiny = torch.finfo(torch.float32).tiny
+    u = torch.rand(shape, generator=generator, device=device)
+    return -torch.log(-torch.log(u.clamp_min(tiny)))
+
+
 def categorical(generator: torch.Generator, logits: torch.Tensor) -> torch.Tensor:
     """Sample one index per row of ``logits`` by the Gumbel-max trick, as
     ``jax.random.categorical`` does, from an explicit generator."""
-    tiny = torch.finfo(torch.float32).tiny
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
-    gumbel = -torch.log(-torch.log(u.clamp_min(tiny)))
-    return torch.argmax(logits + gumbel, dim=-1)
+    return torch.argmax(logits + gumbel(generator, logits.shape, logits.device), dim=-1)

@@ -13,6 +13,7 @@ from chip_smoke import (
     articulated_states,
     compare_articulated_with_twin,
     compare_planar_with_twin,
+    compare_ppo_with_cpu,
     compare_rollout_with_twin,
     planar_states,
 )
@@ -177,3 +178,18 @@ def test_planar_kernel_rejects_mixed_devices(cuda):
     bodies, ext, terrain, jimp, cimp = planar_states(8, cuda)
     with pytest.raises(ValueError):
         step(bodies, ext, terrain.cpu(), jimp, cimp)
+
+
+def test_ppo_half_cheetah_train_step_matches_cpu(cuda):
+    """A float32 HalfCheetah train step (wrapper stack, injected draws) at
+    N=256: the kernel's rollout on the card against the twin's on the CPU."""
+    before = art.launches["articulated_half_cheetah_fs5"]
+    allow_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        errs = compare_ppo_with_cpu(cuda)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+    assert art.launches["articulated_half_cheetah_fs5"] == before + 16
+    # compare_ppo_with_cpu raises past PPO_CHECK_TOL (relative and absolute)
+    assert set(errs) >= {"loss", "obs", "parameters"}

@@ -14,6 +14,7 @@ from gymnasium_tpu.vector.jax_vector_env import JaxVectorEnv
 from gymnasium_tpu_torch.envs.phys2d.cartpole import CartPoleFunctional
 from gymnasium_tpu_torch.spaces import Box, MultiDiscrete
 from gymnasium_tpu_torch.vector import AutoresetMode, TorchVectorEnv
+from gymnasium_tpu_torch.wrappers import NormalizeObservation
 
 OBS_ATOL = 2e-5  # tests/ops/test_pallas_rollout.py:61
 N = 32
@@ -129,7 +130,11 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
 
 @pytest.mark.parametrize(
     "kwargs",
-    [{"sharding": object()}, {"wrappers": [object()]}, {"autoreset_mode": AutoresetMode.SAME_STEP}],
+    [
+        {"sharding": object()},
+        {"sharding": object(), "wrappers": [NormalizeObservation()]},
+        {"autoreset_mode": AutoresetMode.SAME_STEP},
+    ],
 )
 def test_unported_arguments_raise(kwargs):
     with pytest.raises((NotImplementedError, ValueError)):
