@@ -7,18 +7,25 @@ Run from the repository root with no arguments::
 
 It builds every kernel of the port with ``nvcc``, all at once: the
 hand-written ``gymnasium_tpu_torch/csrc/*.cu``, the articulated substep
-generated for HalfCheetah and Ant (``frame_skip`` 5) and the planar solver
-step generated for LunarLander (two substeps). Then it drives each path of
-the port once, with every kernel launch count set to 0 just before the path
-and read just after:
+generated for each of the ten MuJoCo-class robots at its own ``frame_skip``
+(HalfCheetah, Ant, Hopper, Walker2d, InvertedPendulum,
+InvertedDoublePendulum, Reacher, Pusher, Humanoid, HumanoidStandup) and the
+planar solver step generated for LunarLander (two substeps). Then it drives
+each path of the port once, with every kernel launch count set to 0 just
+before the path and read just after:
 
 - the CartPole-v1 headline of ``bench.py``: chained ``cartpole_rollout_fused``
   blocks of 4096 envs x 2048 steps with bf16 and f32 observations, after one
   untimed block that warms the card;
 - ``TorchVectorEnv`` over CartPole at 4096 envs, and ``entry()`` at 256 envs;
-- ``TorchVectorEnv(HalfCheetahFunctional(), 4096, max_episode_steps=1000)``:
-  reset, four steps, a masked reset of every other lane, ``rollout(100)``.
-  Each env step is one launch of the generated articulated kernel;
+- ``TorchVectorEnv(HalfCheetahFunctional(), 4096, max_episode_steps=1000)``
+  and the same over ``AntFunctional()``: reset, four steps, a masked reset
+  of every other lane, ``rollout(100)``. Each env step is one launch of the
+  robot's generated articulated kernel. After the kernel timings, five Ant
+  env steps run under ``torch.profiler`` (kernels a step, the device's busy
+  share);
+- ``TorchVectorEnv`` over each other robot at 4096 envs: reset, then
+  ``rollout(20)``, one articulated launch an env step;
 - ``TorchVectorEnv(LunarLanderFunctional(), 4096, max_episode_steps=1000)``:
   reset, four steps, a masked reset of every other lane, ``rollout(200)``.
   Each env step launches the generated planar kernel twice: the transition
@@ -35,13 +42,14 @@ and read just after:
 
 It holds each kernel against its plain PyTorch version on the card and times
 both; the articulated and planar kernels must equal their twins in every
-value. Each ``articulated_step[...]`` entry also gives the kernel's warp
-layout (``parts`` warps a group of 32 envs, ``env_groups`` groups a block,
-``phases``, values ``exchanged`` and their loads, ``recomputed_ops``,
-``shared_bytes_per_block``). A kernel's ``ms`` is its own time on the card,
-``torch.profiler``'s kernel durations; ``events_ms`` is CUDA events around back-to-back calls,
-which read the host's launch pace where a call's host work outlasts its
-kernel. It counts each library's SASS instructions with ``cuobjdump``. It
+value (each robot's articulated kernel at N=4096 at its own
+``frame_skip``). Each ``articulated_step[...]`` entry also gives the
+kernel's warp layout (``parts`` warps a group of 32 envs, ``env_groups``
+groups a block, ``phases``, values ``exchanged`` and their loads,
+``recomputed_ops``, ``shared_bytes_per_block``). A kernel's ``ms`` is its
+own time on the card, ``torch.profiler``'s kernel durations; ``events_ms``
+is CUDA events around back-to-back calls, which read the host's launch
+pace where a call's host work outlasts its kernel. It counts each library's SASS instructions with ``cuobjdump``. It
 prints the card's name and power limit, one ``{"ppo": {...}}`` line, one
 ``{"kernels": [...]}`` line, and last the line ``{"ok": true, "device":
 {...}}``. Any failed check
@@ -83,11 +91,29 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 CARTPOLE_FLOAT_OPS = 32 + 2
 CARTPOLE_INT_OPS = 80
 
-ART_MODELS = ("half_cheetah", "ant")  # half_cheetah is on the main path
-ART_FRAME_SKIP = 5
+# Each articulated robot's functional env (gymnasium_tpu_torch.envs.mujoco),
+# by the name of its model; its kernel is built at the env's frame_skip.
+ART_ENVS = {
+    "half_cheetah": "HalfCheetahFunctional",
+    "ant": "AntFunctional",
+    "hopper": "HopperFunctional",
+    "walker2d_v5": "Walker2dFunctional",
+    "inverted_pendulum": "InvertedPendulumFunctional",
+    "inverted_double_pendulum": "InvertedDoublePendulumFunctional",
+    "reacher": "ReacherFunctional",
+    "pusher_v5": "PusherFunctional",
+    "humanoid": "HumanoidFunctional",
+    "humanoidstandup": "HumanoidStandupFunctional",
+}
+# HalfCheetah and Ant (bench.py's FAMILY_CASES rows) take the full path:
+# reset, ART_WARM_STEPS steps, a masked reset, rollout(ART_ROLLOUT). The
+# other robots reset and take rollout(ROBOT_ROLLOUT).
+ART_FULL_PATHS = ("half_cheetah", "ant")
 ART_TIME_LIMIT = 1000
 ART_WARM_STEPS = 4
 ART_ROLLOUT = 100
+ROBOT_ROLLOUT = 20
+PROFILED_ENV_STEPS = 5
 # Kernel and twin run the same generated program and round alike
 # (-fmad=false, precise math), in either layout of the kernel, so they are
 # held to equal values (max |error| 0): inside the same-program atol of
@@ -159,23 +185,44 @@ def device_ms(fn, kernel: str, iters: int) -> float:
     """Mean device time a call of ``fn`` of the kernels whose name holds
     ``kernel``, from ``torch.profiler`` (CUPTI's kernel durations). CUDA
     events around back-to-back calls (:func:`cuda_ms`) read the host's pace
-    instead when a call's host work outlasts its kernel. The profiler drops
-    a trace's events now and then: a trace that did not see every launch is
-    taken again, up to five times."""
-    from torch.profiler import ProfilerActivity, profile
+    instead when a call's host work outlasts its kernel.
 
+    A trace taken after other profiled work in the process has missed one
+    launch in every try; the first launch of a trace also starts late. So
+    each trace opens with one untimed call, the ``iters`` timed calls run
+    inside a ``device_ms`` range, and a kernel counts where it starts inside
+    that range's span on the device's timeline. A trace that did not see
+    every timed launch is taken again, up to five times; each miss prints
+    where the trace's launches are spaced widest."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    cuda = torch.autograd.DeviceType.CUDA
     fn()
     torch.cuda.synchronize()
     for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
+            fn()
             torch.cuda.synchronize()
-        times = [e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+            with record_function("device_ms"):
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+        events = prof.events()
+        spans = [e.time_range for e in events if e.name == "device_ms" and e.device_type == cuda and e.is_user_annotation]
+        launched = sorted((e.time_range for e in events
+                           if e.device_type == cuda and not e.is_user_annotation and kernel in e.name),
+                          key=lambda r: r.start)
+        lo, hi = (min(r.start for r in spans), max(r.end for r in spans)) if spans else (0, -1)
+        times = [r.elapsed_us() for r in launched if lo <= r.start < hi]
         check(len(times) <= iters, f"the profiler saw {len(times)} launches of {kernel}, more than {iters}")
         if len(times) == iters:
             return sum(times) / iters / 1e3
+        gaps = [b.start - a.start for a, b in zip(launched, launched[1:])]
+        widest = sorted(range(len(gaps)), key=lambda i: -gaps[i])[:3]
+        print(f"device_ms: a trace of {kernel} saw {len(times)} of {iters} timed launches ({len(launched)} in all, "
+              f"{len(spans)} device spans); widest spacings after launch {widest}: "
+              f"{[gaps[i] for i in widest]} us, median {sorted(gaps)[len(gaps) // 2] if gaps else None} us",
+              flush=True)
     raise RuntimeError(f"chip_smoke check failed: the profiler saw {len(times)} of {iters} launches of {kernel}")
 
 
@@ -379,51 +426,127 @@ def run_vector_env(dev) -> float:
     return NUM_ENVS * 256 / seconds
 
 
-def run_half_cheetah(dev, n: int = NUM_ENVS) -> float:
-    """HalfCheetah-v5 under ``TorchVectorEnv``: reset, a few steps, a masked
-    reset of every other lane, then ``rollout(ART_ROLLOUT)``. Returns the
-    rollout's host-clock env-steps/s."""
-    from gymnasium_tpu_torch.envs.mujoco.half_cheetah import HalfCheetahFunctional
+def articulated_env(name: str):
+    """The functional env of the robot whose model is ``name``."""
+    from gymnasium_tpu_torch.envs import mujoco
+
+    return getattr(mujoco, ART_ENVS[name])()
+
+
+def run_articulated(dev, name: str, n: int = NUM_ENVS) -> dict:
+    """A MuJoCo-class robot under ``TorchVectorEnv``. A robot of
+    ``ART_FULL_PATHS``: reset, a few sampled steps, a masked reset of every
+    other lane, then ``rollout(ART_ROLLOUT)``; any other: reset, then
+    ``rollout(ROBOT_ROLLOUT)``. Returns the rollout's host-clock env-steps/s
+    and the terminations seen."""
     from gymnasium_tpu_torch.functional import tree_map
     from gymnasium_tpu_torch.vector import TorchVectorEnv
 
-    env = TorchVectorEnv(HalfCheetahFunctional(), n, max_episode_steps=ART_TIME_LIMIT, device=dev)
+    env = TorchVectorEnv(articulated_env(name), n, max_episode_steps=ART_TIME_LIMIT, device=dev)
     obs, _ = env.reset(seed=0)
     x0 = env.carry.state["qpos"][:, 0].clone()
-    gen = torch.Generator(device=dev).manual_seed(1)
-    for _ in range(ART_WARM_STEPS):
-        actions = env.single_action_space.sample_torch(gen, (n,))
-        obs, reward, term, trunc, _ = env.step(actions)
-    check(bool(torch.isfinite(obs).all() and torch.isfinite(reward).all()), "half_cheetah step not finite")
+    full = name in ART_FULL_PATHS
+    terminations = 0
+    keep = torch.ones(n, dtype=torch.bool, device=dev)
+    if full:
+        gen = torch.Generator(device=dev).manual_seed(1)
+        for _ in range(ART_WARM_STEPS):
+            actions = env.single_action_space.sample_torch(gen, (n,))
+            obs, reward, term, trunc, _ = env.step(actions)
+            terminations += int(term.sum())
+        check(bool(torch.isfinite(obs).all() and torch.isfinite(reward).all()), f"{name} step not finite")
 
-    mask = np.zeros(n, np.bool_)
-    mask[::2] = True
-    keep = torch.from_numpy(~mask).to(dev)
-    before = tree_map(torch.clone, env.carry.state)
-    mobs, _ = env.reset(options={"reset_mask": mask})
-    for key in ("qpos", "qvel", "prev_x"):
-        check(torch.equal(env.carry.state[key][keep], before[key][keep]), f"masked reset moved kept {key}")
-    check(torch.equal(mobs[keep], obs[keep]), "masked reset changed kept lanes' obs")
+        mask = np.zeros(n, np.bool_)
+        mask[::2] = True
+        keep = torch.from_numpy(~mask).to(dev)
+        before = tree_map(torch.clone, env.carry.state)
+        mobs, _ = env.reset(options={"reset_mask": mask})
+        for key in ("qpos", "qvel", "prev_x"):
+            check(torch.equal(env.carry.state[key][keep], before[key][keep]), f"{name}: masked reset moved kept {key}")
+        check(torch.equal(mobs[keep], obs[keep]), f"{name}: masked reset changed kept lanes' obs")
 
+    steps = ART_ROLLOUT if full else ROBOT_ROLLOUT
     torch.cuda.synchronize()
     start = time.perf_counter()
-    carry, traj = env.rollout(ART_ROLLOUT)
+    carry, traj = env.rollout(steps)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
-    check(traj.obs.shape == (ART_ROLLOUT, n, 17), f"half_cheetah obs shape {tuple(traj.obs.shape)}")
-    check(bool(torch.isfinite(traj.obs).all()), "half_cheetah rollout obs not finite")
-    check(bool(torch.isfinite(traj.reward).all()), "half_cheetah rollout reward not finite")
-    check(not bool(traj.terminated.any()), "a half_cheetah lane terminated")
-    moved = float((carry.state["qpos"][keep, 0] - x0[keep]).abs().mean())
-    check(moved > 1e-3, f"half_cheetah qpos[:, 0] did not move (mean |dx| {moved})")
-    return n * ART_ROLLOUT / seconds
+    dim = env.single_observation_space.shape[0]
+    check(traj.obs.shape == (steps, n, dim), f"{name} obs shape {tuple(traj.obs.shape)}, want {(steps, n, dim)}")
+    check(bool(torch.isfinite(traj.obs).all()), f"{name} rollout obs not finite")
+    check(bool(torch.isfinite(traj.reward).all()), f"{name} rollout reward not finite")
+    terminations += int(traj.terminated.sum())
+    if full:
+        moved = float((carry.state["qpos"][keep, 0] - x0[keep]).abs().mean())
+        check(moved > 1e-3, f"{name} qpos[:, 0] did not move (mean |dx| {moved})")
+    return {"env_steps_per_s": n * steps / seconds, "terminations": terminations}
+
+
+def profile_env_step(dev, name: str, build_name: str, n: int = NUM_ENVS, steps: int = PROFILED_ENV_STEPS) -> dict:
+    """``torch.profiler`` over ``steps`` env steps of the robot ``name`` under
+    ``TorchVectorEnv`` at ``n`` envs, after a few unprofiled ones: kernels a
+    step, the device's busy time a step (kernel time; one stream) and its
+    share of the profiled wall time, the articulated kernel's device time a
+    step, and the host-clock time a step without the profiler. A trace that
+    did not see one ``build_name`` launch a step is taken again (up to five
+    times)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gymnasium_tpu_torch.vector import TorchVectorEnv
+
+    env = TorchVectorEnv(articulated_env(name), n, max_episode_steps=ART_TIME_LIMIT, device=dev)
+    env.reset(seed=0)
+    env.rollout(ART_WARM_STEPS)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    env.rollout(steps)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - start) * 1e3 / steps
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start = time.perf_counter()
+            env.rollout(steps)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - start) * 1e3 / steps
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+        art_kernels = [e for e in kernels if "kernel<ArticulatedStep>" in e.name]
+        if len(art_kernels) == steps:
+            break
+    check(len(art_kernels) == steps, f"the profiler saw {len(art_kernels)} of {steps} launches of {build_name}")
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / steps
+    return {"robot": name, "envs": n, "profiled_steps": steps, "step_ms": step_ms, "profiled_step_ms": wall_ms,
+            "kernels_a_step": len(kernels) / steps, "device_busy_ms_a_step": busy_ms,
+            "device_busy_share": busy_ms / wall_ms,
+            "articulated_device_ms_a_step": sum(e.time_range.elapsed_us() for e in art_kernels) / 1e3 / steps}
+
+
+def rest_pose(model) -> np.ndarray:
+    """A free-root robot's pose (nq,) at which, with no control and no
+    velocity, no internal or external torque turns the root: ``init_qpos``
+    with each limited joint moved 0.01 inside its range, lifted 0.05 clear
+    of the ground. At ``init_qpos`` itself Humanoid's knees lie outside
+    their limits, so the limit springs drive the legs and the root turns in
+    reaction (and HumanoidStandup lies on the floor); Ant's ankles too, but
+    its four legs' reactions cancel."""
+    from gymnasium_tpu_torch.physics.articulated import init_qpos, make_dynamics
+
+    q = init_qpos(model).copy()
+    j = model.joints
+    for k in range(6, model.nv):
+        if j.limited[k]:
+            q[k + 1] = np.clip(q[k + 1], j.lower[k] + 0.01, j.upper[k] - 0.01)
+    pts = make_dynamics(model)["contact_points"](torch.tensor(q[None], dtype=torch.float32))[0].numpy()
+    depth = np.max(np.asarray(model.contact_radius) - (pts[:, 2] - model.ground_z), initial=0.0)
+    q[2] += max(depth, 0.0) + 0.05
+    return q
 
 
 def articulated_states(model, n: int, dev, seed: int = 0):
     """Perturbed states, as tests/ops/test_pallas_articulated.py::_states makes
-    them. For a free root, every eighth lane instead rests at ``init_qpos``
-    with no control and an angular velocity below 5e-4, so the quaternion
-    exponential takes its small-angle side there."""
+    them. For a free root, every eighth lane instead rests at
+    :func:`rest_pose` with no control and an angular velocity below 5e-4, so
+    the quaternion exponential takes its small-angle side there."""
     from gymnasium_tpu_torch.physics.articulated import init_qpos
 
     rng = np.random.default_rng(seed)
@@ -434,7 +557,7 @@ def articulated_states(model, n: int, dev, seed: int = 0):
     qd = rng.uniform(-0.5, 0.5, (n, model.nv)).astype(np.float32)
     ctrl = rng.uniform(-0.4, 0.4, (n, max(model.nu, 1))).astype(np.float32)[:, : model.nu]
     if model.root_free:
-        q[::8] = init_qpos(model)
+        q[::8] = rest_pose(model)
         qd[::8] = 0.0
         qd[::8, 3:6] = rng.uniform(-5e-4, 5e-4, qd[::8, 3:6].shape)
         ctrl[::8] = 0.0
@@ -882,7 +1005,7 @@ def main() -> int:
 
     # -- build every kernel at once -------------------------------------------
     start = time.perf_counter()
-    steps = {name: art.fused_step(name, ART_FRAME_SKIP) for name in ART_MODELS}
+    steps = {name: art.fused_step(name, articulated_env(name).frame_skip) for name in ART_ENVS}
     planar = lander_step(PLANAR_GRAVITY)
     generated = {step.build_name: step.source.text for step in steps.values()}
     generated[planar.build_name] = planar.source.text
@@ -926,15 +1049,20 @@ def main() -> int:
     print(f"clocks.sm, power.draw after the headline blocks: {query_gpu('clocks.sm,power.draw')}", flush=True)
     vec_rate, vec_counts = counted("cartpole TorchVectorEnv", lambda: run_vector_env(dev))
     _, entry_counts = counted("entry()", run_entry)
-    hc_rate, hc_counts = counted("half_cheetah TorchVectorEnv", lambda: run_half_cheetah(dev))
+    robots, robot_counts = {}, {}
+    for name in ART_ENVS:
+        robots[name], robot_counts[name] = counted(f"{name} TorchVectorEnv", lambda: run_articulated(dev, name))
+        print(f"{name} TorchVectorEnv: {robots[name]}", flush=True)
     ll_rate, ll_counts = counted("lunar_lander TorchVectorEnv", lambda: run_lunar_lander(dev))
     check(head_counts == {"cartpole_rollout_fused": 2 * HEADLINE_BLOCKS, **gen_zero},
           f"headline launches {head_counts}")
     check(not any(vec_counts.values()) and not any(entry_counts.values()),
           "the CartPole TorchVectorEnv or entry() launched a kernel")
-    hc_want = {"cartpole_rollout_fused": 0, **gen_zero,
-               steps["half_cheetah"].build_name: ART_WARM_STEPS + ART_ROLLOUT}
-    check(hc_counts == hc_want, f"half_cheetah path launches {hc_counts}, want {hc_want}")
+    for name, counts in robot_counts.items():
+        want = {"cartpole_rollout_fused": 0, **gen_zero, steps[name].build_name:
+                ART_WARM_STEPS + ART_ROLLOUT if name in ART_FULL_PATHS else ROBOT_ROLLOUT}
+        check(counts == want, f"{name} path launches {counts}, want {want}")
+    check(robots["half_cheetah"]["terminations"] == 0, "a half_cheetah lane terminated")
     # reset, then two launches a step (transition, reset tick), the masked reset
     ll_want = {"cartpole_rollout_fused": 0, **gen_zero,
                planar.build_name: 1 + 2 * PLANAR_WARM_STEPS + 1 + 2 * PLANAR_ROLLOUT}
@@ -942,8 +1070,11 @@ def main() -> int:
     main_launches = head_counts["cartpole_rollout_fused"]
     print(f"main path: host-clock env-steps/s headline bf16={headline['torch.bfloat16']:.0f} "
           f"f32={headline['torch.float32']:.0f}, CartPole TorchVectorEnv.rollout(256)={vec_rate:.0f}, "
-          f"HalfCheetah TorchVectorEnv.rollout({ART_ROLLOUT})={hc_rate:.0f}, "
-          f"LunarLander TorchVectorEnv.rollout({PLANAR_ROLLOUT})={ll_rate:.0f}", flush=True)
+          + "".join(f"{name} TorchVectorEnv.rollout({ART_ROLLOUT if name in ART_FULL_PATHS else ROBOT_ROLLOUT})="
+                    f"{robots[name]['env_steps_per_s']:.0f}, " for name in ART_ENVS)
+          + f"LunarLander TorchVectorEnv.rollout({PLANAR_ROLLOUT})={ll_rate:.0f}", flush=True)
+    print("terminations seen on each robot's path: "
+          + ", ".join(f"{name} {robots[name]['terminations']}" for name in ART_ENVS), flush=True)
     for name, times in block_ms.items():
         print(f"headline host-clock ms per block, obs={name}: "
               + " ".join(f"{t:.4f}" for t in times), flush=True)
@@ -976,7 +1107,7 @@ def main() -> int:
     for name, step in steps.items():
         art_inputs[name] = articulated_states(step.model, NUM_ENVS, dev)
         art_errs[name] = compare_articulated_with_twin(step, *art_inputs[name])
-        print(f"articulated kernel vs twin ({name}, N={NUM_ENVS}, frame_skip {ART_FRAME_SKIP}, "
+        print(f"articulated kernel vs twin ({name}, N={NUM_ENVS}, frame_skip {step.frame_skip}, "
               f"layout {step.source.layout}): max|dq|={art_errs[name][0]:.3e} max|dqd|={art_errs[name][1]:.3e}, "
               f"bit_equal={art_errs[name][3]}; deterministic; {art_errs[name][2]} lanes on the small-angle side",
               flush=True)
@@ -1044,8 +1175,8 @@ def main() -> int:
                 "source": "gymnasium_tpu_torch/csrc/articulated_step.cuh",
                 "generator": "gymnasium_tpu_torch/ops/articulated_codegen.py",
                 "replaces": "gymnasium_tpu/ops/pallas_articulated.py:119",
-                "launches": hc_counts[step.build_name],
-                "on_main_path": hc_counts[step.build_name] > 0,
+                "launches": robot_counts[name][step.build_name],
+                "on_main_path": robot_counts[name][step.build_name] > 0,
                 "max_abs_err": max(art_errs[name][:2]),
                 "max_abs_err_q": art_errs[name][0],
                 "max_abs_err_qd": art_errs[name][1],
@@ -1056,7 +1187,7 @@ def main() -> int:
                 "bound_by": art_bound_by,
                 "library_ms": None,
                 "bit_equal": art_errs[name][3],
-                "frame_skip": ART_FRAME_SKIP,
+                "frame_skip": step.frame_skip,
                 "small_angle_lanes": art_errs[name][2],
                 **step.source.layout,
                 "ops_per_env": step.source.ops_per_env,
@@ -1101,9 +1232,12 @@ def main() -> int:
             "ok": True,
         }
     )
-    # -- the PPO trainer, a path of its own ----------------------------------
-    # It runs after the kernel timings: its profiled train steps come after
-    # every device_ms trace, in the order the earlier slices ran them.
+    # -- profiled paths: one Ant env step, the PPO trainer --------------------
+    # They run after the kernel timings: a device_ms trace taken after other
+    # profiled work in the process missed one CartPole launch in every try.
+    ant_profile = profile_env_step(dev, "ant", steps["ant"].build_name)
+    print(f"ant TorchVectorEnv step under torch.profiler (N={NUM_ENVS}): {json.dumps(ant_profile)}", flush=True)
+    next(k for k in kernels if k["name"] == "articulated_step[ant]")["env_step_profile"] = ant_profile
     ppo, ppo_counts = {}, {}
     for name in ("cartpole", "half_cheetah"):
         ppo[name], ppo_counts[name] = counted(f"ppo {name}", lambda: run_ppo(dev, name))

@@ -5,7 +5,11 @@ Counterpart of ``MujocoFuncEnv`` in the JAX package's
 one call of the fused step (:mod:`gymnasium_tpu_torch.ops.articulated_step`)
 over the whole batch, which is the JAX ``transition`` and
 ``transition_batched`` in one hook. It launches the generated CUDA kernel on
-a CUDA batch and runs the plain twin on a CPU batch.
+a CUDA batch and runs the plain twin on a CPU batch. Observations and rewards
+that read kinematics (contact wrenches, forward kinematics, limit torques,
+centres of mass) take them from the batched helpers of
+:func:`~gymnasium_tpu_torch.physics.articulated.make_dynamics`, built once an
+env.
 """
 
 from __future__ import annotations
@@ -19,9 +23,17 @@ from gymnasium_tpu_torch import spaces
 from gymnasium_tpu_torch.envs.mujoco.mujoco_env import load_model
 from gymnasium_tpu_torch.functional import FuncEnv, tree_map
 from gymnasium_tpu_torch.ops.articulated_step import fused_step
-from gymnasium_tpu_torch.physics.articulated import init_qpos
+from gymnasium_tpu_torch.physics.articulated import init_qpos, make_dynamics
 
-__all__ = ["MujocoFuncEnv"]
+__all__ = ["MujocoFuncEnv", "uniform_map"]
+
+
+def uniform_map(u: torch.Tensor, low: float, high: float) -> torch.Tensor:
+    """``U[low, high)`` from draws ``u ~ U[0, 1)``, rounded as
+    ``jax.random.uniform(minval=low, maxval=high)`` rounds its uniforms:
+    ``max(low, u * (high - low) + low)`` in float32."""
+    lo = np.float32(low)
+    return torch.clamp(u * float(np.float32(high) - lo) + float(lo), min=float(lo))
 
 
 class MujocoFuncEnv(FuncEnv):
@@ -43,6 +55,8 @@ class MujocoFuncEnv(FuncEnv):
         self.model, self.meta = load_model(self.model_name)
         self._init_qpos = init_qpos(self.model)
         self._step = fused_step(self.model_name, self.frame_skip)
+        self._dyn = make_dynamics(self.model)
+        self._constants: dict = {}
         self.action_space = spaces.Box(
             low=np.asarray(self.model.act_ctrlrange[:, 0], dtype=np.float32),
             high=np.asarray(self.model.act_ctrlrange[:, 1], dtype=np.float32),
@@ -52,13 +66,20 @@ class MujocoFuncEnv(FuncEnv):
     def dt(self) -> float:
         return self.model.timestep * self.frame_skip
 
+    def constant(self, name: str, value, device: torch.device) -> torch.Tensor:
+        """``value`` as a float32 tensor on ``device``, copied there once:
+        a copy from the host at every step would wait for the card."""
+        key = (name, device)
+        if key not in self._constants:
+            self._constants[key] = torch.as_tensor(np.asarray(value, np.float32), device=device)
+        return self._constants[key]
+
     def reset_values(self, u: torch.Tensor, z: torch.Tensor) -> dict:
         """The reset state of draws ``u ~ U[0, 1)`` (N, nq) and ``z ~ N(0, 1)``
         (N, nv), as the JAX ``initial`` maps its uniform and normal draws."""
         noise = self.reset_noise_scale
-        init = torch.as_tensor(self._init_qpos, dtype=torch.float32, device=u.device)
-        # jax.random.uniform(minval=-noise, maxval=noise) is u * (max - min) + min
-        qpos = init + (u * (2.0 * noise) - noise)
+        init = self.constant("init_qpos", self._init_qpos, u.device)
+        qpos = init + uniform_map(u, -noise, noise)
         if self.model.root_free:
             # noise lands on the raw quaternion; renormalise it
             quat = qpos[:, 3:7]

@@ -1,0 +1,71 @@
+"""Reacher-v5 as a batch-first functional env.
+
+Counterpart of ``ReacherFunctional`` in the JAX package's
+``envs/mujoco/reacher.py``: a two-link arm reaches for a target in the
+plane. The observation reads the fingertip and the target by forward
+kinematics; the reward, on the state before the step, is minus the
+fingertip's distance from the target minus the squared action.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import numpy as np
+import torch
+
+from gymnasium_tpu_torch import spaces
+from gymnasium_tpu_torch.envs.mujoco.locomotion import MujocoFuncEnv, uniform_map
+
+__all__ = ["ReacherFunctional"]
+
+
+class ReacherFunctional(MujocoFuncEnv):
+    """Move the fingertip onto the target."""
+
+    model_name = "reacher"
+    frame_skip = 2
+
+    def __init__(self, options: dict[str, Any] | None = None):
+        super().__init__(options)
+        self.observation_space = spaces.Box(-np.inf, np.inf, (10,), np.float32)
+        self._fingertip_idx = self.meta["body_names"].index("fingertip")
+        self._target_idx = self.meta["body_names"].index("target")
+
+    def reset_values(self, u: torch.Tensor, r_u: torch.Tensor, th_u: torch.Tensor) -> dict:
+        """The reset state of draws ``u ~ U[0, 1)`` (N, nv) and ``r_u``,
+        ``th_u ~ U[0, 1)`` (N,), as the JAX ``initial`` maps them. JAX draws
+        the position noise and the velocity from one key with one shape, so
+        both are the same uniforms: one ``u`` feeds both here too. The target
+        lies at radius ``0.2 sqrt(r_u)`` and angle ``2 pi th_u``."""
+        init = self.constant("init_qpos", self._init_qpos, u.device)
+        qpos = init + uniform_map(u, -0.1, 0.1)
+        r = 0.2 * torch.sqrt(r_u)
+        th = uniform_map(th_u, 0.0, 2 * math.pi)
+        qpos = torch.cat([qpos[:, :2], (r * torch.cos(th))[:, None], (r * torch.sin(th))[:, None]], dim=1)
+        qvel = uniform_map(u, -0.005, 0.005)
+        qvel = torch.cat([qvel[:, :2], torch.zeros_like(qvel[:, 2:4])], dim=1)
+        return {"qpos": qpos, "qvel": qvel, "prev_x": qpos[:, 0]}
+
+    def initial_batched(self, rng: torch.Generator, n: int, params: Any = None):
+        u = torch.rand((n, self.model.nv), generator=rng, device=rng.device)
+        r_u = torch.rand((n,), generator=rng, device=rng.device)
+        th_u = torch.rand((n,), generator=rng, device=rng.device)
+        return self.reset_values(u, r_u, th_u)
+
+    def _vec(self, state):
+        _, p = self._dyn["fk"](state["qpos"])
+        return p[:, self._fingertip_idx] - p[:, self._target_idx]
+
+    def observation(self, state, rng, params: Any = None):
+        theta = state["qpos"][:, :2]
+        vec = self._vec(state)
+        return torch.cat(
+            [torch.cos(theta), torch.sin(theta), state["qpos"][:, 2:4], state["qvel"][:, :2], vec[:, :2]],
+            dim=1,
+        )
+
+    def reward(self, state, action, next_state, rng, params: Any = None):
+        vec = self._vec(state)
+        return -torch.linalg.vector_norm(vec, dim=-1) - torch.sum(torch.square(action), dim=-1)

@@ -46,7 +46,9 @@ from gymnasium_tpu_torch.physics.articulated import (
     SLIDE,
     ArticulatedModel,
     ancestor_dof_mask,
+    contact_constants,
     is_free_root_body,
+    limit_constants,
     q_index,
     quat_to_mat_np,
     strict_dof_ancestors,
@@ -65,11 +67,14 @@ __all__ = [
 ]
 
 #: Warps that share each group of 32 envs, one partition of the substep each,
-#: by robot, and groups of 32 envs a block. Chosen from the sweep of
-#: ``tools/port_articulated_probe.py`` on an H100 (PERF.md). A robot not
-#: listed runs one thread an env, 128 threads a block.
-WARP_PARTS = {"half_cheetah": 4, "ant": 8}
-ENV_GROUPS = {"half_cheetah": 2, "ant": 1}
+#: by robot, and groups of 32 envs a block. HalfCheetah's and Ant's were
+#: chosen from the sweep of ``tools/port_articulated_probe.py`` on an H100
+#: (PERF.md). Humanoid's substep has twice Ant's operations, whose one-thread
+#: form spills, so both Humanoid models take the layout the probe built and
+#: held to the twin, unswept. A robot not listed runs one thread an env, 128
+#: threads a block.
+WARP_PARTS = {"half_cheetah": 4, "ant": 8, "humanoid": 4, "humanoidstandup": 4}
+ENV_GROUPS = {"half_cheetah": 2, "ant": 1, "humanoid": 1, "humanoidstandup": 1}
 
 # ---------------------------------------------------------------------------
 # Folding helpers: a python float 0.0 is a structural zero, 1.0 a unit.
@@ -199,22 +204,9 @@ def model_tables(model: ArticulatedModel) -> ModelTables:
     armature = [float(a) for a in model.joints.armature]
     masses = [float(m) for m in model.bodies.mass]
 
-    # joint-limit springs, scaled as make_dynamics scales them
-    tau_max = np.zeros(nv)
-    for d, g in zip(act_dof, np.abs(np.asarray(gear))):
-        tau_max[d] = max(tau_max[d], g)
-    m_dof = np.asarray(armature) + 0.02
-    k_lim = np.clip(np.maximum(model.limit_stiffness, tau_max / 0.05), None, 0.25 * m_dof / dt**2)
-
-    contact_k, contact_c = [], []
-    cmask = np.zeros((0, nv), dtype=bool)
-    if nc:
-        m_eff = np.maximum(np.asarray(masses)[np.asarray(model.contact_body)], 1e-3)
-        k_c = np.minimum(model.contact_stiffness, m_eff * (model.contact_alpha / dt) ** 2)
-        c_c = model.contact_damp_ratio * np.sqrt(k_c * m_eff)
-        contact_k = [float(v) for v in k_c]
-        contact_c = [float(v) for v in c_c]
-        cmask = amask[np.asarray(model.contact_body)]
+    limit_k, limit_c = limit_constants(model)
+    contact_k, contact_c = contact_constants(model)
+    cmask = amask[np.asarray(model.contact_body)] if nc else np.zeros((0, nv), dtype=bool)
 
     return ModelTables(
         model=model,
@@ -240,10 +232,10 @@ def model_tables(model: ArticulatedModel) -> ModelTables:
         ctrl_lo=[float(v) for v in model.act_ctrlrange[:, 0]] if nu else [],
         ctrl_hi=[float(v) for v in model.act_ctrlrange[:, 1]] if nu else [],
         gravity=float(model.gravity),
-        limit_k=[float(v) for v in k_lim],
-        limit_c=[float(v) for v in 1.4 * np.sqrt(k_lim * m_dof)],
-        contact_k=contact_k,
-        contact_c=contact_c,
+        limit_k=[float(v) for v in limit_k],
+        limit_c=[float(v) for v in limit_c],
+        contact_k=[float(v) for v in contact_k],
+        contact_c=[float(v) for v in contact_c],
         contact_r=[float(v) for v in model.contact_radius],
         contact_off=[[float(x) for x in o] for o in model.contact_pos],
         contact_body=[int(b) for b in model.contact_body],

@@ -21,7 +21,6 @@ import functools
 
 import torch
 
-from gymnasium_tpu_torch.envs.mujoco.mujoco_env import load_model
 from gymnasium_tpu_torch.ops import build
 from gymnasium_tpu_torch.ops.articulated_codegen import (
     clip_controls,
@@ -138,5 +137,8 @@ def make_fused_step(model: ArticulatedModel, frame_skip: int = 1, name: str = "m
 def fused_step(model_name: str, frame_skip: int) -> FusedStep:
     """The fused step of a robot of ``envs/mujoco/models``, cached per
     ``(model name, frame_skip)``."""
+    # imported here: the robots of envs.mujoco import this module
+    from gymnasium_tpu_torch.envs.mujoco.mujoco_env import load_model
+
     model, _ = load_model(model_name)
     return FusedStep(model, frame_skip, model_name)

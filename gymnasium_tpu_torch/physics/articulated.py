@@ -1,12 +1,19 @@
 """Static tables of the articulated (MuJoCo-class) engine.
 
-Counterpart of the numpy layer of the JAX package's
-``physics/articulated.py``: the robot description (:class:`JointSpec`,
-:class:`BodySpec`, :class:`ArticulatedModel`) and the static helpers the
-substep generator reads (``init_qpos``, the dof ancestry masks, the free-root
-tests). The batched engine ``make_dynamics`` is not ported yet; the port
-steps a model only through the generated substep of
-:mod:`gymnasium_tpu_torch.ops.articulated_step`.
+Counterpart of the JAX package's ``physics/articulated.py``: the robot
+description (:class:`JointSpec`, :class:`BodySpec`, :class:`ArticulatedModel`),
+the static helpers the substep generator reads (``init_qpos``, the dof
+ancestry masks, the free-root tests, the folded contact and limit constants),
+and the batched kinematics the robots' observations and rewards read
+(``dof_positions``, ``integrate_pos``, ``fk``, ``fk_full`` and the helpers of
+:func:`make_dynamics`). A model steps only through the generated substep of
+:mod:`gymnasium_tpu_torch.ops.articulated_step`; ``make_dynamics`` has no
+``step``, mass matrix, bias or energies.
+
+The batched helpers take ``(N, nq)``/``(N, nv)`` float32 tensors and compute
+on their device. Small products are written as broadcast multiply-sums, as
+the JAX helpers write them, and a sum over contacts into bodies is a product
+with a constant selection matrix: no scatter, so two calls give the same bits.
 
 Joints are slide or hinge about fixed axes. With ``root_free=True`` dofs 0-5
 form a free root: qpos holds ``[x y z | qw qx qy qz | joints]`` (``nq = nv +
@@ -18,6 +25,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import numpy as np
+import torch
 
 __all__ = [
     "SLIDE",
@@ -28,6 +36,13 @@ __all__ = [
     "init_qpos",
     "ancestor_dof_mask",
     "strict_dof_ancestors",
+    "contact_constants",
+    "limit_constants",
+    "dof_positions",
+    "integrate_pos",
+    "fk",
+    "fk_full",
+    "make_dynamics",
 ]
 
 SLIDE = 0
@@ -181,3 +196,296 @@ def strict_dof_ancestors(model: ArticulatedModel) -> np.ndarray:
         s = int(model.bodies.dof_start[b])
         strict[k, s:k] = True
     return strict
+
+
+def contact_constants(model: ArticulatedModel) -> tuple[np.ndarray, np.ndarray]:
+    """The soft contacts' spring ``k_c`` and damper ``c_c``, (nc,) float64.
+
+    The spring is capped for explicit stability at the contacting body's
+    mass: ``k_c <= m_eff (alpha / dt)^2``, and ``c_c = ratio sqrt(k_c m_eff)``.
+    """
+    m_eff = np.maximum(np.asarray(model.bodies.mass, np.float64)[np.asarray(model.contact_body, int)], 1e-3)
+    k_c = np.minimum(model.contact_stiffness, m_eff * (model.contact_alpha / float(model.timestep)) ** 2)
+    return k_c, model.contact_damp_ratio * np.sqrt(k_c * m_eff)
+
+
+def limit_constants(model: ArticulatedModel) -> tuple[np.ndarray, np.ndarray]:
+    """The joint-limit springs ``limit_k`` and dampers ``limit_c``, (nv,) float64.
+
+    The spring is scaled to the dof's peak actuator torque, so that a full
+    push penetrates about 0.05 rad, and capped for explicit stability.
+    """
+    tau_max = np.zeros(model.nv)
+    for d, g in zip(np.asarray(model.act_dof, int), np.abs(np.asarray(model.act_gear, np.float64))):
+        tau_max[d] = max(tau_max[d], g)
+    m_dof = np.asarray(model.joints.armature, np.float64) + 0.02
+    dt = float(model.timestep)
+    k_lim = np.clip(np.maximum(model.limit_stiffness, tau_max / 0.05), None, 0.25 * m_dof / dt**2)
+    return k_lim, 1.4 * np.sqrt(k_lim * m_dof)
+
+
+# ---------------------------------------------------------------------------
+# Batched kinematics over (N, ...) float32 tensors.
+
+
+def _mm(A, B):
+    """``A @ B`` over the last two axes of 3x3 matrices, as a multiply-sum."""
+    return torch.sum(A[..., :, :, None] * B[..., None, :, :], dim=-2)
+
+
+def _mv(A, v):
+    """``A @ v`` for 3x3 matrices and 3-vectors, as a multiply-sum."""
+    return torch.sum(A * v[..., None, :], dim=-1)
+
+
+def _quat_to_mat(q):
+    """(N, 4) quaternions (w, x, y, z) -> (N, 3, 3). Divides by ``|q|^2``, so
+    an unnormalised quaternion gives a rotation."""
+    n = torch.sum(q * q, dim=-1)
+    w, x, y, z = q.unbind(-1)
+    s = 2.0 / torch.clamp(n, min=1e-12)
+    rows = [
+        [1 - s * (y * y + z * z), s * (x * y - w * z), s * (x * z + w * y)],
+        [s * (x * y + w * z), 1 - s * (x * x + z * z), s * (y * z - w * x)],
+        [s * (x * z - w * y), s * (y * z + w * x), 1 - s * (x * x + y * y)],
+    ]
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
+def _quat_mul(a, b):
+    """Hamilton product of (N, 4) quaternions (w, x, y, z)."""
+    aw, ax, ay, az = a.unbind(-1)
+    bw, bx, by, bz = b.unbind(-1)
+    return torch.stack(
+        [
+            aw * bw - ax * bx - ay * by - az * bz,
+            aw * bx + ax * bw + ay * bz - az * by,
+            aw * by - ax * bz + ay * bw + az * bx,
+            aw * bz + ax * by - ay * bx + az * bw,
+        ],
+        dim=-1,
+    )
+
+
+def _rotvec_to_quat(v):
+    """Exponential map (N, 3) rotation vectors -> (N, 4) quaternions, on its
+    Taylor series below ``|v|^2 = 1e-10`` (the JAX helper's double select,
+    so a derivative never sees the square root of 0)."""
+    theta2 = torch.sum(v * v, dim=-1)
+    big = theta2 > 1e-10
+    theta = torch.sqrt(torch.where(big, theta2, torch.ones_like(theta2)))
+    half = 0.5 * theta
+    sinc_half = torch.where(big, torch.sin(half) / theta, 0.5 - theta2 / 48.0)
+    cos_half = torch.where(big, torch.cos(half), 1.0 - theta2 / 8.0 + theta2 * theta2 / 384.0)
+    return torch.cat([cos_half[..., None], sinc_half[..., None] * v], dim=-1)
+
+
+def dof_positions(model: ArticulatedModel, q):
+    """Per-dof positions (N, nv) for springs and limits: a free root's
+    quaternion block gives zeros (its dofs are never limited or sprung)."""
+    if not model.root_free:
+        return q
+    return torch.cat([q[:, :3], torch.zeros_like(q[:, :3]), q[:, 7:]], dim=1)
+
+
+def integrate_pos(model: ArticulatedModel, q, v, dt):
+    """``q (+) dt v``: Euler for slides and hinges; for a free root the
+    quaternion turns by ``exp(dt omega / 2)`` on the right (``omega`` is in
+    the body frame) and is renormalised. ``dt`` is a float or a 0-d tensor,
+    so a forward derivative along ``dt`` gives the velocity of a point."""
+    if not model.root_free:
+        return q + dt * v
+    pos = q[:, :3] + dt * v[:, :3]
+    quat = _quat_mul(q[:, 3:7], _rotvec_to_quat(dt * v[:, 3:6]))
+    quat = quat / torch.sqrt(torch.sum(quat * quat, dim=-1, keepdim=True) + 1e-24)
+    return torch.cat([pos, quat, q[:, 7:] + dt * v[:, 6:]], dim=1)
+
+
+class _Constants:
+    """A model's static tables as float32 tensors, made once a device."""
+
+    def __init__(self, model: ArticulatedModel):
+        nbody, nv = len(model.bodies.parent), model.nv
+        axes = np.asarray(model.joints.axis, np.float64)
+        skew = np.zeros((nv, 3, 3))
+        skew[:, 0, 1], skew[:, 0, 2], skew[:, 1, 2] = -axes[:, 2], axes[:, 1], -axes[:, 0]
+        skew[:, 1, 0], skew[:, 2, 0], skew[:, 2, 1] = axes[:, 2], -axes[:, 1], axes[:, 0]
+        sel = np.zeros((len(model.contact_body), nbody))
+        sel[np.arange(len(model.contact_body)), np.asarray(model.contact_body, int)] = 1.0
+        limit_k, limit_c = limit_constants(model)
+        contact_k, contact_c = contact_constants(model)
+        self._np = {
+            "body_rot": np.stack([quat_to_mat_np(quat) for quat in model.bodies.quat]),
+            "body_pos": model.bodies.pos,
+            "axis": axes,
+            "anchor": model.joints.anchor,
+            "ref": model.joints.ref,
+            "skew": skew,
+            "outer": axes[:, :, None] * axes[:, None, :],
+            "eye": np.eye(3),
+            "slide": (np.asarray(model.joints.jtype) == SLIDE)[:, None],
+            "mass": model.bodies.mass,
+            "com": model.bodies.com,
+            "contact_body": np.asarray(model.contact_body, np.int64),
+            "contact_pos": np.asarray(model.contact_pos).reshape(-1, 3),
+            "contact_radius": model.contact_radius,
+            "contact_k": contact_k,
+            "contact_c": contact_c,
+            "contact_sel": sel,
+            "contact_mask": ancestor_dof_mask(model)[np.asarray(model.contact_body, int)][:, :, None],
+            "limited": np.asarray(model.joints.limited, bool),
+            "lower": model.joints.lower,
+            "upper": model.joints.upper,
+            "limit_k": limit_k,
+            "limit_c": limit_c,
+        }
+        self._on: dict[torch.device, dict[str, torch.Tensor]] = {}
+
+    def on(self, device: torch.device) -> dict[str, torch.Tensor]:
+        tables = self._on.get(device)
+        if tables is None:
+            tables = self._on[device] = {k: _tensor(v, device) for k, v in self._np.items()}
+        return tables
+
+
+def _tensor(x, device) -> torch.Tensor:
+    x = np.asarray(x)
+    if x.dtype == np.bool_ or x.dtype.kind in "iu":
+        return torch.as_tensor(x, device=device)
+    return torch.as_tensor(x.astype(np.float32), device=device)
+
+
+def _fk(model: ArticulatedModel, c: dict, q, full: bool):
+    """Forward kinematics over the bodies in order, the local transforms of
+    every dof made at once. With ``full`` it also records each dof's world
+    axis and pivot where the dof is applied."""
+    nbody, nv = len(model.bodies.parent), model.nv
+    qj = torch.stack([q[:, q_index(model, k)] for k in range(nv)], dim=1) - c["ref"]
+    cos, sin = torch.cos(qj)[:, :, None, None], torch.sin(qj)[:, :, None, None]
+    rot_dof = c["eye"] * cos + sin * c["skew"] + (1 - cos) * c["outer"]  # (N, nv, 3, 3)
+    hinge_shift = c["anchor"] - _mv(rot_dof, c["anchor"])  # anchor - R_j anchor
+    slide_shift = c["axis"] * qj[:, :, None]
+    Rs, ps = [None] * nbody, [None] * nbody
+    axes_w, pivots_w = [None] * nv, [None] * nv
+    for b in range(nbody):
+        parent = int(model.bodies.parent[b])
+        start, count = int(model.bodies.dof_start[b]), int(model.bodies.dof_count[b])
+        if is_free_root_body(model, b):
+            # the free joint's qpos is the body frame's world pose
+            R, p = _quat_to_mat(q[:, 3:7]), q[:, 0:3]
+            for k in range(3):
+                axes_w[start + k] = c["eye"][k].expand_as(p)
+                pivots_w[start + k] = torch.zeros_like(p)
+                axes_w[start + 3 + k] = R[:, :, k]
+                pivots_w[start + 3 + k] = p
+            Rs[b], ps[b] = R, p
+            continue
+        if parent < 0:
+            R = c["body_rot"][b].expand(q.shape[0], 3, 3)
+            p = c["body_pos"][b].expand(q.shape[0], 3)
+        else:
+            R = _mm(Rs[parent], c["body_rot"][b])
+            p = ps[parent] + _mv(Rs[parent], c["body_pos"][b])
+        for k in range(start, start + count):
+            if full:
+                axes_w[k] = _mv(R, c["axis"][k])
+            if int(model.joints.jtype[k]) == SLIDE:
+                if full:
+                    pivots_w[k] = torch.zeros_like(p)
+                p = p + _mv(R, slide_shift[:, k])
+            else:
+                if full:
+                    pivots_w[k] = p + _mv(R, c["anchor"][k])
+                p = p + _mv(R, hinge_shift[:, k])
+                R = _mm(R, rot_dof[:, k])
+        Rs[b], ps[b] = R, p
+    R, p = torch.stack(Rs, dim=1), torch.stack(ps, dim=1)
+    if not full:
+        return R, p
+    return R, p, torch.stack(axes_w, dim=1), torch.stack(pivots_w, dim=1)
+
+
+def fk(model: ArticulatedModel, q):
+    """World rotations R (N, nbody, 3, 3) and frame origins p (N, nbody, 3)."""
+    return _fk(model, _Constants(model).on(q.device), q, full=False)
+
+
+def fk_full(model: ArticulatedModel, q):
+    """:func:`fk` that also records each dof's world axis and pivot at the
+    moment the dof is applied: ``(R, p, axes_w (N, nv, 3), pivots_w (N, nv, 3))``.
+    A slide's pivot is 0; a free root's rotation axes are the columns of R."""
+    return _fk(model, _Constants(model).on(q.device), q, full=True)
+
+
+def make_dynamics(model: ArticulatedModel) -> dict:
+    """Batched helpers of one model, the JAX ``make_dynamics``'s that the
+    robots read, each on the device of its arguments:
+
+    - ``fk(q) -> (R, p)``;
+    - ``com_world(q) -> (pc (N, nbody, 3), R)``, the bodies' centres of mass;
+    - ``contact_points(q) -> (N, nc, 3)``, the contact spheres' centres;
+    - ``contact_wrenches(q, qd) -> (N, nbody, 6)``, each body's external
+      contact wrench ``[torque, force]`` about its com (``cfrc_ext``);
+    - ``limit_torques(q, qd) -> (N, nv)``, the joint-limit penalty torques.
+    """
+    constants = _Constants(model)
+    nbody, nc = len(model.bodies.parent), len(model.contact_body)
+
+    def com_world(q):
+        c = constants.on(q.device)
+        R, p = _fk(model, c, q, full=False)
+        return p + _mv(R, c["com"]), R
+
+    def _points(c, R, p):
+        cb = c["contact_body"]
+        return p[:, cb] + _mv(R[:, cb], c["contact_pos"])
+
+    def contact_points(q):
+        c = constants.on(q.device)
+        return _points(c, *_fk(model, c, q, full=False))
+
+    def contact_wrenches(q, qd):
+        c = constants.on(q.device)
+        if nc == 0:
+            return torch.zeros((q.shape[0], nbody, 6), dtype=q.dtype, device=q.device)
+        R, p, aw, ow = _fk(model, c, q, full=True)
+        pc = p + _mv(R, c["com"])
+        pts = _points(c, R, p)
+        # contact Jacobians (N, nc, nv, 3): a slide moves a point along its
+        # axis, a hinge by axis x (point - pivot); only ancestors' dofs move it
+        aw_c = aw[:, None]
+        Jc = torch.where(c["slide"], aw_c, torch.linalg.cross(aw_c, pts[:, :, None] - ow[:, None], dim=-1))
+        Jc = Jc * c["contact_mask"]
+        vel = torch.sum(Jc * qd[:, None, :, None], dim=2)  # (N, nc, 3)
+        k_c, c_c = c["contact_k"], c["contact_c"]
+        depth = c["contact_radius"] - (pts[..., 2] - model.ground_z)
+        fn = torch.where(depth > 0.0, k_c * depth - c_c * vel[..., 2], 0.0)
+        fn = torch.clamp(fn, min=0.0)
+        # viscous friction, clamped to the friction cone
+        ft_raw = -c_c[:, None] * vel[..., 0:2]
+        ft_norm = torch.sqrt(torch.sum(ft_raw * ft_raw, dim=-1) + 1e-12)
+        scale = torch.clamp(model.friction * fn / ft_norm, max=1.0)
+        f = torch.cat([ft_raw * scale[..., None], fn[..., None]], dim=-1)  # (N, nc, 3)
+        lever = pts - pc[:, c["contact_body"]]
+        t = torch.linalg.cross(lever, f, dim=-1)
+        sel = c["contact_sel"][None, :, :, None]  # (1, nc, nbody, 1)
+        F = torch.sum(sel * f[:, :, None, :], dim=1)
+        T = torch.sum(sel * t[:, :, None, :], dim=1)
+        return torch.cat([T, F], dim=-1)
+
+    def limit_torques(q, qd):
+        c = constants.on(q.device)
+        qj = dof_positions(model, q)
+        below = torch.clamp(qj - c["lower"], max=0.0)
+        above = torch.clamp(qj - c["upper"], min=0.0)
+        violating = (below < 0.0) | (above > 0.0)
+        tau = -c["limit_k"] * (below + above) - torch.where(violating, c["limit_c"] * qd, 0.0)
+        return torch.where(c["limited"], tau, 0.0)
+
+    return {
+        "fk": lambda q: _fk(model, constants.on(q.device), q, full=False),
+        "com_world": com_world,
+        "contact_points": contact_points,
+        "contact_wrenches": contact_wrenches,
+        "limit_torques": limit_torques,
+    }

@@ -62,8 +62,8 @@ def _states(model, n, seed=0):
 
     For a free root, every eighth lane instead rests at ``init_qpos`` with no
     control and an angular velocity below 5e-4, so the quaternion
-    exponential takes its small-angle side there (as
-    ``chip_smoke.articulated_states`` does).
+    exponential takes its small-angle side there (``chip_smoke.articulated_states``
+    rests them at ``chip_smoke.rest_pose`` instead, which serves Humanoid too).
     """
     rng = np.random.default_rng(seed)
     q = np.tile(jax_init_qpos(model)[None, :], (n, 1)).astype(np.float32)

@@ -6,10 +6,14 @@ no JAX, so on a machine without it run::
     python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
 """
 
+import collections
+
 import pytest
 import torch
 
 from chip_smoke import (
+    ART_ENVS,
+    articulated_env,
     articulated_states,
     compare_articulated_with_twin,
     compare_planar_with_twin,
@@ -101,15 +105,30 @@ def test_rejects_non_contiguous_state(cuda):
         )
 
 
-@pytest.mark.parametrize("robot, n", [("half_cheetah", 1000), ("ant", 333)])
+@pytest.mark.parametrize("robot, n", [("half_cheetah", 1000), ("ant", 333)]
+                         + [(robot, 333) for robot in ART_ENVS if robot not in ("half_cheetah", "ant")])
 def test_articulated_kernel_matches_twin(cuda, robot, n):
-    """One call of 5 substeps, at a batch that leaves the last block ragged:
-    equal to the twin, deterministic."""
-    step = art.fused_step(robot, 5)
+    """One call of the robot's env's ``frame_skip`` substeps, at a batch that
+    leaves the last block ragged: equal to the twin in every bit,
+    deterministic."""
+    step = art.fused_step(robot, articulated_env(robot).frame_skip)
     inputs = articulated_states(step.model, n, cuda, seed=3)
     before = art.launches[step.build_name]
     compare_articulated_with_twin(step, *inputs)
     assert art.launches[step.build_name] == before + 2
+
+
+def test_ant_vector_env_launches_the_kernel_once_a_step(cuda):
+    from gymnasium_tpu_torch.envs.mujoco import AntFunctional
+    from gymnasium_tpu_torch.vector import TorchVectorEnv
+
+    env = TorchVectorEnv(AntFunctional(), 256, max_episode_steps=1000, device=cuda)
+    env.reset(seed=0)
+    before = dict(art.launches)
+    carry, traj = env.rollout(6)
+    torch.cuda.synchronize()
+    assert art.launches - collections.Counter(before) == {"articulated_ant_fs5": 6}
+    assert traj.obs.shape == (6, 256, 105) and bool(torch.isfinite(traj.obs).all())
 
 
 @pytest.mark.parametrize("parts, groups", [(1, 4), (2, 3), (8, 2)])

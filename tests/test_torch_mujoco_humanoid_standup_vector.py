@@ -1,0 +1,11 @@
+"""HumanoidStandup of the port through ``TorchVectorEnv`` against the JAX
+functional through ``JaxVectorEnv``, across autoresets, as
+``tests/test_torch_mujoco_robots_vector.py`` holds the lighter robots (a
+file of its own, as ``tests/test_torch_mujoco_humanoid_vector.py``).
+"""
+
+from tests.test_torch_mujoco_robots_vector import run_against_jax
+
+
+def test_humanoid_standup_vector_env_matches_jax_across_autoresets(request):
+    run_against_jax(request, "humanoid_standup")

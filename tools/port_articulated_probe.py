@@ -23,8 +23,8 @@ N=4096 and at a ragged N, and the G = 1 kernel against the plain twin
 (``chip_smoke.compare_articulated_with_twin``). Then it times every variant
 of a model by device time (``chip_smoke.device_ms``, ``torch.profiler``) in
 turns: each variant once in order, then once in reverse. Last it builds
-Humanoid (on no path) at HalfCheetah's G, one group a block (at Ant's G its
-exchange buffer would pass the 227 KB a block may have), and holds it
+Humanoid at HalfCheetah's G, one group a block (its shipped layout; at Ant's
+G its exchange buffer would pass the 227 KB a block may have), and holds it
 against its twin, a build check only.
 
 Where the time goes: for the one-thread layout and each model's shipped
@@ -183,7 +183,7 @@ def main() -> int:
                 rows[s.build_name].setdefault("device_ms", []).append(ms)
                 print(f"turn {turn} {s.build_name}: device {ms:.4f} ms a call", flush=True)
 
-    for s in extra:  # a build check: Humanoid's states never reach the small-angle side
+    for s in extra:  # a build check; chip_smoke.py holds the shipped step to the small-angle side too
         inputs = articulated_states(s.model, RAGGED[s.source.name], dev, seed=3)
         got, want = s(*inputs), s.reference(*inputs)
         torch.cuda.synchronize()
