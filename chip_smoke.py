@@ -30,6 +30,17 @@ before the path and read just after:
   reset, four steps, a masked reset of every other lane, ``rollout(200)``.
   Each env step launches the generated planar kernel twice: the transition
   and the settle tick of the reset drawn for every lane;
+- ``TorchVectorEnv`` over each cheap functional at 4096 envs, with the step
+  limit its id registers (``CLASSIC_ENVS``): FrozenLake8x8, Taxi, Pendulum
+  and MountainCarContinuous (``bench.py``'s rows, ``rollout(512)``), then
+  Acrobot, MountainCar, CliffWalking, Blackjack and the CPD game with random
+  opponents (``rollout(100)``): reset, four steps, a masked reset of every
+  other lane, the rollout; outputs finite and inside the observation space,
+  episodes ending where each env says. No kernel of the port runs there.
+  After the kernel timings, five env steps of each bench row run under
+  ``torch.profiler`` (kernels a step, the device's busy share, host syncs),
+  and every one of the nine takes 8 steps at 4096 envs on the card and on
+  the CPU with the same draws and actions (``compare_classic_with_cpu``);
 - the PPO trainer at ``tools/bench_ppo.py``'s widths: CartPole-v1 (4096 envs,
   64 steps a rollout, hidden (128, 128)) and HalfCheetah-v5 (4096 x 64,
   hidden (256, 256), with NormalizeObservation, NormalizeReward and
@@ -50,7 +61,8 @@ groups a block, ``phases``, values ``exchanged`` and their loads,
 own time on the card, ``torch.profiler``'s kernel durations; ``events_ms``
 is CUDA events around back-to-back calls, which read the host's launch
 pace where a call's host work outlasts its kernel. It counts each library's SASS instructions with ``cuobjdump``. It
-prints the card's name and power limit, one ``{"ppo": {...}}`` line, one
+prints the card's name and power limit, one ``{"classic": {...}}`` line,
+one ``{"ppo": {...}}`` line, one
 ``{"kernels": [...]}`` line, and last the line ``{"ok": true, "device":
 {...}}``. Any failed check
 raises, so the exit code is 0 only when every phase passed. Without a CUDA
@@ -59,6 +71,8 @@ device it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import copy
+import functools
 import json
 import re
 import shutil
@@ -144,6 +158,38 @@ PPO_CHECK_ENVS, PPO_CHECK_STEPS = 256, 16
 # with JAX at HalfCheetah (tests/test_torch_ppo_halfcheetah.py), whose
 # transition is likewise the kernel on one side and the twin on the other.
 PPO_CHECK_TOL = 1e-5
+
+# The cheap functionals (gymnasium_tpu_torch.envs.<module>.<class>): bench.py's
+# four FAMILY_CASES rows by their names there, then the others. Each entry:
+# (class, options, the step limit gymnasium_tpu/envs/__init__.py registers,
+# rollout steps). CliffWalking registers none and takes 200, as
+# tests/functional/test_tabular.py does; Blackjack and CPD end by
+# themselves. CPD plays random opponents, the policy whose step draws.
+CLASSIC_ENVS = {
+    "frozenlake8x8": ("tabular.FrozenLake8x8Functional", {}, 200, 512),
+    "taxi_v3": ("tabular.TaxiFunctional", {}, 200, 512),
+    "pendulum_v1": ("phys2d.PendulumFunctional", {}, 200, 512),
+    "mountaincar_continuous_v0": ("phys2d.ContinuousMountainCarFunctional", {}, 999, 512),
+    "acrobot_v1": ("phys2d.AcrobotFunctional", {}, 500, 100),
+    "mountaincar_v0": ("phys2d.MountainCarFunctional", {}, 200, 100),
+    "cliffwalking_v1": ("tabular.CliffWalkingFunctional", {}, 200, 100),
+    "blackjack_v1": ("tabular.BlackjackFunctional", {}, None, 100),
+    "cpd_random": ("blockchain.BlockchainCPDFunctional", {"opponent_policy": "random"}, None, 100),
+}
+CLASSIC_BENCH_ROWS = ("frozenlake8x8", "taxi_v3", "pendulum_v1", "mountaincar_continuous_v0")
+CLASSIC_WARM_STEPS = 4
+# A blackjack hand lasts at most 20 steps: 19 hits from two aces to 21, then a stick or a bust.
+BLACKJACK_MAX_STEPS = 20
+# The card against the CPU: 8 steps at 4096 envs with the same draws and
+# actions, a step limit of 3 so that lanes autoreset. Tabular envs and
+# Blackjack compute in integers and gathers: equal. The others within a
+# relative tolerance (|card - cpu| <= tol * (1 + |cpu|)): sin, cos, pow and
+# the float32 RK4 differ in the last bits between the card's and the CPU's
+# libraries, and Acrobot's RK4 grows them most.
+CLASSIC_CHECK_STEPS, CLASSIC_CHECK_LIMIT = 8, 3
+CLASSIC_CHECK_TOL = {"pendulum_v1": 1e-5, "mountaincar_continuous_v0": 1e-5, "mountaincar_v0": 1e-5,
+                     "cpd_random": 1e-5, "acrobot_v1": 1e-4}
+ACROBOT_BAND = 1e-5  # Acrobot's flag may differ from the height test of its obs only this close to 1
 
 
 def check(cond, message: str) -> None:
@@ -482,19 +528,21 @@ def run_articulated(dev, name: str, n: int = NUM_ENVS) -> dict:
     return {"env_steps_per_s": n * steps / seconds, "terminations": terminations}
 
 
-def profile_env_step(dev, name: str, build_name: str, n: int = NUM_ENVS, steps: int = PROFILED_ENV_STEPS) -> dict:
-    """``torch.profiler`` over ``steps`` env steps of the robot ``name`` under
-    ``TorchVectorEnv`` at ``n`` envs, after a few unprofiled ones: kernels a
-    step, the device's busy time a step (kernel time; one stream) and its
-    share of the profiled wall time, the articulated kernel's device time a
-    step, and the host-clock time a step without the profiler. A trace that
-    did not see one ``build_name`` launch a step is taken again (up to five
-    times)."""
+def profile_env_step(dev, func, label: str, time_limit: int | None, kernel: str | None = None, n: int = NUM_ENVS,
+                     steps: int = PROFILED_ENV_STEPS) -> dict:
+    """``torch.profiler`` over ``steps`` env steps of the functional env
+    ``func`` under ``TorchVectorEnv`` at ``n`` envs, after a few unprofiled
+    ones: kernels and memory copies a step, the device's busy time a step
+    (kernel and copy time; one stream) and its share of the profiled wall
+    time, the host's stream synchronisations a step, and the host-clock time
+    a step without the profiler. With ``kernel`` (a part of a kernel's
+    name), also that kernel's device time a step; a trace that did not see
+    one launch of it a step is taken again (up to five times)."""
     from torch.profiler import ProfilerActivity, profile
 
     from gymnasium_tpu_torch.vector import TorchVectorEnv
 
-    env = TorchVectorEnv(articulated_env(name), n, max_episode_steps=ART_TIME_LIMIT, device=dev)
+    env = TorchVectorEnv(func, n, max_episode_steps=time_limit, device=dev)
     env.reset(seed=0)
     env.rollout(ART_WARM_STEPS)
     torch.cuda.synchronize()
@@ -508,17 +556,25 @@ def profile_env_step(dev, name: str, build_name: str, n: int = NUM_ENVS, steps: 
             env.rollout(steps)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - start) * 1e3 / steps
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
-        art_kernels = [e for e in kernels if "kernel<ArticulatedStep>" in e.name]
-        if len(art_kernels) == steps:
+        device = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+        copies = [e for e in device if e.name.startswith(("Memcpy", "Memset"))]
+        kernels = [e for e in device if not e.name.startswith(("Memcpy", "Memset"))]
+        own = [e for e in kernels if kernel and kernel in e.name]
+        if kernel is None or len(own) == steps:
             break
-    check(len(art_kernels) == steps, f"the profiler saw {len(art_kernels)} of {steps} launches of {build_name}")
-    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / steps
-    return {"robot": name, "envs": n, "profiled_steps": steps, "step_ms": step_ms, "profiled_step_ms": wall_ms,
-            "kernels_a_step": len(kernels) / steps, "device_busy_ms_a_step": busy_ms,
-            "device_busy_share": busy_ms / wall_ms,
-            "articulated_device_ms_a_step": sum(e.time_range.elapsed_us() for e in art_kernels) / 1e3 / steps}
+    check(kernel is None or len(own) == steps, f"the profiler saw {len(own)} of {steps} launches of {kernel}")
+    check(kernels, f"{label}: the profiler saw no kernel on the card")
+    busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3 / steps
+    # a copy from pageable host memory waits for the stream: the host stalls on the card
+    syncs = sum(e.name == "cudaStreamSynchronize" for e in prof.events())
+    result = {"env": label, "envs": n, "profiled_steps": steps, "step_ms": step_ms, "profiled_step_ms": wall_ms,
+              "kernels_a_step": len(kernels) / steps, "copies_a_step": len(copies) / steps,
+              "device_busy_ms_a_step": busy_ms, "device_busy_share": busy_ms / wall_ms,
+              "stream_syncs_a_step": syncs / steps}
+    if kernel:
+        result["kernel_device_ms_a_step"] = sum(e.time_range.elapsed_us() for e in own) / 1e3 / steps
+    return result
 
 
 def rest_pose(model) -> np.ndarray:
@@ -777,6 +833,186 @@ def planar_bound_ms(step, n: int) -> tuple[float, str]:
     and runs the operations the generator emitted (cos, sin, floor, divide,
     select and compare count one each) at the float32 rate."""
     return bound(n * PLANAR_BYTES_PER_ENV, n * step.source.ops_per_env / FP32_OPS_PER_S)
+
+
+def classic_env(name: str):
+    """A new instance of the functional env ``name`` of :data:`CLASSIC_ENVS`."""
+    import importlib
+
+    path, options, _, _ = CLASSIC_ENVS[name]
+    module, cls = path.rsplit(".", 1)
+    return getattr(importlib.import_module(f"gymnasium_tpu_torch.envs.{module}"), cls)(dict(options))
+
+
+def inside(space, x: torch.Tensor) -> bool:
+    """Whether every element of a batch lies in the single-env ``space``."""
+    if hasattr(space, "n"):
+        return bool(space.contains_torch(x).all())
+    return bool(space.contains_torch(x))
+
+
+def longest_episode(steps0, prev_done0, done) -> int:
+    """The most steps any episode reached over a trajectory's (T, N) done
+    flags, from the step counters and done flags before it: the step counter
+    of ``make_autoreset_step``, replayed."""
+    run, prev, longest = steps0.clone(), prev_done0, steps0.clone()
+    for flags in done:
+        run = torch.where(prev, 0, run + 1)
+        longest = torch.maximum(longest, run)
+        prev = flags
+    return int(longest.max())
+
+
+def check_classic_episodes(name: str, env, traj, longest: int) -> None:
+    """Each env's episodes end where they must, read from the trajectory."""
+    obs, term, trunc, reward = traj.obs, traj.terminated, traj.truncated, traj.reward
+    func, limit = env.func_env, env.time_limit
+    check(not bool((term & trunc).any()), f"{name}: a step both terminated and truncated")
+    check(limit is None or longest <= limit, f"{name}: an episode ran {longest} steps, past {limit}")
+    check(limit is not None or not bool(trunc.any()), f"{name}: truncated without a step limit")
+    if name == "frozenlake8x8":
+        ends = torch.from_numpy(np.isin(func.desc.ravel(), [b"G", b"H"])).to(obs.device)
+        check(torch.equal(term, ends[obs.long()]), "frozenlake8x8: terminated is not 'on a hole or the goal'")
+    elif name == "taxi_v3":
+        check(torch.equal(term, reward == 20.0), "taxi_v3: terminated is not 'dropped off, +20'")
+    elif name == "cliffwalking_v1":
+        check(torch.equal(term, obs == 47), "cliffwalking_v1: terminated is not 'at the goal'")
+        check(bool(((reward == -1) | (reward == -100) | (reward == 0)).all()), "cliffwalking_v1: reward")
+    elif name == "pendulum_v1":
+        check(not bool(term.any()) and bool(trunc.any()), "pendulum_v1: terminated, or never truncated")
+    elif name.startswith("mountaincar"):
+        goal = func.get_default_params().goal_position
+        check(torch.equal(term, (obs[..., 0] >= goal) & (obs[..., 1] >= 0)), f"{name}: terminated is not the goal")
+        if name == "mountaincar_continuous_v0":
+            check(bool(((reward[term] >= 99.9) & (reward[term] <= 100.0)).all()), f"{name}: goal reward")
+    elif name == "acrobot_v1":
+        c1, s1, c2, s2 = obs[..., 0], obs[..., 1], obs[..., 2], obs[..., 3]
+        height = -c1 - (c1 * c2 - s1 * s2)
+        away = (height - 1.0).abs() > ACROBOT_BAND
+        check(torch.equal(term[away], (height > 1.0)[away]), "acrobot_v1: terminated is not 'above the bar'")
+        check(bool((reward[term] == 0).all() and ((reward == 0) | (reward == -1)).all()), "acrobot_v1: reward")
+    elif name == "blackjack_v1":
+        check(longest <= BLACKJACK_MAX_STEPS, f"blackjack_v1: a hand lasted {longest} steps")
+        check(bool(((reward == -1) | (reward == 0) | (reward == 1)).all()), "blackjack_v1: reward")
+    elif name == "cpd_random":
+        check(torch.equal(term, obs[..., 3] >= 1.0), "cpd_random: terminated is not round == max_rounds")
+        check(longest <= func.max_rounds, f"cpd_random: a game ran {longest} rounds")
+
+
+def run_classic(dev, name: str, n: int = NUM_ENVS) -> dict:
+    """A cheap functional under ``TorchVectorEnv``: reset, a few sampled steps,
+    a masked reset of every other lane, then its rollout. Checks that every
+    output is finite and inside its space and that episodes end where they
+    must. Returns the rollout's host-clock env-steps/s and the episode ends
+    seen."""
+    from gymnasium_tpu_torch.functional import tree_map
+    from gymnasium_tpu_torch.vector import TorchVectorEnv
+
+    _, _, limit, rollout = CLASSIC_ENVS[name]
+    env = TorchVectorEnv(classic_env(name), n, max_episode_steps=limit, device=dev)
+    obs, _ = env.reset(seed=0)
+    check(inside(env.single_observation_space, obs), f"{name}: reset obs outside the observation space")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for _ in range(CLASSIC_WARM_STEPS):
+        obs, reward, term, trunc, _ = env.step(env.single_action_space.sample_torch(gen, (n,)))
+    check(bool(torch.isfinite(obs.float()).all() and torch.isfinite(reward).all()), f"{name}: step not finite")
+
+    mask = np.zeros(n, np.bool_)
+    mask[::2] = True
+    keep = torch.from_numpy(~mask).to(dev)
+    before = tree_map(torch.clone, env.carry.state)
+    mobs, _ = env.reset(options={"reset_mask": mask})
+    moved = []
+    tree_map(lambda a, b: moved.append(not torch.equal(a[keep], b[keep])), env.carry.state, before)
+    check(not any(moved), f"{name}: masked reset moved kept lanes")
+    check(torch.equal(mobs[keep], obs[keep]), f"{name}: masked reset changed kept lanes' obs")
+    check(not bool(env.carry.steps[~keep].any()), f"{name}: masked reset left step counters")
+
+    steps0, done0 = env.carry.steps.clone(), env.carry.prev_done.clone()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    carry, traj = env.rollout(rollout)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    check(traj.obs.shape == (rollout, n) + env.single_observation_space.shape,
+          f"{name}: obs shape {tuple(traj.obs.shape)}")
+    check(bool(torch.isfinite(traj.obs.float()).all() and torch.isfinite(traj.reward).all()),
+          f"{name}: rollout not finite")
+    check(inside(env.single_observation_space, traj.obs), f"{name}: rollout obs outside the observation space")
+    done = traj.terminated | traj.truncated
+    check(torch.equal(traj.reward[1:][done[:-1]], torch.zeros_like(traj.reward[1:][done[:-1]])),
+          f"{name}: reward is not 0 on the step after a done")
+    longest = longest_episode(steps0, done0, done)
+    check_classic_episodes(name, env, traj, longest)
+    return {"env_steps_per_s": n * rollout / seconds, "rollout_steps": rollout,
+            "terminations": int(traj.terminated.sum()), "truncations": int(traj.truncated.sum()),
+            "longest_episode": longest}
+
+
+def with_draws(func, source):
+    """A shallow copy of the functional env ``func`` whose ``reset_draws`` and
+    ``transition_draws`` (those it has) return ``source(hook, draw, rng, n)``,
+    ``draw`` being ``func``'s own."""
+    env = copy.copy(func)
+    for hook in ("reset_draws", "transition_draws"):
+        if hasattr(func, hook):
+            setattr(env, hook, functools.partial(source, hook, getattr(func, hook)))
+    return env
+
+
+def compare_classic_with_cpu(dev, name: str, n: int = NUM_ENVS, steps: int = CLASSIC_CHECK_STEPS) -> dict:
+    """``steps`` steps of the env ``name`` at ``n`` envs under ``TorchVectorEnv``
+    (step limit ``CLASSIC_CHECK_LIMIT``) on the CPU with its draws recorded,
+    then on ``dev`` with the same draws and actions. Raises unless flags,
+    step counters and integer leaves are equal and every float output and
+    state leaf agrees within ``CLASSIC_CHECK_TOL`` (equality where it has no
+    entry). Returns the largest absolute deviation and the episode ends."""
+    from gymnasium_tpu_torch.functional import tree_map
+    from gymnasium_tpu_torch.vector import TorchVectorEnv
+
+    func = classic_env(name)
+    gen = torch.Generator().manual_seed(2)
+    actions = [func.action_space.sample_torch(gen, (n,)) for _ in range(steps)]
+    recorded = {"reset_draws": [], "transition_draws": []}
+
+    def record(hook, draw, rng, count):
+        recorded[hook].append(draw(rng, count))
+        return recorded[hook][-1]
+
+    def replay(hook, draw, rng, count):
+        return tuple(None if x is None else x.to(dev) for x in next(replays[hook]))
+
+    def run(source, device):
+        env = TorchVectorEnv(with_draws(func, source), n, max_episode_steps=CLASSIC_CHECK_LIMIT, device=device)
+        obs, _ = env.reset(seed=0)
+        trace = [(obs, env.carry.state)]
+        for action in actions:
+            obs, reward, term, trunc, _ = env.step(action.to(device))
+            trace.append((obs, reward, term, trunc, env.carry.steps, env.carry.state))
+        return tree_map(lambda x: x.cpu() if isinstance(x, torch.Tensor) else x, trace)
+
+    cpu = run(record, "cpu")
+    replays = {hook: iter(draws) for hook, draws in recorded.items()}
+    card = run(replay, dev)
+    check(all(next(it, None) is None for it in replays.values()), f"{name}: the card took fewer draws than the CPU")
+
+    tol = CLASSIC_CHECK_TOL.get(name)
+    worst = []
+
+    def agree(got, want):
+        check(got.dtype == want.dtype and got.shape == want.shape, f"{name} card vs cpu: {got.dtype} vs {want.dtype}")
+        if tol is None or not want.is_floating_point():
+            check(torch.equal(got, want), f"{name} card vs cpu: {want.dtype} values differ")
+            worst.append(float((got.double() - want.double()).abs().max()) if want.numel() else 0.0)
+            return
+        err = (got.double() - want.double()).abs()
+        check(bool((err <= tol * (1.0 + want.double().abs())).all()), f"{name} card vs cpu: differ by {float(err.max())}")
+        worst.append(float(err.max()))
+
+    tree_map(agree, card, cpu)
+    ends = sum(int((step[2] | step[3]).sum()) for step in cpu[1:])
+    check(ends > 0, f"{name} card vs cpu: no episode ended")
+    return {"max_abs_dev": max(worst), "tolerance": tol, "episode_ends": ends}
 
 
 def ppo_case(name: str, n: int = NUM_ENVS, rollout: int = PPO_ROLLOUT, compute_dtype=torch.bfloat16):
@@ -1054,6 +1290,10 @@ def main() -> int:
         robots[name], robot_counts[name] = counted(f"{name} TorchVectorEnv", lambda: run_articulated(dev, name))
         print(f"{name} TorchVectorEnv: {robots[name]}", flush=True)
     ll_rate, ll_counts = counted("lunar_lander TorchVectorEnv", lambda: run_lunar_lander(dev))
+    classic, classic_counts = {}, {}
+    for name in CLASSIC_ENVS:
+        classic[name], classic_counts[name] = counted(f"{name} TorchVectorEnv", lambda: run_classic(dev, name))
+        print(f"{name} TorchVectorEnv: {classic[name]}", flush=True)
     check(head_counts == {"cartpole_rollout_fused": 2 * HEADLINE_BLOCKS, **gen_zero},
           f"headline launches {head_counts}")
     check(not any(vec_counts.values()) and not any(entry_counts.values()),
@@ -1067,12 +1307,16 @@ def main() -> int:
     ll_want = {"cartpole_rollout_fused": 0, **gen_zero,
                planar.build_name: 1 + 2 * PLANAR_WARM_STEPS + 1 + 2 * PLANAR_ROLLOUT}
     check(ll_counts == ll_want, f"lunar_lander path launches {ll_counts}, want {ll_want}")
+    for name, counts in classic_counts.items():
+        check(not any(counts.values()), f"{name}: the path launched {counts}; it runs no kernel of the port")
     main_launches = head_counts["cartpole_rollout_fused"]
     print(f"main path: host-clock env-steps/s headline bf16={headline['torch.bfloat16']:.0f} "
           f"f32={headline['torch.float32']:.0f}, CartPole TorchVectorEnv.rollout(256)={vec_rate:.0f}, "
           + "".join(f"{name} TorchVectorEnv.rollout({ART_ROLLOUT if name in ART_FULL_PATHS else ROBOT_ROLLOUT})="
                     f"{robots[name]['env_steps_per_s']:.0f}, " for name in ART_ENVS)
-          + f"LunarLander TorchVectorEnv.rollout({PLANAR_ROLLOUT})={ll_rate:.0f}", flush=True)
+          + f"LunarLander TorchVectorEnv.rollout({PLANAR_ROLLOUT})={ll_rate:.0f}, "
+          + ", ".join(f"{name} TorchVectorEnv.rollout({r['rollout_steps']})={r['env_steps_per_s']:.0f}"
+                      for name, r in classic.items()), flush=True)
     print("terminations seen on each robot's path: "
           + ", ".join(f"{name} {robots[name]['terminations']}" for name in ART_ENVS), flush=True)
     for name, times in block_ms.items():
@@ -1235,9 +1479,18 @@ def main() -> int:
     # -- profiled paths: one Ant env step, the PPO trainer --------------------
     # They run after the kernel timings: a device_ms trace taken after other
     # profiled work in the process missed one CartPole launch in every try.
-    ant_profile = profile_env_step(dev, "ant", steps["ant"].build_name)
+    ant_profile = profile_env_step(dev, articulated_env("ant"), "ant", ART_TIME_LIMIT, "kernel<ArticulatedStep>")
     print(f"ant TorchVectorEnv step under torch.profiler (N={NUM_ENVS}): {json.dumps(ant_profile)}", flush=True)
     next(k for k in kernels if k["name"] == "articulated_step[ant]")["env_step_profile"] = ant_profile
+    for name in CLASSIC_BENCH_ROWS:
+        classic[name]["env_step_profile"] = profile_env_step(dev, classic_env(name), name, CLASSIC_ENVS[name][2])
+        print(f"{name} TorchVectorEnv step under torch.profiler (N={NUM_ENVS}): "
+              f"{json.dumps(classic[name]['env_step_profile'])}", flush=True)
+    for name in CLASSIC_ENVS:
+        classic[name]["device_vs_cpu"] = compare_classic_with_cpu(dev, name)
+        print(f"{name} on the card vs the CPU ({CLASSIC_CHECK_STEPS} steps, N={NUM_ENVS}, injected draws): "
+              f"{classic[name]['device_vs_cpu']}", flush=True)
+    print(json.dumps({"classic": {"card": card_line(), "envs": NUM_ENVS, **classic}}), flush=True)
     ppo, ppo_counts = {}, {}
     for name in ("cartpole", "half_cheetah"):
         ppo[name], ppo_counts[name] = counted(f"ppo {name}", lambda: run_ppo(dev, name))

@@ -24,16 +24,9 @@ from gymnasium_tpu_torch.envs.mujoco.mujoco_env import load_model
 from gymnasium_tpu_torch.functional import FuncEnv, tree_map
 from gymnasium_tpu_torch.ops.articulated_step import fused_step
 from gymnasium_tpu_torch.physics.articulated import init_qpos, make_dynamics
+from gymnasium_tpu_torch.utils.draws import uniform_map
 
-__all__ = ["MujocoFuncEnv", "uniform_map"]
-
-
-def uniform_map(u: torch.Tensor, low: float, high: float) -> torch.Tensor:
-    """``U[low, high)`` from draws ``u ~ U[0, 1)``, rounded as
-    ``jax.random.uniform(minval=low, maxval=high)`` rounds its uniforms:
-    ``max(low, u * (high - low) + low)`` in float32."""
-    lo = np.float32(low)
-    return torch.clamp(u * float(np.float32(high) - lo) + float(lo), min=float(lo))
+__all__ = ["MujocoFuncEnv"]
 
 
 class MujocoFuncEnv(FuncEnv):

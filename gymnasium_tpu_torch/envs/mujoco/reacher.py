@@ -16,7 +16,8 @@ import numpy as np
 import torch
 
 from gymnasium_tpu_torch import spaces
-from gymnasium_tpu_torch.envs.mujoco.locomotion import MujocoFuncEnv, uniform_map
+from gymnasium_tpu_torch.envs.mujoco.locomotion import MujocoFuncEnv
+from gymnasium_tpu_torch.utils.draws import uniform_map
 
 __all__ = ["ReacherFunctional"]
 

@@ -19,11 +19,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gymnasium_tpu_torch.utils.draws import categorical
+
 __all__ = [
     "MLP",
     "ActorCritic",
     "categorical",
-    "gumbel",
     "mlp_from_jax_params",
     "ppo_params_from_jax",
     "wrapper_states_from_jax",
@@ -133,16 +134,3 @@ def wrapper_states_from_jax(states, device: str | torch.device = "cpu"):
         return torch.from_numpy(np.array(x)).to(device)
 
     return convert(states)
-
-
-def gumbel(generator: torch.Generator, shape, device=None) -> torch.Tensor:
-    """Standard Gumbel draws, ``-log(-log(u))`` with ``u`` clamped away from 0."""
-    tiny = torch.finfo(torch.float32).tiny
-    u = torch.rand(shape, generator=generator, device=device)
-    return -torch.log(-torch.log(u.clamp_min(tiny)))
-
-
-def categorical(generator: torch.Generator, logits: torch.Tensor) -> torch.Tensor:
-    """Sample one index per row of ``logits`` by the Gumbel-max trick, as
-    ``jax.random.categorical`` does, from an explicit generator."""
-    return torch.argmax(logits + gumbel(generator, logits.shape, logits.device), dim=-1)

@@ -33,8 +33,9 @@ from gymnasium_tpu_torch.functional import (
     make_initial_carry,
     vectorize_func_env,
 )
-from gymnasium_tpu_torch.train.policy import ActorCritic, gumbel
+from gymnasium_tpu_torch.train.policy import ActorCritic
 from gymnasium_tpu_torch.utils.device import resolve_device
+from gymnasium_tpu_torch.utils.draws import gumbel
 from gymnasium_tpu_torch.wrappers.func import (
     WrappedEnvCarry,
     wrap_autoreset_step,

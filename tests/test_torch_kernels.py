@@ -16,6 +16,7 @@ from chip_smoke import (
     articulated_env,
     articulated_states,
     compare_articulated_with_twin,
+    compare_classic_with_cpu,
     compare_planar_with_twin,
     compare_ppo_with_cpu,
     compare_rollout_with_twin,
@@ -212,3 +213,16 @@ def test_ppo_half_cheetah_train_step_matches_cpu(cuda):
     assert art.launches["articulated_half_cheetah_fs5"] == before + 16
     # compare_ppo_with_cpu raises past PPO_CHECK_TOL (relative and absolute)
     assert set(errs) >= {"loss", "obs", "parameters"}
+
+
+@pytest.mark.parametrize("name", ["frozenlake8x8", "pendulum_v1"])
+def test_classic_env_on_the_card_matches_cpu(cuda, name):
+    """Eight autoresetting steps at N=4096 with the same draws and actions:
+    FrozenLake8x8's states, rewards and flags equal the CPU's, Pendulum's
+    agree within 1e-5 relative. The path launches no kernel of the port."""
+    before = (cr.launches, dict(art.launches), dict(pl.launches))
+    result = compare_classic_with_cpu(cuda, name)
+    assert (cr.launches, dict(art.launches), dict(pl.launches)) == before
+    # compare_classic_with_cpu raises past CLASSIC_CHECK_TOL
+    assert result["episode_ends"] > 0
+    assert (result["tolerance"] is None) == (name == "frozenlake8x8")
