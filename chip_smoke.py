@@ -9,8 +9,10 @@ It builds every kernel of the port with ``nvcc``, all at once: the
 hand-written ``gymnasium_tpu_torch/csrc/*.cu``, the articulated substep
 generated for each of the ten MuJoCo-class robots at its own ``frame_skip``
 (HalfCheetah, Ant, Hopper, Walker2d, InvertedPendulum,
-InvertedDoublePendulum, Reacher, Pusher, Humanoid, HumanoidStandup) and the
-planar solver step generated for LunarLander (two substeps). Then it drives
+InvertedDoublePendulum, Reacher, Pusher, Humanoid, HumanoidStandup), for
+Swimmer at ``frame_skip=1`` and for the chain of :data:`MJCF_CHAIN_XML`,
+which it writes to a temporary file and compiles through ``load_model``,
+and the planar solver step generated for LunarLander (two substeps). Then it drives
 each path of the port once, with every kernel launch count set to 0 just
 before the path and read just after:
 
@@ -41,6 +43,20 @@ before the path and read just after:
   ``torch.profiler`` (kernels a step, the device's busy share, host syncs),
   and every one of the nine takes 8 steps at 4096 envs on the card and on
   the CPU with the same draws and actions (``compare_classic_with_cpu``);
+- ``TorchVectorEnv(CarRacingFunctional(), 1024, max_episode_steps=1000)``
+  (``bench.py``'s row): reset, four steps, a masked reset of every other
+  lane, ``rollout(100)``; every frame uint8 and in the palette, episodes
+  ending where the env says; then the discrete mode's ``rollout(20)``. No
+  kernel of the port runs there. After the kernel timings, five env steps
+  under ``torch.profiler`` (with the observation's device time, a
+  ``record_function`` range) and 8 steps at 64 envs on the card and on the
+  CPU with the same draws and actions (``compare_car_racing_with_cpu``);
+- ``TorchVectorEnv(SwimmerFunctional(), 4096)``: reset, ``rollout(100)``,
+  four launches of Swimmer's ``frame_skip=1`` kernel an env step with the
+  fluid drag between them; then five profiled env steps and 8 steps against
+  the CPU (``compare_swimmer_with_cpu``);
+- a ``MujocoFuncEnv`` over the compiled XML chain at 4096 envs:
+  ``rollout(20)``, one launch of its generated kernel an env step;
 - the PPO trainer at ``tools/bench_ppo.py``'s widths: CartPole-v1 (4096 envs,
   64 steps a rollout, hidden (128, 128)) and HalfCheetah-v5 (4096 x 64,
   hidden (256, 256), with NormalizeObservation, NormalizeReward and
@@ -54,14 +70,15 @@ before the path and read just after:
 It holds each kernel against its plain PyTorch version on the card and times
 both; the articulated and planar kernels must equal their twins in every
 value (each robot's articulated kernel at N=4096 at its own
-``frame_skip``). Each ``articulated_step[...]`` entry also gives the
+``frame_skip``, Swimmer's at 1 and the XML chain's). Each ``articulated_step[...]`` entry also gives the
 kernel's warp layout (``parts`` warps a group of 32 envs, ``env_groups``
 groups a block, ``phases``, values ``exchanged`` and their loads,
 ``recomputed_ops``, ``shared_bytes_per_block``). A kernel's ``ms`` is its
 own time on the card, ``torch.profiler``'s kernel durations; ``events_ms``
 is CUDA events around back-to-back calls, which read the host's launch
 pace where a call's host work outlasts its kernel. It counts each library's SASS instructions with ``cuobjdump``. It
-prints the card's name and power limit, one ``{"classic": {...}}`` line,
+prints the card's name and power limit, one ``{"carracing": {...}, "swimmer":
+{...}, "mjcf": {...}}`` line, one ``{"classic": {...}}`` line,
 one ``{"ppo": {...}}`` line, one
 ``{"kernels": [...]}`` line, and last the line ``{"ok": true, "device":
 {...}}``. Any failed check
@@ -71,13 +88,16 @@ device it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import collections
 import copy
 import functools
 import json
+import os
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -190,6 +210,58 @@ CLASSIC_CHECK_STEPS, CLASSIC_CHECK_LIMIT = 8, 3
 CLASSIC_CHECK_TOL = {"pendulum_v1": 1e-5, "mountaincar_continuous_v0": 1e-5, "mountaincar_v0": 1e-5,
                      "cpd_random": 1e-5, "acrobot_v1": 1e-4}
 ACROBOT_BAND = 1e-5  # Acrobot's flag may differ from the height test of its obs only this close to 1
+
+# CarRacing-v3 (bench.py:74: 1024 envs x 100 steps): the continuous mode takes
+# reset, CAR_WARM_STEPS steps, a masked reset and rollout(CAR_ROLLOUT), the
+# discrete mode rollout(CAR_DISCRETE_ROLLOUT). The card against the CPU: 8
+# steps at 64 envs, step limit 3. The hull, wheels and rewards pass through
+# sin, cos, sqrt and divides whose last bits differ between the card's and
+# the CPU's libraries: a relative 1e-4.
+CAR_ENVS = 1024
+CAR_TIME_LIMIT = 1000
+CAR_WARM_STEPS = 4
+CAR_ROLLOUT = 100
+CAR_DISCRETE_ROLLOUT = 20
+CAR_CHECK_ENVS, CAR_CHECK_STEPS, CAR_CHECK_LIMIT = 64, 8, 3
+CAR_CHECK_TOL = 1e-4
+# Swimmer-v5 at 4096 envs, four articulated launches (frame_skip 1) an env
+# step. The card against the CPU: the kernel against the twin, with the
+# fluid drag, mass matrix and solve in eager torch on both: a relative 1e-4.
+SWIMMER_ROLLOUT = 100
+SWIMMER_CHECK_STEPS, SWIMMER_CHECK_LIMIT = 8, 3
+SWIMMER_CHECK_TOL = 1e-4
+MJCF_FRAME_SKIP = 2
+MJCF_ROLLOUT = 20
+
+# The MJCF phase's model, written to a temporary file and compiled through
+# load_model: a planar chain with a slide root, two limited hinges, two
+# motors and a floor contact sphere (contact sphere only on the foot).
+MJCF_CHAIN_XML = """
+<mujoco model="chain">
+  <compiler angle="degree"/>
+  <option timestep="0.01"/>
+  <worldbody>
+    <geom name="floor" type="plane" pos="0 0 0" size="10 10 1"/>
+    <body name="cart" pos="0 0 0.34">
+      <joint name="slide" type="slide" axis="1 0 0" damping="0.1"/>
+      <geom name="cart" type="box" size="0.15 0.1 0.05" density="500" contype="0"/>
+      <body name="upper" pos="0 0 0">
+        <joint name="hip" type="hinge" axis="0 1 0" limited="true" range="-60 60" damping="0.05"/>
+        <geom type="capsule" fromto="0 0 0 0 0 -0.2" size="0.03" contype="0"/>
+        <body name="lower" pos="0 0 -0.2">
+          <joint name="knee" type="hinge" axis="0 1 0" limited="true" range="-90 90" damping="0.05"/>
+          <geom type="capsule" fromto="0 0 0 0 0 -0.15" size="0.025" contype="0"/>
+          <geom name="foot" type="sphere" pos="0 0 -0.15" size="0.04"/>
+        </body>
+      </body>
+    </body>
+  </worldbody>
+  <actuator>
+    <motor joint="hip" gear="2" ctrllimited="true" ctrlrange="-1 1"/>
+    <motor joint="knee" gear="2" ctrllimited="true" ctrlrange="-1 1"/>
+  </actuator>
+</mujoco>
+"""
 
 
 def check(cond, message: str) -> None:
@@ -529,7 +601,7 @@ def run_articulated(dev, name: str, n: int = NUM_ENVS) -> dict:
 
 
 def profile_env_step(dev, func, label: str, time_limit: int | None, kernel: str | None = None, n: int = NUM_ENVS,
-                     steps: int = PROFILED_ENV_STEPS) -> dict:
+                     steps: int = PROFILED_ENV_STEPS, launches_a_step: int = 1, ranges: tuple[str, ...] = ()) -> dict:
     """``torch.profiler`` over ``steps`` env steps of the functional env
     ``func`` under ``TorchVectorEnv`` at ``n`` envs, after a few unprofiled
     ones: kernels and memory copies a step, the device's busy time a step
@@ -537,11 +609,16 @@ def profile_env_step(dev, func, label: str, time_limit: int | None, kernel: str 
     time, the host's stream synchronisations a step, and the host-clock time
     a step without the profiler. With ``kernel`` (a part of a kernel's
     name), also that kernel's device time a step; a trace that did not see
-    one launch of it a step is taken again (up to five times)."""
+    ``launches_a_step`` launches of it a step is taken again (up to five
+    times). For each ``record_function`` range of ``ranges``, the device
+    time a step and the kernels a step that start inside its spans on the
+    device's timeline. Also the five kernels (by name) that take the most
+    device time a step."""
     from torch.profiler import ProfilerActivity, profile
 
     from gymnasium_tpu_torch.vector import TorchVectorEnv
 
+    cuda = torch.autograd.DeviceType.CUDA
     env = TorchVectorEnv(func, n, max_episode_steps=time_limit, device=dev)
     env.reset(seed=0)
     env.rollout(ART_WARM_STEPS)
@@ -556,24 +633,35 @@ def profile_env_step(dev, func, label: str, time_limit: int | None, kernel: str 
             env.rollout(steps)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - start) * 1e3 / steps
-        device = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+        events = prof.events()
+        device = [e for e in events if e.device_type == cuda and not e.is_user_annotation]
         copies = [e for e in device if e.name.startswith(("Memcpy", "Memset"))]
         kernels = [e for e in device if not e.name.startswith(("Memcpy", "Memset"))]
         own = [e for e in kernels if kernel and kernel in e.name]
-        if kernel is None or len(own) == steps:
+        if kernel is None or len(own) == steps * launches_a_step:
             break
-    check(kernel is None or len(own) == steps, f"the profiler saw {len(own)} of {steps} launches of {kernel}")
+    check(kernel is None or len(own) == steps * launches_a_step,
+          f"the profiler saw {len(own)} of {steps * launches_a_step} launches of {kernel}")
     check(kernels, f"{label}: the profiler saw no kernel on the card")
     busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3 / steps
     # a copy from pageable host memory waits for the stream: the host stalls on the card
-    syncs = sum(e.name == "cudaStreamSynchronize" for e in prof.events())
+    syncs = sum(e.name == "cudaStreamSynchronize" for e in events)
     result = {"env": label, "envs": n, "profiled_steps": steps, "step_ms": step_ms, "profiled_step_ms": wall_ms,
               "kernels_a_step": len(kernels) / steps, "copies_a_step": len(copies) / steps,
               "device_busy_ms_a_step": busy_ms, "device_busy_share": busy_ms / wall_ms,
               "stream_syncs_a_step": syncs / steps}
     if kernel:
         result["kernel_device_ms_a_step"] = sum(e.time_range.elapsed_us() for e in own) / 1e3 / steps
+    by_name = collections.Counter()
+    for e in kernels:
+        by_name[e.name[:80]] += e.time_range.elapsed_us()
+    result["top_kernels_device_ms_a_step"] = {k: us / 1e3 / steps for k, us in by_name.most_common(5)}
+    for name in ranges:
+        spans = [e.time_range for e in events if e.name == name and e.device_type == cuda and e.is_user_annotation]
+        check(len(spans) >= steps, f"{label}: {len(spans)} device spans of {name} over {steps} steps")
+        inside = [e for e in device if any(r.start <= e.time_range.start < r.end for r in spans)]
+        result[name] = {"device_ms_a_step": sum(e.time_range.elapsed_us() for e in inside) / 1e3 / steps,
+                        "kernels_a_step": len(inside) / steps}
     return result
 
 
@@ -960,19 +1048,16 @@ def with_draws(func, source):
     return env
 
 
-def compare_classic_with_cpu(dev, name: str, n: int = NUM_ENVS, steps: int = CLASSIC_CHECK_STEPS) -> dict:
-    """``steps`` steps of the env ``name`` at ``n`` envs under ``TorchVectorEnv``
-    (step limit ``CLASSIC_CHECK_LIMIT``) on the CPU with its draws recorded,
-    then on ``dev`` with the same draws and actions. Raises unless flags,
-    step counters and integer leaves are equal and every float output and
-    state leaf agrees within ``CLASSIC_CHECK_TOL`` (equality where it has no
-    entry). Returns the largest absolute deviation and the episode ends."""
+def cpu_and_card_traces(dev, func, n: int, actions, limit: int | None, extra=lambda env: ()):
+    """``len(actions)`` steps of ``func`` at ``n`` envs under ``TorchVectorEnv``
+    (step limit ``limit``) on the CPU with its draws recorded, then on
+    ``dev`` with the same draws and actions. Returns both traces, on the
+    CPU: the reset's ``(obs, state, *extra(env))``, then each step's
+    ``(obs, reward, terminated, truncated, steps, state, *extra(env))``.
+    Raises if the card took fewer draws than the CPU."""
     from gymnasium_tpu_torch.functional import tree_map
     from gymnasium_tpu_torch.vector import TorchVectorEnv
 
-    func = classic_env(name)
-    gen = torch.Generator().manual_seed(2)
-    actions = [func.action_space.sample_torch(gen, (n,)) for _ in range(steps)]
     recorded = {"reset_draws": [], "transition_draws": []}
 
     def record(hook, draw, rng, count):
@@ -983,36 +1068,282 @@ def compare_classic_with_cpu(dev, name: str, n: int = NUM_ENVS, steps: int = CLA
         return tuple(None if x is None else x.to(dev) for x in next(replays[hook]))
 
     def run(source, device):
-        env = TorchVectorEnv(with_draws(func, source), n, max_episode_steps=CLASSIC_CHECK_LIMIT, device=device)
+        env = TorchVectorEnv(with_draws(func, source), n, max_episode_steps=limit, device=device)
         obs, _ = env.reset(seed=0)
-        trace = [(obs, env.carry.state)]
+        trace = [(obs, env.carry.state, *extra(env))]
         for action in actions:
             obs, reward, term, trunc, _ = env.step(action.to(device))
-            trace.append((obs, reward, term, trunc, env.carry.steps, env.carry.state))
+            trace.append((obs, reward, term, trunc, env.carry.steps, env.carry.state, *extra(env)))
         return tree_map(lambda x: x.cpu() if isinstance(x, torch.Tensor) else x, trace)
 
     cpu = run(record, "cpu")
     replays = {hook: iter(draws) for hook, draws in recorded.items()}
     card = run(replay, dev)
-    check(all(next(it, None) is None for it in replays.values()), f"{name}: the card took fewer draws than the CPU")
+    check(all(next(it, None) is None for it in replays.values()), "the card took fewer draws than the CPU")
+    return cpu, card
 
-    tol = CLASSIC_CHECK_TOL.get(name)
-    worst = []
+
+def agree_within(label: str, tol: float | None, worst: list):
+    """``agree(got, want)``: raises unless dtypes and shapes match and the
+    values are equal (integers, bools, or every value with ``tol`` None) or
+    within ``tol * (1 + |want|)``; appends the largest deviation to ``worst``."""
 
     def agree(got, want):
-        check(got.dtype == want.dtype and got.shape == want.shape, f"{name} card vs cpu: {got.dtype} vs {want.dtype}")
+        check(got.dtype == want.dtype and got.shape == want.shape, f"{label} card vs cpu: {got.dtype} vs {want.dtype}")
         if tol is None or not want.is_floating_point():
-            check(torch.equal(got, want), f"{name} card vs cpu: {want.dtype} values differ")
+            check(torch.equal(got, want), f"{label} card vs cpu: {want.dtype} values differ")
             worst.append(float((got.double() - want.double()).abs().max()) if want.numel() else 0.0)
             return
         err = (got.double() - want.double()).abs()
-        check(bool((err <= tol * (1.0 + want.double().abs())).all()), f"{name} card vs cpu: differ by {float(err.max())}")
+        check(bool((err <= tol * (1.0 + want.double().abs())).all()), f"{label} card vs cpu: differ by {float(err.max())}")
         worst.append(float(err.max()))
 
-    tree_map(agree, card, cpu)
+    return agree
+
+
+def compare_classic_with_cpu(dev, name: str, n: int = NUM_ENVS, steps: int = CLASSIC_CHECK_STEPS) -> dict:
+    """``steps`` steps of the env ``name`` at ``n`` envs under ``TorchVectorEnv``
+    (step limit ``CLASSIC_CHECK_LIMIT``) on the CPU with its draws recorded,
+    then on ``dev`` with the same draws and actions. Raises unless flags,
+    step counters and integer leaves are equal and every float output and
+    state leaf agrees within ``CLASSIC_CHECK_TOL`` (equality where it has no
+    entry). Returns the largest absolute deviation and the episode ends."""
+    from gymnasium_tpu_torch.functional import tree_map
+
+    func = classic_env(name)
+    gen = torch.Generator().manual_seed(2)
+    actions = [func.action_space.sample_torch(gen, (n,)) for _ in range(steps)]
+    cpu, card = cpu_and_card_traces(dev, func, n, actions, CLASSIC_CHECK_LIMIT)
+    tol, worst = CLASSIC_CHECK_TOL.get(name), []
+    tree_map(agree_within(name, tol, worst), card, cpu)
     ends = sum(int((step[2] | step[3]).sum()) for step in cpu[1:])
     check(ends > 0, f"{name} card vs cpu: no episode ended")
     return {"max_abs_dev": max(worst), "tolerance": tol, "episode_ends": ends}
+
+
+def car_racing_env(continuous: bool = True):
+    from gymnasium_tpu_torch.envs.box2d import CarRacingFunctional
+
+    return CarRacingFunctional({"continuous": continuous})
+
+
+def palette_pixels(obs) -> bool:
+    """Whether every pixel of the uint8 frames ``obs`` (..., 96, 96, 3) is one
+    of the palette's six colours, checked 4096 frames at a time."""
+    from gymnasium_tpu_torch.envs.box2d.car_racing_functional import PALETTE
+
+    codes = torch.as_tensor((PALETTE.astype(np.int64) * [65536, 256, 1]).sum(-1), device=obs.device)
+    frames = obs.reshape(-1, *obs.shape[-3:])
+    for lo in range(0, frames.shape[0], 4096):
+        chunk = frames[lo : lo + 4096].to(torch.int64)
+        packed = chunk[..., 0] * 65536 + chunk[..., 1] * 256 + chunk[..., 2]
+        if not bool(torch.isin(packed, codes).all()):
+            return False
+    return True
+
+
+def check_car_racing_episodes(label: str, traj, steps0, done0, limit: int) -> int:
+    """Episodes end where the env says, read from a trajectory that starts at
+    step counters ``steps0`` with done flags ``done0``: a step after a done
+    pays 0; every other step pays -0.1 plus 10/3 a new tile (a car's four
+    wheels mark at most four), or -100 where the car left the field, and
+    it terminates exactly there (no lap of 285 tiles fits a rollout this
+    short); none both terminates and truncates, and none runs past the
+    step limit. Returns the longest episode."""
+    reward, term, trunc = traj.reward, traj.terminated, traj.truncated
+    done = term | trunc
+    after = torch.cat([done0[None], done[:-1]])
+    check(bool(torch.isfinite(reward).all()), f"{label}: reward not finite")
+    check(not bool((term & trunc).any()), f"{label}: a step both terminated and truncated")
+    check(bool((reward[after] == 0).all()), f"{label}: reward is not 0 on the step after a done")
+    off = reward == -100.0
+    check(torch.equal(term & ~after, off & ~after), f"{label}: terminated is not 'left the field, -100'")
+    tiles = (reward + 0.1) * 0.3
+    paid = ~after & ~off
+    check(bool(((tiles[paid] - tiles[paid].round()).abs() < 1e-4).all() and (tiles[paid].round() >= 0).all()
+               and (tiles[paid].round() <= 4).all()), f"{label}: a step paid other than -0.1 + 10/3 a tile")
+    longest = longest_episode(steps0, done0, done)
+    check(longest <= limit, f"{label}: an episode ran {longest} steps, past {limit}")
+    return longest
+
+
+def run_car_racing(dev, n: int = CAR_ENVS, continuous: bool = True) -> dict:
+    """CarRacing-v3 under ``TorchVectorEnv`` (step limit ``CAR_TIME_LIMIT``).
+    Continuous: reset, a few sampled steps, a masked reset of every other
+    lane, then ``rollout(CAR_ROLLOUT)`` (``bench.py``'s row); discrete:
+    reset, then ``rollout(CAR_DISCRETE_ROLLOUT)``. Checks that every frame
+    is uint8 in the palette and that episodes end where the env says.
+    Returns the rollout's host-clock env-steps/s and what the episodes did."""
+    from gymnasium_tpu_torch.functional import tree_map
+    from gymnasium_tpu_torch.vector import TorchVectorEnv
+
+    label = "carracing_v3" if continuous else "carracing_v3_discrete"
+    func = car_racing_env(continuous)
+    env = TorchVectorEnv(func, n, max_episode_steps=CAR_TIME_LIMIT, device=dev)
+    obs, _ = env.reset(seed=0)
+    check(obs.dtype == torch.uint8 and obs.shape == (n, 96, 96, 3), f"{label}: reset obs {obs.dtype} {tuple(obs.shape)}")
+    check(palette_pixels(obs), f"{label}: a reset pixel is not a palette colour")
+    if continuous:
+        gen = torch.Generator(device=dev).manual_seed(1)
+        for _ in range(CAR_WARM_STEPS):
+            obs, reward, term, trunc, _ = env.step(env.single_action_space.sample_torch(gen, (n,)))
+        check(bool(torch.isfinite(reward).all()), f"{label}: step reward not finite")
+        mask = np.zeros(n, np.bool_)
+        mask[::2] = True
+        keep = torch.from_numpy(~mask).to(dev)
+        before = tree_map(torch.clone, env.carry.state)
+        mobs, _ = env.reset(options={"reset_mask": mask})
+        moved = []
+        tree_map(lambda a, b: moved.append(not torch.equal(a[keep], b[keep])), env.carry.state, before)
+        check(not any(moved), f"{label}: masked reset moved kept lanes")
+        check(torch.equal(mobs[keep], obs[keep]), f"{label}: masked reset changed kept lanes' obs")
+        check(not bool(env.carry.steps[~keep].any()), f"{label}: masked reset left step counters")
+        check(not bool(env.carry.state["visited"][~keep].any()), f"{label}: masked reset left visits")
+
+    steps0, done0 = env.carry.steps.clone(), env.carry.prev_done.clone()
+    rollout = CAR_ROLLOUT if continuous else CAR_DISCRETE_ROLLOUT
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    carry, traj = env.rollout(rollout)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    check(traj.obs.dtype == torch.uint8 and traj.obs.shape == (rollout, n, 96, 96, 3),
+          f"{label}: obs {traj.obs.dtype} {tuple(traj.obs.shape)}")
+    check(palette_pixels(traj.obs), f"{label}: a pixel is not a palette colour")
+    longest = check_car_racing_episodes(label, traj, steps0, done0, CAR_TIME_LIMIT)
+    visited = carry.state["visited"].sum(dim=1).float()
+    check(float(visited.mean()) > 1.0, f"{label}: the cars visited no tile")
+    return {"env_steps_per_s": n * rollout / seconds, "envs": n, "rollout_steps": rollout,
+            "terminations": int(traj.terminated.sum()), "truncations": int(traj.truncated.sum()),
+            "longest_episode": longest, "mean_tiles_visited": float(visited.mean()),
+            "paid_tiles": int((traj.reward > 1.0).sum())}
+
+
+def compare_car_racing_with_cpu(dev, n: int = CAR_CHECK_ENVS, steps: int = CAR_CHECK_STEPS) -> dict:
+    """``steps`` continuous CarRacing steps at ``n`` envs (step limit
+    ``CAR_CHECK_LIMIT``) on the CPU and on ``dev`` with the same draws and
+    actions. Raises unless visits, flags and step counters are equal, the
+    hull, wheels, steering, rewards and tile centres agree within
+    ``CAR_CHECK_TOL * (1 + |cpu|)``, the headings within what the centres'
+    tolerance subtends over the gap to the next tile, and the road mask and
+    the frames are equal but at the CPU state's edge pixels
+    (``CarRacingFunctional.edge_pixels``). Returns the deviations and the
+    edge pixels' share."""
+    func = car_racing_env()
+    gen = torch.Generator().manual_seed(2)
+    actions = [func.action_space.sample_torch(gen, (n,)) for _ in range(steps)]
+    cpu, card = cpu_and_card_traces(dev, func, n, actions, CAR_CHECK_LIMIT,
+                                    extra=lambda env: (env.func_env.road_mask(env.carry.state),))
+    worst, edge_share, differ, road_differ = [], 0.0, 0, 0
+    for got, want in zip(card, cpu):
+        state, cstate = got[-2], want[-2]
+        edge = func.edge_pixels(cstate)
+        edge_share = max(edge_share, float(edge.float().mean()))
+        frames = (got[0] != want[0]).any(-1)
+        road = got[-1] != want[-1]
+        check(not bool((frames & ~edge).any()), f"carracing card vs cpu: {int((frames & ~edge).sum())} pixels differ")
+        check(not bool((road & ~edge).any()), f"carracing card vs cpu: the road mask differs at {int((road & ~edge).sum())}")
+        differ, road_differ = differ + int(frames.sum()), road_differ + int(road.sum())
+        agree = agree_within("carracing", CAR_CHECK_TOL, worst)
+        for key in ("hull", "steer_angle", "wheel_omega", "r", "centers", "visited", "done"):
+            agree(state[key], cstate[key])
+        gap = (torch.roll(cstate["centers"], -1, dims=1) - cstate["centers"]).norm(dim=-1)
+        turn = torch.remainder(state["betas"].double() - cstate["betas"].double() + np.pi, 2 * np.pi) - np.pi
+        check(bool((turn.abs() <= 2e-4 / gap).all()), f"carracing card vs cpu: headings differ by {float(turn.abs().max())}")
+        for i in range(1, len(want) - 2):  # reward, flags, step counters
+            agree(got[i], want[i])
+    ends = sum(int((step[2] | step[3]).sum()) for step in cpu[1:])
+    check(ends > 0, "carracing card vs cpu: no episode ended")
+    return {"max_abs_dev": max(worst), "tolerance": CAR_CHECK_TOL, "episode_ends": ends,
+            "max_edge_pixel_share": edge_share, "differing_pixels": differ, "differing_road_pixels": road_differ}
+
+
+def run_swimmer(dev, n: int = NUM_ENVS) -> dict:
+    """Swimmer-v5 under ``TorchVectorEnv`` (step limit ``ART_TIME_LIMIT``):
+    reset, then ``rollout(SWIMMER_ROLLOUT)``. Returns the rollout's
+    host-clock env-steps/s."""
+    from gymnasium_tpu_torch.envs.mujoco import SwimmerFunctional
+    from gymnasium_tpu_torch.vector import TorchVectorEnv
+
+    env = TorchVectorEnv(SwimmerFunctional(), n, max_episode_steps=ART_TIME_LIMIT, device=dev)
+    env.reset(seed=0)
+    x0 = env.carry.state["qpos"][:, 0].clone()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    carry, traj = env.rollout(SWIMMER_ROLLOUT)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    check(traj.obs.shape == (SWIMMER_ROLLOUT, n, 8), f"swimmer obs shape {tuple(traj.obs.shape)}")
+    check(bool(torch.isfinite(traj.obs).all() and torch.isfinite(traj.reward).all()), "swimmer rollout not finite")
+    check(not bool(traj.terminated.any()), "a swimmer lane terminated")
+    moved = float((carry.state["qpos"][:, 0] - x0).abs().mean())
+    check(moved > 1e-3, f"swimmer qpos[:, 0] did not move (mean |dx| {moved})")
+    return {"env_steps_per_s": n * SWIMMER_ROLLOUT / seconds, "rollout_steps": SWIMMER_ROLLOUT,
+            "mean_abs_dx": moved}
+
+
+def compare_swimmer_with_cpu(dev, n: int = NUM_ENVS, steps: int = SWIMMER_CHECK_STEPS) -> dict:
+    """``steps`` Swimmer steps at ``n`` envs (step limit ``SWIMMER_CHECK_LIMIT``)
+    on the CPU (the articulated twin) and on ``dev`` (the kernel) with the
+    same draws and actions. Raises unless flags and step counters are equal
+    and every float output and state leaf agrees within
+    ``SWIMMER_CHECK_TOL * (1 + |cpu|)``."""
+    from gymnasium_tpu_torch.envs.mujoco import SwimmerFunctional
+    from gymnasium_tpu_torch.functional import tree_map
+
+    func = SwimmerFunctional()
+    gen = torch.Generator().manual_seed(2)
+    actions = [func.action_space.sample_torch(gen, (n,)) for _ in range(steps)]
+    cpu, card = cpu_and_card_traces(dev, func, n, actions, SWIMMER_CHECK_LIMIT)
+    worst = []
+    tree_map(agree_within("swimmer", SWIMMER_CHECK_TOL, worst), card, cpu)
+    ends = sum(int((step[2] | step[3]).sum()) for step in cpu[1:])
+    check(ends > 0, "swimmer card vs cpu: no episode ended")
+    return {"max_abs_dev": max(worst), "tolerance": SWIMMER_CHECK_TOL, "episode_ends": ends}
+
+
+def mjcf_env(path: str):
+    """A ``MujocoFuncEnv`` over the MJCF file ``path`` at ``MJCF_FRAME_SKIP``,
+    paid for its root's forward velocity less 0.1 times the squared action."""
+    from gymnasium_tpu_torch.envs.mujoco.locomotion import MujocoFuncEnv
+    from gymnasium_tpu_torch.spaces import Box
+
+    class MjcfFunctional(MujocoFuncEnv):
+        model_name = path
+        frame_skip = MJCF_FRAME_SKIP
+
+        def __init__(self):
+            super().__init__()
+            self.observation_space = Box(-np.inf, np.inf, (self.model.nq - 1 + self.model.nv,), np.float32)
+
+        def reward(self, state, action, next_state, rng, params=None):
+            x_velocity = (next_state["qpos"][:, 0] - next_state["prev_x"]) / self.dt
+            return x_velocity - 0.1 * torch.sum(torch.square(action), dim=-1)
+
+    return MjcfFunctional()
+
+
+def run_mjcf(dev, path: str, n: int = NUM_ENVS) -> dict:
+    """A ``MujocoFuncEnv`` over the compiled MJCF file under ``TorchVectorEnv``:
+    reset, then ``rollout(MJCF_ROLLOUT)``, one launch of the model's
+    generated kernel an env step. Returns the rollout's host-clock
+    env-steps/s and how many lanes' foot touched the floor."""
+    from gymnasium_tpu_torch.vector import TorchVectorEnv
+
+    func = mjcf_env(path)
+    env = TorchVectorEnv(func, n, max_episode_steps=ART_TIME_LIMIT, device=dev)
+    env.reset(seed=0)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    carry, traj = env.rollout(MJCF_ROLLOUT)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    check(traj.obs.shape == (MJCF_ROLLOUT, n, func.observation_space.shape[0]), f"mjcf obs {tuple(traj.obs.shape)}")
+    check(bool(torch.isfinite(traj.obs).all() and torch.isfinite(traj.reward).all()), "mjcf rollout not finite")
+    foot = func._dyn["contact_points"](carry.state["qpos"])[:, 0, 2]
+    touching = int((foot < float(func.model.contact_radius[0]) + func.model.ground_z).sum())
+    return {"env_steps_per_s": n * MJCF_ROLLOUT / seconds, "rollout_steps": MJCF_ROLLOUT,
+            "kernel": func._step.build_name, "lanes_on_the_floor": touching}
 
 
 def ppo_case(name: str, n: int = NUM_ENVS, rollout: int = PPO_ROLLOUT, compute_dtype=torch.bfloat16):
@@ -1221,11 +1552,36 @@ def run_entry() -> None:
     check(bool(torch.isfinite(obs).all()), "entry obs not finite")
 
 
+def ranged(func, hook: str, label: str):
+    """A shallow copy of the functional env ``func`` whose ``hook`` runs
+    inside ``torch.profiler.record_function(label)``."""
+    env = copy.copy(func)
+    inner = getattr(func, hook)
+
+    def call(*args, **kwargs):
+        with torch.profiler.record_function(label):
+            return inner(*args, **kwargs)
+
+    setattr(env, hook, call)
+    return env
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        xml_path = os.path.join(tmp, "chain.xml")
+        with open(xml_path, "w") as f:
+            f.write(MJCF_CHAIN_XML)
+        return smoke(xml_path)
+
+
+def smoke(xml_path: str) -> int:
+    """Every phase on the card; ``xml_path`` holds :data:`MJCF_CHAIN_XML`."""
     from gymnasium_tpu_torch.envs.dynamics.lunar_lander import lander_step
+    from gymnasium_tpu_torch.envs.mujoco import SwimmerFunctional
+    from gymnasium_tpu_torch.envs.mujoco.mujoco_env import load_model
     from gymnasium_tpu_torch.ops import articulated_step as art
     from gymnasium_tpu_torch.ops import build
     from gymnasium_tpu_torch.ops import cartpole_rollout as cr
@@ -1243,10 +1599,15 @@ def main() -> int:
     start = time.perf_counter()
     steps = {name: art.fused_step(name, articulated_env(name).frame_skip) for name in ART_ENVS}
     planar = lander_step(PLANAR_GRAVITY)
-    generated = {step.build_name: step.source.text for step in steps.values()}
+    # Swimmer's substep (frame_skip 1) and the MJCF model's step, compiled from XML
+    xml_model, xml_meta = load_model(xml_path)
+    print(f"mjcf: compiled {xml_path} through load_model: nq {xml_model.nq}, nv {xml_model.nv}, "
+          f"nu {xml_model.nu}, contacts {len(xml_model.contact_body)}, bodies {xml_meta['body_names']}", flush=True)
+    more = {"swimmer_fs1": art.fused_step("swimmer", 1), "mjcf": art.fused_step(xml_path, MJCF_FRAME_SKIP)}
+    generated = {step.build_name: step.source.text for step in (*steps.values(), *more.values())}
     generated[planar.build_name] = planar.source.text
     print(f"generate: {time.perf_counter() - start:.2f} s; operations an env-call: "
-          + ", ".join(f"{name} {step.source.ops_per_env}" for name, step in steps.items())
+          + ", ".join(f"{name} {step.source.ops_per_env}" for name, step in (*steps.items(), *more.items()))
           + f", lunar_lander {planar.source.ops_per_env}", flush=True)
     start = time.perf_counter()
     built = build.build(build.KERNELS, generated)
@@ -1263,7 +1624,7 @@ def main() -> int:
     # -- main path: each path with every launch count at 0 just before --------
     # Counts by kernel: the CartPole rollout, and each generated build by its
     # name; a launch of any other generated build shows as a key too.
-    gen_zero = {step.build_name: 0 for step in steps.values()}
+    gen_zero = {step.build_name: 0 for step in (*steps.values(), *more.values())}
     gen_zero[planar.build_name] = 0
 
     def counted(label, fn):
@@ -1294,6 +1655,15 @@ def main() -> int:
     for name in CLASSIC_ENVS:
         classic[name], classic_counts[name] = counted(f"{name} TorchVectorEnv", lambda: run_classic(dev, name))
         print(f"{name} TorchVectorEnv: {classic[name]}", flush=True)
+    car, car_counts = counted("carracing_v3 TorchVectorEnv", lambda: run_car_racing(dev))
+    print(f"carracing_v3 TorchVectorEnv: {car}", flush=True)
+    car_discrete, car_discrete_counts = counted("carracing_v3 discrete TorchVectorEnv",
+                                                lambda: run_car_racing(dev, continuous=False))
+    print(f"carracing_v3 discrete TorchVectorEnv: {car_discrete}", flush=True)
+    swim, swim_counts = counted("swimmer TorchVectorEnv", lambda: run_swimmer(dev))
+    print(f"swimmer TorchVectorEnv: {swim}", flush=True)
+    mjcf, mjcf_counts = counted("mjcf TorchVectorEnv", lambda: run_mjcf(dev, xml_path))
+    print(f"mjcf TorchVectorEnv: {mjcf}", flush=True)
     check(head_counts == {"cartpole_rollout_fused": 2 * HEADLINE_BLOCKS, **gen_zero},
           f"headline launches {head_counts}")
     check(not any(vec_counts.values()) and not any(entry_counts.values()),
@@ -1309,6 +1679,13 @@ def main() -> int:
     check(ll_counts == ll_want, f"lunar_lander path launches {ll_counts}, want {ll_want}")
     for name, counts in classic_counts.items():
         check(not any(counts.values()), f"{name}: the path launched {counts}; it runs no kernel of the port")
+    for name, counts in (("carracing_v3", car_counts), ("carracing_v3 discrete", car_discrete_counts)):
+        check(not any(counts.values()), f"{name}: the path launched {counts}; it runs no kernel of the port")
+    # four substeps an env step, one launch each
+    swim_want = {"cartpole_rollout_fused": 0, **gen_zero, more["swimmer_fs1"].build_name: 4 * SWIMMER_ROLLOUT}
+    check(swim_counts == swim_want, f"swimmer path launches {swim_counts}, want {swim_want}")
+    mjcf_want = {"cartpole_rollout_fused": 0, **gen_zero, more["mjcf"].build_name: MJCF_ROLLOUT}
+    check(mjcf_counts == mjcf_want, f"mjcf path launches {mjcf_counts}, want {mjcf_want}")
     main_launches = head_counts["cartpole_rollout_fused"]
     print(f"main path: host-clock env-steps/s headline bf16={headline['torch.bfloat16']:.0f} "
           f"f32={headline['torch.float32']:.0f}, CartPole TorchVectorEnv.rollout(256)={vec_rate:.0f}, "
@@ -1316,7 +1693,11 @@ def main() -> int:
                     f"{robots[name]['env_steps_per_s']:.0f}, " for name in ART_ENVS)
           + f"LunarLander TorchVectorEnv.rollout({PLANAR_ROLLOUT})={ll_rate:.0f}, "
           + ", ".join(f"{name} TorchVectorEnv.rollout({r['rollout_steps']})={r['env_steps_per_s']:.0f}"
-                      for name, r in classic.items()), flush=True)
+                      for name, r in classic.items())
+          + f", CarRacing (N={CAR_ENVS}) TorchVectorEnv.rollout({CAR_ROLLOUT})={car['env_steps_per_s']:.0f}"
+          f", discrete rollout({CAR_DISCRETE_ROLLOUT})={car_discrete['env_steps_per_s']:.0f}"
+          f", Swimmer TorchVectorEnv.rollout({SWIMMER_ROLLOUT})={swim['env_steps_per_s']:.0f}"
+          f", MJCF chain TorchVectorEnv.rollout({MJCF_ROLLOUT})={mjcf['env_steps_per_s']:.0f}", flush=True)
     print("terminations seen on each robot's path: "
           + ", ".join(f"{name} {robots[name]['terminations']}" for name in ART_ENVS), flush=True)
     for name, times in block_ms.items():
@@ -1348,7 +1729,7 @@ def main() -> int:
 
     # -- the articulated kernels against their twin ---------------------------
     art_inputs, art_errs = {}, {}
-    for name, step in steps.items():
+    for name, step in (*steps.items(), *more.items()):
         art_inputs[name] = articulated_states(step.model, NUM_ENVS, dev)
         art_errs[name] = compare_articulated_with_twin(step, *art_inputs[name])
         print(f"articulated kernel vs twin ({name}, N={NUM_ENVS}, frame_skip {step.frame_skip}, "
@@ -1402,7 +1783,10 @@ def main() -> int:
             "ok": True,
         }
     ]
-    for name, step in steps.items():
+    art_launches = {name: robot_counts[name][step.build_name] for name, step in steps.items()}
+    art_launches.update({"swimmer_fs1": swim_counts[more["swimmer_fs1"].build_name],
+                         "mjcf": mjcf_counts[more["mjcf"].build_name]})
+    for name, step in (*steps.items(), *more.items()):
         inputs = art_inputs[name]
         art_events_ms = cuda_ms(lambda: step(*inputs), 50, 5)
         art_ms = device_ms(lambda: step(*inputs), "kernel<ArticulatedStep>", 50)
@@ -1414,13 +1798,13 @@ def main() -> int:
               flush=True)
         kernels.append(
             {
-                "name": f"articulated_step[{name}]",
+                "name": f"articulated_step[{step.name if name == 'mjcf' else name}]",
                 "route": "cuda",
                 "source": "gymnasium_tpu_torch/csrc/articulated_step.cuh",
                 "generator": "gymnasium_tpu_torch/ops/articulated_codegen.py",
                 "replaces": "gymnasium_tpu/ops/pallas_articulated.py:119",
-                "launches": robot_counts[name][step.build_name],
-                "on_main_path": robot_counts[name][step.build_name] > 0,
+                "launches": art_launches[name],
+                "on_main_path": art_launches[name] > 0,
                 "max_abs_err": max(art_errs[name][:2]),
                 "max_abs_err_q": art_errs[name][0],
                 "max_abs_err_qd": art_errs[name][1],
@@ -1486,6 +1870,24 @@ def main() -> int:
         classic[name]["env_step_profile"] = profile_env_step(dev, classic_env(name), name, CLASSIC_ENVS[name][2])
         print(f"{name} TorchVectorEnv step under torch.profiler (N={NUM_ENVS}): "
               f"{json.dumps(classic[name]['env_step_profile'])}", flush=True)
+    car["env_step_profile"] = profile_env_step(
+        dev, ranged(car_racing_env(), "observation", "car_racing.observation"), "carracing_v3", CAR_TIME_LIMIT,
+        n=CAR_ENVS, ranges=("car_racing.observation",))
+    print(f"carracing_v3 TorchVectorEnv step under torch.profiler (N={CAR_ENVS}): "
+          f"{json.dumps(car['env_step_profile'])}", flush=True)
+    swim["env_step_profile"] = profile_env_step(dev, SwimmerFunctional(), "swimmer", ART_TIME_LIMIT,
+                                                "kernel<ArticulatedStep>", launches_a_step=4)
+    print(f"swimmer TorchVectorEnv step under torch.profiler (N={NUM_ENVS}): "
+          f"{json.dumps(swim['env_step_profile'])}", flush=True)
+    car["device_vs_cpu"] = compare_car_racing_with_cpu(dev)
+    print(f"carracing_v3 on the card vs the CPU ({CAR_CHECK_STEPS} steps, N={CAR_CHECK_ENVS}, injected draws): "
+          f"{car['device_vs_cpu']}", flush=True)
+    swim["device_vs_cpu"] = compare_swimmer_with_cpu(dev)
+    print(f"swimmer on the card vs the CPU ({SWIMMER_CHECK_STEPS} steps, N={NUM_ENVS}, injected draws): "
+          f"{swim['device_vs_cpu']}", flush=True)
+    print(json.dumps({"carracing": {"card": card_line(), "continuous": car, "discrete": car_discrete},
+                      "swimmer": {"card": card_line(), "envs": NUM_ENVS, **swim},
+                      "mjcf": {"card": card_line(), "envs": NUM_ENVS, **mjcf}}), flush=True)
     for name in CLASSIC_ENVS:
         classic[name]["device_vs_cpu"] = compare_classic_with_cpu(dev, name)
         print(f"{name} on the card vs the CPU ({CLASSIC_CHECK_STEPS} steps, N={NUM_ENVS}, injected draws): "

@@ -9,6 +9,7 @@ from gymnasium_tpu_torch.envs.mujoco.inverted_double_pendulum import InvertedDou
 from gymnasium_tpu_torch.envs.mujoco.inverted_pendulum import InvertedPendulumFunctional
 from gymnasium_tpu_torch.envs.mujoco.pusher import PusherFunctional
 from gymnasium_tpu_torch.envs.mujoco.reacher import ReacherFunctional
+from gymnasium_tpu_torch.envs.mujoco.swimmer import SwimmerFunctional
 from gymnasium_tpu_torch.envs.mujoco.walker2d import Walker2dFunctional
 
 __all__ = [
@@ -21,5 +22,6 @@ __all__ = [
     "InvertedPendulumFunctional",
     "PusherFunctional",
     "ReacherFunctional",
+    "SwimmerFunctional",
     "Walker2dFunctional",
 ]

@@ -89,10 +89,15 @@ class MujocoFuncEnv(FuncEnv):
     def initial(self, rng: torch.Generator, params: Any = None):
         return tree_map(lambda x: x[0], self.initial_batched(rng, 1, params))
 
-    def initial_batched(self, rng: torch.Generator, n: int, params: Any = None):
+    def reset_draws(self, rng: torch.Generator, n: int) -> tuple:
+        """The draws of ``n`` resets that :meth:`reset_values` maps: U[0, 1)
+        (n, nq) and N(0, 1) (n, nv)."""
         u = torch.rand((n, self.model.nq), generator=rng, device=rng.device)
         z = torch.randn((n, self.model.nv), generator=rng, device=rng.device)
-        return self.reset_values(u, z)
+        return u, z
+
+    def initial_batched(self, rng: torch.Generator, n: int, params: Any = None):
+        return self.reset_values(*self.reset_draws(rng, n))
 
     def transition(self, state, action, rng, params: Any = None):
         q, qd = self._step(state["qpos"], state["qvel"], action)

@@ -54,11 +54,12 @@ class PusherFunctional(MujocoFuncEnv):
         qvel = torch.cat([qvel[:, :7], torch.zeros_like(qvel[:, 7:])], dim=1)
         return {"qpos": qpos, "qvel": qvel, "prev_x": qpos[:, 0]}
 
-    def initial_batched(self, rng: torch.Generator, n: int, params: Any = None):
+    def reset_draws(self, rng: torch.Generator, n: int) -> tuple:
+        """The draws of ``n`` resets: U[0, 1) (n,), (n,) and (n, nv)."""
         ux = torch.rand((n,), generator=rng, device=rng.device)
         uy = torch.rand((n,), generator=rng, device=rng.device)
         uv = torch.rand((n, self.model.nv), generator=rng, device=rng.device)
-        return self.reset_values(ux, uy, uv)
+        return ux, uy, uv
 
     def observation(self, state, rng, params: Any = None):
         _, p = self._dyn["fk"](state["qpos"])

@@ -49,11 +49,12 @@ class ReacherFunctional(MujocoFuncEnv):
         qvel = torch.cat([qvel[:, :2], torch.zeros_like(qvel[:, 2:4])], dim=1)
         return {"qpos": qpos, "qvel": qvel, "prev_x": qpos[:, 0]}
 
-    def initial_batched(self, rng: torch.Generator, n: int, params: Any = None):
+    def reset_draws(self, rng: torch.Generator, n: int) -> tuple:
+        """The draws of ``n`` resets: U[0, 1) (n, nv), (n,) and (n,)."""
         u = torch.rand((n, self.model.nv), generator=rng, device=rng.device)
         r_u = torch.rand((n,), generator=rng, device=rng.device)
         th_u = torch.rand((n,), generator=rng, device=rng.device)
-        return self.reset_values(u, r_u, th_u)
+        return u, r_u, th_u
 
     def _vec(self, state):
         _, p = self._dyn["fk"](state["qpos"])

@@ -133,12 +133,21 @@ def make_fused_step(model: ArticulatedModel, frame_skip: int = 1, name: str = "m
     return FusedStep(model, frame_skip, name)
 
 
-@functools.lru_cache(maxsize=32)
 def fused_step(model_name: str, frame_skip: int) -> FusedStep:
-    """The fused step of a robot of ``envs/mujoco/models``, cached per
-    ``(model name, frame_skip)``."""
+    """The fused step of a robot of ``envs/mujoco/models``, or of an ``.xml``
+    model, cached per ``(kernel name, frame_skip)``: an XML model is built
+    and counted under ``envs.mujoco.mujoco_env.kernel_name``, which tells
+    two files apart."""
     # imported here: the robots of envs.mujoco import this module
+    from gymnasium_tpu_torch.envs.mujoco.mujoco_env import kernel_name, resolve_xml
+
+    source = resolve_xml(model_name) if model_name.endswith(".xml") else model_name
+    return _fused_step(kernel_name(source), frame_skip, source)
+
+
+@functools.lru_cache(maxsize=32)
+def _fused_step(name: str, frame_skip: int, source: str) -> FusedStep:
     from gymnasium_tpu_torch.envs.mujoco.mujoco_env import load_model
 
-    model, _ = load_model(model_name)
-    return FusedStep(model, frame_skip, model_name)
+    model, _ = load_model(source)
+    return FusedStep(model, frame_skip, name)

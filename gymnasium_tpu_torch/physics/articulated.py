@@ -6,9 +6,11 @@ the static helpers the substep generator reads (``init_qpos``, the dof
 ancestry masks, the free-root tests, the folded contact and limit constants),
 and the batched kinematics the robots' observations and rewards read
 (``dof_positions``, ``integrate_pos``, ``fk``, ``fk_full`` and the helpers of
-:func:`make_dynamics`). A model steps only through the generated substep of
+:func:`make_dynamics`), with the geometric Jacobians, the mass matrix and the
+unrolled Cholesky solve (:func:`spd_solve`) that Swimmer's fluid drag reads.
+A model steps only through the generated substep of
 :mod:`gymnasium_tpu_torch.ops.articulated_step`; ``make_dynamics`` has no
-``step``, mass matrix, bias or energies.
+``step``, bias or energies.
 
 The batched helpers take ``(N, nq)``/``(N, nv)`` float32 tensors and compute
 on their device. Small products are written as broadcast multiply-sums, as
@@ -43,6 +45,7 @@ __all__ = [
     "fk",
     "fk_full",
     "make_dynamics",
+    "spd_solve",
 ]
 
 SLIDE = 0
@@ -417,6 +420,32 @@ def fk_full(model: ArticulatedModel, q):
     return _fk(model, _Constants(model).on(q.device), q, full=True)
 
 
+def spd_solve(A, b):
+    """Solve the symmetric positive definite systems ``A x = b``, ``A`` (N, n, n)
+    and ``b`` (N, n), by a Cholesky factorisation unrolled over the columns,
+    as the JAX package's ``_spd_solve`` does for one system."""
+    n = A.shape[-1]
+    below = torch.arange(n, device=A.device)
+    L = torch.zeros_like(A)
+    for j in range(n):
+        c = A[:, :, j] - torch.sum(L * L[:, j, None, :], dim=2)
+        d = torch.sqrt(torch.clamp(c[:, j], min=1e-12))
+        L[:, :, j] = torch.where(below >= j, c / d[:, None], 0.0)
+    # forward: L y = b
+    y = torch.zeros_like(b)
+    r = b
+    for j in range(n):
+        y[:, j] = r[:, j] / L[:, j, j]
+        r = r - L[:, :, j] * y[:, j, None]
+    # backward: L^T x = y
+    x = torch.zeros_like(b)
+    s = y
+    for j in reversed(range(n)):
+        x[:, j] = s[:, j] / L[:, j, j]
+        s = s - L[:, j, :] * x[:, j, None]
+    return x
+
+
 def make_dynamics(model: ArticulatedModel) -> dict:
     """Batched helpers of one model, the JAX ``make_dynamics``'s that the
     robots read, each on the device of its arguments:
@@ -426,10 +455,26 @@ def make_dynamics(model: ArticulatedModel) -> dict:
     - ``contact_points(q) -> (N, nc, 3)``, the contact spheres' centres;
     - ``contact_wrenches(q, qd) -> (N, nbody, 6)``, each body's external
       contact wrench ``[torque, force]`` about its com (``cfrc_ext``);
-    - ``limit_torques(q, qd) -> (N, nv)``, the joint-limit penalty torques.
+    - ``limit_torques(q, qd) -> (N, nv)``, the joint-limit penalty torques;
+    - ``jacobians(q) -> (pc, R, Jv, Jw)``, the bodies' centres of mass and
+      rotations with their geometric Jacobians (N, nbody, nv, 3): a hinge
+      moves a point by ``axis x (point - pivot)`` and turns the body about
+      its axis, a slide moves it along its axis, and only a body's own and
+      its ancestors' dofs move it (``pc_dot = sum_k Jv[:, :, k] qd_k``);
+    - ``mass_matrix(q) -> (N, nv, nv)``, ``X^T X`` plus the armature, with
+      ``X`` the rows ``sqrt(m) Jv^T`` and ``(R L)^T Jw^T`` of every body,
+      ``L`` the Cholesky factor of its inertia (the JAX helper's Gram form).
     """
     constants = _Constants(model)
     nbody, nc = len(model.bodies.parent), len(model.contact_body)
+    inertia_chol = np.linalg.cholesky(np.asarray(model.bodies.inertia) + 1e-12 * np.eye(3))
+    gram = {
+        "sqrt_mass": np.sqrt(np.asarray(model.bodies.mass))[:, None, None],
+        "inertia_chol": inertia_chol,
+        "body_mask": ancestor_dof_mask(model)[:, :, None],
+        "armature": np.diag(np.asarray(model.joints.armature, np.float64)),
+    }
+    gram_on: dict[torch.device, dict[str, torch.Tensor]] = {}
 
     def com_world(q):
         c = constants.on(q.device)
@@ -482,10 +527,36 @@ def make_dynamics(model: ArticulatedModel) -> dict:
         tau = -c["limit_k"] * (below + above) - torch.where(violating, c["limit_c"] * qd, 0.0)
         return torch.where(c["limited"], tau, 0.0)
 
+    def jacobians(q):
+        c = constants.on(q.device)
+        R, p, aw, ow = _fk(model, c, q, full=True)
+        pc = p + _mv(R, c["com"])
+        aw_b = aw[:, None]  # (N, 1, nv, 3)
+        mask = gram_tables(q.device)["body_mask"]
+        Jv = torch.where(c["slide"], aw_b, torch.linalg.cross(aw_b, pc[:, :, None] - ow[:, None], dim=-1)) * mask
+        Jw = torch.where(c["slide"], 0.0, aw_b) * mask
+        return pc, R, Jv, Jw
+
+    def gram_tables(device):
+        if device not in gram_on:
+            gram_on[device] = {k: _tensor(v, device) for k, v in gram.items()}
+        return gram_on[device]
+
+    def mass_matrix(q):
+        g = gram_tables(q.device)
+        _, R, Jv, Jw = jacobians(q)
+        lin = g["sqrt_mass"] * Jv.transpose(-1, -2)  # (N, nbody, 3, nv)
+        RL = _mm(R, g["inertia_chol"])
+        ang = torch.sum(RL[..., :, :, None] * Jw.transpose(-1, -2)[..., :, None, :], dim=-3)
+        X = torch.cat([lin, ang], dim=2).reshape(q.shape[0], 6 * nbody, model.nv)
+        return torch.sum(X[:, :, :, None] * X[:, :, None, :], dim=1) + g["armature"]
+
     return {
         "fk": lambda q: _fk(model, constants.on(q.device), q, full=False),
         "com_world": com_world,
         "contact_points": contact_points,
         "contact_wrenches": contact_wrenches,
         "limit_torques": limit_torques,
+        "jacobians": jacobians,
+        "mass_matrix": mass_matrix,
     }

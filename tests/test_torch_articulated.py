@@ -254,7 +254,8 @@ def test_models_load_in_place():
     assert (model.nq, model.nv, model.nu, len(model.contact_body)) == (9, 9, 6, 24)
     jmodel, _ = jax_load_model("half_cheetah")
     np.testing.assert_array_equal(init_qpos(model), jax_init_qpos(jmodel))
-    with pytest.raises(NotImplementedError):
+    # an .xml name compiles the MJCF file (tests/test_torch_mjcf.py); a missing one raises as JAX's does
+    with pytest.raises(OSError):
         load_model("custom.xml")
 
 

@@ -13,13 +13,17 @@ import torch
 
 from chip_smoke import (
     ART_ENVS,
+    MJCF_CHAIN_XML,
+    MJCF_FRAME_SKIP,
     articulated_env,
     articulated_states,
     compare_articulated_with_twin,
+    compare_car_racing_with_cpu,
     compare_classic_with_cpu,
     compare_planar_with_twin,
     compare_ppo_with_cpu,
     compare_rollout_with_twin,
+    compare_swimmer_with_cpu,
     planar_states,
 )
 from gymnasium_tpu_torch.envs.dynamics.lunar_lander import lander_step
@@ -226,3 +230,51 @@ def test_classic_env_on_the_card_matches_cpu(cuda, name):
     # compare_classic_with_cpu raises past CLASSIC_CHECK_TOL
     assert result["episode_ends"] > 0
     assert (result["tolerance"] is None) == (name == "frozenlake8x8")
+
+
+@pytest.mark.parametrize("which", ["swimmer_fs1", "mjcf"])
+def test_swimmer_and_mjcf_kernels_match_twin(cuda, tmp_path, which):
+    """Swimmer's substep at ``frame_skip=1`` and the kernel generated for a
+    model compiled from XML, at a ragged N: equal to the twin in every bit,
+    each counted under its own build."""
+    if which == "mjcf":
+        path = tmp_path / "chain.xml"
+        path.write_text(MJCF_CHAIN_XML)
+        step = art.fused_step(str(path), MJCF_FRAME_SKIP)
+        assert step.build_name.startswith("articulated_xml_chain_")
+    else:
+        step = art.fused_step("swimmer", 1)
+    before = dict(art.launches)
+    compare_articulated_with_twin(step, *articulated_states(step.model, 333, cuda, seed=3))
+    assert art.launches - collections.Counter(before) == {step.build_name: 2}
+
+
+def test_swimmer_vector_env_launches_the_kernel_four_times_a_step(cuda):
+    from gymnasium_tpu_torch.envs.mujoco import SwimmerFunctional
+    from gymnasium_tpu_torch.vector import TorchVectorEnv
+
+    env = TorchVectorEnv(SwimmerFunctional(), 256, max_episode_steps=1000, device=cuda)
+    env.reset(seed=0)
+    before = dict(art.launches)
+    carry, traj = env.rollout(3)
+    torch.cuda.synchronize()
+    assert art.launches - collections.Counter(before) == {"articulated_swimmer_fs1": 12}
+    assert traj.obs.shape == (3, 256, 8) and bool(torch.isfinite(traj.obs).all())
+
+
+def test_swimmer_on_the_card_matches_cpu(cuda):
+    """Eight autoresetting Swimmer steps at N=1024, the kernel on the card
+    and the twin on the CPU, with the same draws and actions: within 1e-4
+    relative."""
+    result = compare_swimmer_with_cpu(cuda, n=1024)
+    assert result["episode_ends"] > 0
+
+
+def test_car_racing_on_the_card_matches_cpu(cuda):
+    """Eight autoresetting CarRacing steps at N=64 with the same draws and
+    actions: visits and flags equal, the car within 1e-4 relative, frames
+    and road mask equal but at edge pixels. No kernel of the port runs."""
+    before = (cr.launches, dict(art.launches), dict(pl.launches))
+    result = compare_car_racing_with_cpu(cuda)
+    assert (cr.launches, dict(art.launches), dict(pl.launches)) == before
+    assert result["episode_ends"] > 0 and result["max_edge_pixel_share"] < 0.01
