@@ -12,9 +12,12 @@ generated for each of the ten MuJoCo-class robots at its own ``frame_skip``
 InvertedDoublePendulum, Reacher, Pusher, Humanoid, HumanoidStandup), for
 Swimmer at ``frame_skip=1`` and for the chain of :data:`MJCF_CHAIN_XML`,
 which it writes to a temporary file and compiles through ``load_model``,
-and the planar solver step generated for LunarLander (two substeps). Then it drives
-each path of the port once, with every kernel launch count set to 0 just
-before the path and read just after:
+the planar solver step generated for LunarLander (two substeps) and the one
+generated for BipedalWalker's world (four substeps: per-env motors, the
+heightfield read by index, the bounded sub-pull), and BipedalWalker's
+terrain kernel (``csrc/walker_terrain.cu``). Then it drives each path of the
+port once, with every kernel launch count set to 0 just before the path and
+read just after:
 
 - the CartPole-v1 headline of ``bench.py``: chained ``cartpole_rollout_fused``
   blocks of 4096 envs x 2048 steps with bf16 and f32 observations, after one
@@ -32,6 +35,19 @@ before the path and read just after:
   reset, four steps, a masked reset of every other lane, ``rollout(200)``.
   Each env step launches the generated planar kernel twice: the transition
   and the settle tick of the reset drawn for every lane;
+- ``TorchVectorEnv(BipedalWalkerFunctional(), 4096, max_episode_steps=1600)``
+  and the hardcore variant (2000): reset, four steps, a masked reset of
+  every other lane, ``rollout(200)``. Each env step launches the walker's
+  planar kernel twice (the transition and the settle tick of the reset
+  drawn for every lane) and the terrain kernel once. After the kernel
+  timings, five env steps of each under ``torch.profiler``, 8 steps at 4096
+  envs on the card and on the CPU from the CPU's carry with the same draws
+  (``compare_bipedal_with_cpu``), and the new functional wrappers on the
+  card against the CPU (``compare_wrappers_with_cpu``: the walker through
+  ClipAction, TimeAwareObservation and FrameStackObservation(4), MountainCar
+  through StickyAction, DelayObservation, TransformObservation,
+  TransformReward and ClipReward, Pendulum through RescaleAction,
+  TransformAction, RescaleObservation and TimeAwareObservation);
 - ``TorchVectorEnv`` over each cheap functional at 4096 envs, with the step
   limit its id registers (``CLASSIC_ENVS``): FrozenLake8x8, Taxi, Pendulum
   and MountainCarContinuous (``bench.py``'s rows, ``rollout(512)``), then
@@ -70,14 +86,17 @@ before the path and read just after:
 It holds each kernel against its plain PyTorch version on the card and times
 both; the articulated and planar kernels must equal their twins in every
 value (each robot's articulated kernel at N=4096 at its own
-``frame_skip``, Swimmer's at 1 and the XML chain's). Each ``articulated_step[...]`` entry also gives the
+``frame_skip``, Swimmer's at 1 and the XML chain's; the walker's planar
+build and the terrain kernel also at a ragged N, with lanes on both sides of
+the sub-pull clamp). Each ``articulated_step[...]`` entry also gives the
 kernel's warp layout (``parts`` warps a group of 32 envs, ``env_groups``
 groups a block, ``phases``, values ``exchanged`` and their loads,
 ``recomputed_ops``, ``shared_bytes_per_block``). A kernel's ``ms`` is its
 own time on the card, ``torch.profiler``'s kernel durations; ``events_ms``
 is CUDA events around back-to-back calls, which read the host's launch
 pace where a call's host work outlasts its kernel. It counts each library's SASS instructions with ``cuobjdump``. It
-prints the card's name and power limit, one ``{"carracing": {...}, "swimmer":
+prints the card's name and power limit, one ``{"bipedal": {...},
+"wrappers": {...}}`` line, one ``{"carracing": {...}, "swimmer":
 {...}, "mjcf": {...}}`` line, one ``{"classic": {...}}`` line,
 one ``{"ppo": {...}}`` line, one
 ``{"kernels": [...]}`` line, and last the line ``{"ok": true, "device":
@@ -166,9 +185,37 @@ PLANAR_ROLLOUT = 200
 # tests/test_torch_planar.py (1e-5, the twin against the JAX row program) and
 # the JAX kernel test's tolerances (tests/ops/test_pallas_planar.py:107-110:
 # bodies 2e-4, impulses 1e-4).
-# An env's call reads 68 floats (18 body, 9 external, 11 terrain, 10 joint and
-# 20 contact impulses) and writes 48 floats and 10 one-byte flags.
-PLANAR_BYTES_PER_ENV = 4 * 68 + 4 * 48 + 10
+# The lander's env call reads 68 floats (18 body, 9 external, 11 terrain, 10
+# joint and 20 contact impulses) and writes 48 floats and 10 one-byte flags
+# (planar_bytes_per_env).
+
+# BipedalWalker-v3 and BipedalWalkerHardcore-v3 (step limits 1600 and 2000):
+# reset, BIPEDAL_WARM_STEPS steps, a masked reset of every other lane,
+# rollout(BIPEDAL_ROLLOUT); two launches of the walker's planar build (the
+# transition and the reset's settle tick) and one of the terrain kernel an
+# env step. The walker's build and the terrain kernel are held to their twins
+# in every bit at N=4096 and at a ragged N. The card against the CPU: 8 steps
+# at 4096 envs, step limit 3, each taken on both from the CPU's carry with the
+# same draws and actions; values within a relative BIPEDAL_CHECK_TOL but on
+# lanes (at most a hundredth) where the two took a different side of a
+# contact or lidar threshold: the card's sincosf and the CPU's sin and cos
+# differ in the last bit, and so do torch's divisions by a python float
+# (a reciprocal product on the card).
+BIPEDAL_WARM_STEPS = 4
+BIPEDAL_ROLLOUT = 200
+BIPEDAL_RAGGED = 333
+BIPEDAL_CHECK_STEPS, BIPEDAL_CHECK_LIMIT = 8, 3
+BIPEDAL_CHECK_TOL = 1e-4
+BIPEDAL_BRANCH_SHARE = 0.01
+# the new functional wrappers, card against CPU in the same way, at 256 envs
+WRAPPER_CHECK_ENVS, WRAPPER_CHECK_STEPS = 256, 12
+# The terrain kernel, per env: 1,558 float operations of the walk (6 a point,
+# 8 past the start pad: the division and its add), and in hardcore mode 19
+# more a window (the stump and pit heights, six selects and adds) for 11
+# windows; it reads 200 floats (22 more obstacle draws in hardcore mode) and
+# writes 200.
+TERRAIN_WALK_OPS = 21 * 6 + 179 * 8
+TERRAIN_OVERLAY_OPS = 11 * 19
 
 PPO_ROLLOUT = 64  # tools/bench_ppo.py:70-84
 PPO_TIMED_STEPS = 3
@@ -855,14 +902,92 @@ def planar_states(n: int, dev, seed: int = 0):
     return tuple(torch.from_numpy(x).to(dev) for x in (bodies, ext, terrain, jimp, cimp))
 
 
-def planar_branch_lanes(step, bodies, external, terrain, jimp, cimp) -> dict:
+def walker_states(n: int, dev, seed: int = 0):
+    """Inputs of the walker's planar step ``(bodies, None, terrain, None,
+    cimp, motor_speed, motor_torque)``, in four groups by lane index mod 4,
+    each on its own terrain (hardcore on odd lanes):
+
+    0. The creation pose of ``reset_pre`` (hips 0.53 m from their anchors,
+       so the position pass pulls at most 0.2 m an iteration), no contact
+       impulse, motors of random actions.
+    1. An assembled pose (every joint on its anchor) with random joint
+       angles, a third of them past a limit, random velocities, the lowest
+       foot within 3 cm of the ground, and live warm-start contact impulses.
+    2. The same, sunk 1.1-1.5 m into the ground: the contact correction
+       clamps.
+    3. The same in the air beyond either end of the terrain, so the terrain
+       index clips.
+    """
+    from gymnasium_tpu_torch.envs.box2d import bipedal_walker as bw
+
+    rng = np.random.default_rng(seed)
+    draws = [torch.from_numpy(rng.uniform(0, 1, shape).astype(np.float32)) for shape in
+             ((n, bw.TERRAIN_LENGTH), (n, bw.TERRAIN_LENGTH), (n,))]
+    normal, hard = bw.BipedalWalkerFunctional(), bw.BipedalWalkerFunctional({"hardcore": True})
+    pre, pre_hard = normal.reset_pre(*draws), hard.reset_pre(*draws)
+    odd = np.arange(n) % 2 == 1
+    terrain = np.where(odd[:, None], pre_hard["terrain"].numpy(), pre["terrain"].numpy())
+    group = np.arange(n) % 4
+
+    # an assembled pose from the hull pose and the four links' angles
+    hx = rng.uniform(2.0, 80.0, n)
+    hx[group == 3] = np.where(rng.uniform(size=(group == 3).sum()) < 0.5,
+                              rng.uniform(-3.0, -1.0, (group == 3).sum()),
+                              rng.uniform(95.0, 97.0, (group == 3).sum()))
+    hang = rng.uniform(-0.5, 0.5, n)
+    lower, upper = bw._WORLD.joints.lower, bw._WORLD.joints.upper
+    joint = rng.uniform(lower + 0.05, upper - 0.05, (n, 4))
+    past = rng.uniform(size=(n, 4)) < 0.33
+    beyond = rng.uniform(0.1, 0.3, (n, 4))
+    joint[past] = np.where(rng.uniform(size=(n, 4)) < 0.5, lower - beyond, upper + beyond)[past]
+    bodies = np.zeros((n, 5, 6))
+    bodies[:, 0, 2] = hang
+    link = {1: (0, 0), 2: (1, 1), 3: (0, 2), 4: (3, 3)}  # body: (parent, joint)
+    hip = np.array(bw._HIP_ANCHOR_HULL)
+    half = bw.LEG_H / 2
+
+    def rotate(v, a):
+        return np.stack([v[0] * np.cos(a) - v[1] * np.sin(a), v[0] * np.sin(a) + v[1] * np.cos(a)], axis=-1)
+
+    pos = {0: np.zeros((n, 2))}
+    for b, (parent, j) in link.items():
+        bodies[:, b, 2] = bodies[:, parent, 2] + joint[:, j]
+        anchor = hip if parent == 0 else np.array([0.0, -half])
+        top = pos[parent] + rotate(anchor, bodies[:, parent, 2])
+        pos[b] = top - rotate(np.array([0.0, half]), bodies[:, b, 2])
+    feet = np.stack([pos[b][:, 1] + rotate(np.array([0.0, -half]), bodies[:, b, 2])[:, 1] for b in (2, 4)], 1)
+    xs = np.arange(bw.TERRAIN_LENGTH) * bw.TERRAIN_STEP
+    ground = np.array([np.interp(x, xs, h) for x, h in zip(hx, terrain)])
+    hy = ground - feet.min(1) + rng.uniform(-0.03, 0.03, n)
+    hy[group == 2] -= rng.uniform(1.1, 1.5, (group == 2).sum())
+    hy[group == 3] += rng.uniform(0.5, 2.0, (group == 3).sum())
+    for b in range(5):
+        bodies[:, b, 0] = hx + pos[b][:, 0]
+        bodies[:, b, 1] = hy + pos[b][:, 1]
+    bodies[:, :, 3:6] = rng.uniform(-1, 1, (n, 5, 3))
+    cimp = rng.uniform(0, 0.5, (n, bw.N_CONTACTS, 2)) * np.array([1.0, 0.2])
+    actions = rng.uniform(-1, 1, (n, 4))
+    pose = group == 0
+    bodies[pose] = np.where(odd[pose, None, None], pre_hard["bodies"].numpy()[pose], pre["bodies"].numpy()[pose])
+    cimp[pose] = 0.0
+    speed = np.sign(actions) * np.array([bw.SPEED_HIP, bw.SPEED_KNEE, bw.SPEED_HIP, bw.SPEED_KNEE])
+    torque = bw.MOTORS_TORQUE * np.abs(actions)
+    f32 = [torch.from_numpy(x.astype(np.float32)).to(dev) for x in (bodies, terrain, cimp, speed, torque)]
+    return f32[0], None, f32[1], None, f32[2], f32[3], f32[4]
+
+
+def planar_branch_lanes(step, bodies, external, terrain, jimp, cimp, *motors) -> dict:
     """Lanes whose first tick reaches each side of the solver, counted from
-    the inputs with plain float64 arithmetic at the input pose."""
+    the inputs with plain float64 arithmetic at the input pose. A world with
+    a joint correction clamp also counts the lanes with a joint's anchor
+    error above the clamp (pulled in bounded steps) and those with every
+    error below it."""
     t = step.tables
     b, terr = bodies.double(), terrain.double()
     ang = b[:, :, 2]
+    f64 = dict(dtype=torch.float64, device=b.device)
     idx = torch.tensor(t.c_body, device=b.device)
-    pts = torch.tensor(t.c_point, dtype=torch.float64, device=b.device)
+    pts = torch.tensor(t.c_point, **f64)
     cb, sb = torch.cos(ang[:, idx]), torch.sin(ang[:, idx])
     rx = pts[:, 0] * cb - pts[:, 1] * sb
     ry = pts[:, 0] * sb + pts[:, 1] * cb
@@ -872,9 +997,9 @@ def planar_branch_lanes(step, bodies, external, terrain, jimp, cimp) -> dict:
     h0 = terr.gather(1, i0)
     h1 = terr.gather(1, (i0 + 1).clamp(max=t.chunks - 1))
     depth = h0 + (xc - i0) * (h1 - h0) - (b[:, idx, 1] + ry)
-    j_angle = ang[:, t.j_b] - ang[:, t.j_a] - torch.tensor(t.j_ref, dtype=torch.float64, device=b.device)
-    lower = torch.tensor(t.j_lower, dtype=torch.float64, device=b.device)
-    upper = torch.tensor(t.j_upper, dtype=torch.float64, device=b.device)
+    j_angle = ang[:, t.j_b] - ang[:, t.j_a] - torch.tensor(t.j_ref, **f64)
+    lower = torch.tensor(t.j_lower, **f64)
+    upper = torch.tensor(t.j_upper, **f64)
     over = (j_angle - lower).clamp(max=0.0) + (j_angle - upper).clamp(min=0.0)
     lanes = {
         "active_contact": (depth > 0).any(1),
@@ -885,6 +1010,17 @@ def planar_branch_lanes(step, bodies, external, terrain, jimp, cimp) -> dict:
         "clamped_angle_correction": (over.abs() > 8.0 * 3.14159265 / 180.0).any(1),
         "clipped_terrain_index": ((u < 0) | (u > t.chunks - 1 - 1e-6)).any(1),
     }
+    if t.joint_clamp > 0.0:
+        def anchors(side, table):
+            body = b[:, side]
+            arm = torch.tensor(table, **f64)
+            c, s = torch.cos(body[:, :, 2]), torch.sin(body[:, :, 2])
+            return (body[:, :, 0] + arm[:, 0] * c - arm[:, 1] * s, body[:, :, 1] + arm[:, 0] * s + arm[:, 1] * c)
+
+        (ax, ay), (bx, by) = anchors(t.j_a, t.anchor_a), anchors(t.j_b, t.anchor_b)
+        err = torch.hypot(bx - ax, by - ay)
+        lanes["clamped_joint_pull"] = (err > t.joint_clamp).any(1)
+        lanes["unclamped_joint_pull"] = (err < t.joint_clamp).all(1)
     return {name: int(hit.sum()) for name, hit in lanes.items()}
 
 
@@ -896,19 +1032,24 @@ def compare_planar_with_twin(step, inputs) -> dict:
     out = step(*inputs)
     again = step(*inputs)
     torch.cuda.synchronize()
-    check(all(torch.equal(a, b) for a, b in zip(out, again)), f"{step.name}: same input, different bits")
+    check(all(a is b or torch.equal(a, b) for a, b in zip(out, again)), f"{step.name}: same input, different bits")
     ref = step.reference(*inputs)
-    result = {}
+    result, floats = {}, []
     for label, got, want in zip(("bodies", "jimp", "cimp"), out[:3], ref[:3]):
+        check((got is None) == (want is None), f"{step.name}: kernel and twin disagree on the {label} output")
+        if got is None:
+            continue
         check(bool(torch.isfinite(got).all()), f"{step.name}: kernel {label} not finite")
         err = result[f"max_abs_err_{label}"] = float((got - want).abs().max())
         check(torch.equal(got, want), f"{step.name}: kernel {label} differs from the twin by up to {err}")
+        floats.append((got, want))
     check(out[3].dtype == torch.bool, f"{step.name}: flags are {out[3].dtype}, not bool")
     result["flag_mismatches"] = int((out[3] != ref[3]).sum())
     check(result["flag_mismatches"] == 0, f"{step.name}: {result['flag_mismatches']} flags differ from the twin")
     result["flags_set"] = int(out[3].sum())
     # torch.equal holds -0.0 equal to 0.0; the bits tell the zeros' signs apart too
-    result["bit_equal"] = all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(out[:3], ref[:3]))
+    result["bit_equal"] = all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in floats)
+    check(result["bit_equal"], f"{step.name}: kernel and twin differ in the sign of a zero")
     branches = planar_branch_lanes(step, *inputs)
     missing = [name for name, count in branches.items() if count == 0]
     check(not missing, f"{step.name}: no lane reaches {missing}")
@@ -916,11 +1057,275 @@ def compare_planar_with_twin(step, inputs) -> dict:
     return result
 
 
+def planar_bytes_per_env(step) -> int:
+    """Bytes an env's call reads and writes once: its body rows, external
+    forces, terrain row, joint impulses and per-env motors where the world
+    has them, contact impulses; out the bodies, the impulses it carries and
+    a flag byte a contact."""
+    t = step.tables
+    ext = 3 * t.nbody if t.external else 0
+    jimp = 5 * t.njoint if t.carry_joints else 0
+    motors = 2 * t.njoint if t.motor_speed is None else 0
+    floats_in = 6 * t.nbody + ext + t.chunks + jimp + 2 * t.ncontact + motors
+    floats_out = 6 * t.nbody + jimp + 2 * t.ncontact
+    return 4 * (floats_in + floats_out) + t.ncontact
+
+
 def planar_bound_ms(step, n: int) -> tuple[float, str]:
-    """Each env reads 68 floats and writes 48 floats and 10 flag bytes once,
-    and runs the operations the generator emitted (cos, sin, floor, divide,
-    select and compare count one each) at the float32 rate."""
-    return bound(n * PLANAR_BYTES_PER_ENV, n * step.source.ops_per_env / FP32_OPS_PER_S)
+    """Each env moves :func:`planar_bytes_per_env` once and runs the float
+    operations the generator emitted (cos, sin, floor, divide, select and
+    compare count one each; the walker's indexed loads are memory reads, not
+    counted) at the float32 rate. The walker's terrain row counts whole,
+    though a call reads a few of its 200 heights: operations bound it all
+    the same."""
+    source = step.source
+    loads = source.prologue_ops.get("load", 0) + source.substeps * source.substep_ops.get("load", 0)
+    return bound(n * planar_bytes_per_env(step), n * (source.ops_per_env - loads) / FP32_OPS_PER_S)
+
+
+def walker_env(hardcore: bool = False):
+    from gymnasium_tpu_torch.envs.box2d import BipedalWalkerFunctional
+
+    return BipedalWalkerFunctional({"hardcore": hardcore})
+
+
+def run_bipedal(dev, hardcore: bool, n: int = NUM_ENVS) -> dict:
+    """BipedalWalker (hardcore: its hardcore variant) under ``TorchVectorEnv``
+    at its step limit: reset, a few sampled steps, a masked reset of every
+    other lane, then ``rollout(BIPEDAL_ROLLOUT)``. Checks shapes, finite
+    values inside the observation's bounds, the terrain kept between resets
+    and drawn anew at each, and crashes rewarded -100. Returns the rollout's
+    host-clock env-steps/s and its episode ends."""
+    from gymnasium_tpu_torch.functional import tree_map
+    from gymnasium_tpu_torch.vector import TorchVectorEnv
+
+    func = walker_env(hardcore)
+    label = "bipedal_walker_hardcore" if hardcore else "bipedal_walker"
+    env = TorchVectorEnv(func, n, max_episode_steps=func.max_episode_steps, device=dev)
+    obs, _ = env.reset(seed=0)
+    check(obs.shape == (n, 24) and obs.dtype == torch.float32, f"{label} reset obs {tuple(obs.shape)} {obs.dtype}")
+    terrain_reset = env.carry.state["terrain"].clone()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for _ in range(BIPEDAL_WARM_STEPS):
+        obs, reward, term, trunc, _ = env.step(env.single_action_space.sample_torch(gen, (n,)))
+    check(bool(torch.isfinite(obs).all() and torch.isfinite(reward).all()), f"{label} step not finite")
+    check(torch.equal(env.carry.state["terrain"], terrain_reset), f"{label} terrain changed without a reset")
+
+    mask = np.zeros(n, np.bool_)
+    mask[::2] = True
+    keep = torch.from_numpy(~mask).to(dev)
+    before = tree_map(torch.clone, env.carry.state)
+    mobs, _ = env.reset(options={"reset_mask": mask})
+    for key, leaf in env.carry.state.items():
+        check(leaf.dtype == before[key].dtype, f"{label}: masked reset changed the dtype of {key}")
+        check(torch.equal(leaf[keep], before[key][keep]), f"{label}: masked reset moved kept {key}")
+    check(not torch.equal(env.carry.state["terrain"][~keep], before["terrain"][~keep]),
+          f"{label}: masked reset kept the terrain of reset lanes")
+    check(torch.equal(mobs[keep], obs[keep]), f"{label}: masked reset changed kept lanes' obs")
+
+    terrain0, done0 = env.carry.state["terrain"].clone(), env.carry.prev_done.clone()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    carry, traj = env.rollout(BIPEDAL_ROLLOUT)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    check(traj.obs.shape == (BIPEDAL_ROLLOUT, n, 24), f"{label} rollout obs shape {tuple(traj.obs.shape)}")
+    check(bool(torch.isfinite(traj.obs).all() and torch.isfinite(traj.reward).all()), f"{label} rollout not finite")
+    lidar, legs = traj.obs[..., 14:], traj.obs[..., [8, 13]]
+    check(bool(((lidar > 0.0) & (lidar <= 1.0)).all()), f"{label}: a lidar reading outside (0, 1]")
+    check(bool(((legs == 0.0) | (legs == 1.0)).all()), f"{label}: a leg contact flag not 0 or 1")
+    check(carry.state["done"].dtype == torch.bool, f"{label} done is not bool after the rollout")
+    ended = traj.terminated
+    check(bool(ended.any()), f"no {label} lane crashed in the rollout")
+    crashed = int((traj.reward[ended] == -100.0).sum())
+    check(crashed > 0, f"no {label} termination was a crash")
+    reset = done0 | (traj.terminated[:-1] | traj.truncated[:-1]).any(dim=0)
+    changed = (carry.state["terrain"] != terrain0).any(dim=1)
+    check(torch.equal(changed, reset), f"{label}: terrain changed on a lane that did not reset, or kept on one that did")
+    print(f"{label} rollout: {int(ended.sum())} terminations ({crashed} crashed), "
+          f"{int(reset.sum())} of {n} lanes reset", flush=True)
+    return {"env_steps_per_s": n * BIPEDAL_ROLLOUT / seconds, "terminations": int(ended.sum()),
+            "crashes": crashed, "rollout_steps": BIPEDAL_ROLLOUT, "envs": n}
+
+
+def terrain_draws(n: int, dev, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.uniform(lo, 1.0, (n, 200)).astype(np.float32)).to(dev) for lo in (-1.0, 0.0))
+
+
+def compare_terrain_with_twin(n: int, dev) -> dict:
+    """The terrain kernel against its twin on the card, normal and hardcore,
+    at ``n`` envs. Raises on any differing bit, or unless every obstacle
+    kind occurs. Returns the largest deviation (0)."""
+    from gymnasium_tpu_torch.ops.walker_terrain import WINDOWS, walker_terrain, walker_terrain_reference
+
+    u, d = terrain_draws(n, dev)
+    err = 0.0
+    for draws in (None, d):
+        out, again = walker_terrain(u, draws), walker_terrain(u, draws)
+        torch.cuda.synchronize()
+        ref = walker_terrain_reference(u, draws)
+        check(bool(torch.isfinite(out).all()), "walker_terrain: kernel heights not finite")
+        check(torch.equal(out.view(torch.int32), again.view(torch.int32)), "walker_terrain: same input, different bits")
+        err = max(err, float((out - ref).abs().max()))
+        check(torch.equal(out.view(torch.int32), ref.view(torch.int32)),
+              f"walker_terrain (hardcore={draws is not None}, N={n}): kernel and twin differ by up to {err}")
+    kinds = d[:, list(WINDOWS)]
+    check(bool((kinds < 0.33).any() and ((kinds >= 0.33) & (kinds < 0.66)).any() and (kinds >= 0.66).any()),
+          "walker_terrain: an obstacle kind never occurs")
+    return {"max_abs_err": err, "bit_equal": True, "envs": n}
+
+
+def terrain_bound_ms(n: int, hardcore: bool) -> tuple[float, str]:
+    """Each env reads its 200 steps (and 22 obstacle draws) and writes 200
+    heights once, and runs the walk's float operations (and the overlay's)."""
+    bytes_moved = n * 4 * (400 + (22 if hardcore else 0))
+    ops = TERRAIN_WALK_OPS + (TERRAIN_OVERLAY_OPS if hardcore else 0)
+    return bound(bytes_moved, n * ops / FP32_OPS_PER_S)
+
+
+def teacher_forced_with_cpu(dev, func, n: int, actions, limit: int | None, wrappers=lambda: ()):
+    """``len(actions)`` steps of ``func`` at ``n`` envs under ``TorchVectorEnv``
+    (step limit ``limit``, the stack ``wrappers()``) on the CPU, its draws
+    recorded; the card takes each step from the CPU's carry, with the same
+    draws and action. Returns both sides' outputs on the CPU: the reset's
+    ``(obs, state)``, then each step's ``(obs, reward, terminated,
+    truncated, steps, state)``."""
+    from gymnasium_tpu_torch.functional import tree_map
+    from gymnasium_tpu_torch.vector import TorchVectorEnv
+
+    drawn = collections.deque()
+
+    def record(hook, draw, rng, count):
+        drawn.append(draw(rng, count))
+        return drawn[-1]
+
+    def replay(hook, draw, rng, count):
+        return tuple(None if x is None else x.to(dev) for x in drawn.popleft())
+
+    cpu_env = TorchVectorEnv(with_draws(func, record), n, max_episode_steps=limit, device="cpu", wrappers=wrappers())
+    card_env = TorchVectorEnv(with_draws(func, replay), n, max_episode_steps=limit, device=dev, wrappers=wrappers())
+
+    def env_state(env):
+        return (env.carry.env if env.wrappers else env.carry).state
+
+    def host(x):
+        return tree_map(lambda t: t.cpu() if isinstance(t, torch.Tensor) else t, x)
+
+    cpu_obs, _ = cpu_env.reset(seed=0)
+    card_obs, _ = card_env.reset(seed=0)
+    cpu, card = [(cpu_obs, env_state(cpu_env))], [host((card_obs, env_state(card_env)))]
+    for action in actions:
+        card_env.carry = move_carry(cpu_env.carry, card_env.carry, dev)
+        obs, reward, term, trunc, _ = cpu_env.step(action)
+        carry = cpu_env.carry.env if cpu_env.wrappers else cpu_env.carry
+        cpu.append((obs, reward, term, trunc, carry.steps, carry.state))
+        obs, reward, term, trunc, _ = card_env.step(action.to(dev))
+        carry = card_env.carry.env if card_env.wrappers else card_env.carry
+        card.append(host((obs, reward, term, trunc, carry.steps, carry.state)))
+    check(not drawn, "the card took fewer draws than the CPU")
+    return cpu, card
+
+
+def walker_branch_lanes(card_step, cpu_step, walker_obs=lambda obs: obs) -> torch.Tensor:
+    """Lanes of one walker step where the card and the CPU took a different
+    side of a threshold: a contact that carries an impulse on one side only,
+    a lidar reading or leg flag, termination. ``walker_obs`` takes the
+    walker's (N, 24) observation out of a wrapped one."""
+    (obs_c, *_, state_c), (obs_p, *_, state_p) = card_step, cpu_step
+    contact = ((state_c["cimp"][..., 0] > 0) != (state_p["cimp"][..., 0] > 0)).any(dim=1)
+    flags = [8, 13, *range(14, 24)]
+    discrete = (walker_obs(obs_c)[:, flags] != walker_obs(obs_p)[:, flags]).any(dim=1)
+    ended = card_step[2] != cpu_step[2] if len(card_step) > 2 else torch.zeros_like(contact)
+    return contact | discrete | ended
+
+
+def compare_bipedal_with_cpu(dev, hardcore: bool, n: int = NUM_ENVS, steps: int = BIPEDAL_CHECK_STEPS,
+                             wrappers=lambda: (), walker_obs=lambda obs: obs) -> dict:
+    """The walker's steps on the card against the CPU's (teacher-forced,
+    :func:`teacher_forced_with_cpu`; step limit ``BIPEDAL_CHECK_LIMIT``).
+    Flags and step counters equal on every lane but the branch lanes
+    (:func:`walker_branch_lanes`), at most ``BIPEDAL_BRANCH_SHARE`` of them a
+    step; every float within ``BIPEDAL_CHECK_TOL * (1 + |cpu|)`` elsewhere.
+    With ``wrappers``, the observations are the wrapped ones and
+    ``walker_obs`` takes the walker's own out of them. Returns the largest
+    deviation off the branch lanes and the branch lanes a step."""
+    from gymnasium_tpu_torch.functional import tree_map
+
+    func = walker_env(hardcore)
+    gen = torch.Generator().manual_seed(2)
+    space = func.action_space
+    actions = [space.sample_torch(gen, (n,)) for _ in range(steps)]
+    cpu, card = teacher_forced_with_cpu(dev, func, n, actions, BIPEDAL_CHECK_LIMIT, wrappers)
+    label = "bipedal_walker_hardcore" if hardcore else "bipedal_walker"
+    worst, branch_counts = [0.0], []
+    for k, (c, p) in enumerate(zip(card, cpu)):
+        branch = walker_branch_lanes(c, p, walker_obs)
+        branch_counts.append(int(branch.sum()))
+        check(branch_counts[-1] <= BIPEDAL_BRANCH_SHARE * n,
+              f"{label} card vs cpu step {k}: {branch_counts[-1]} lanes took another side of a threshold")
+        keep = ~branch
+        # every leaf of a step has the lane axis first
+        tree_map(agree_within(f"{label} step {k}", BIPEDAL_CHECK_TOL, worst),
+                 tree_map(lambda x: x[keep], c), tree_map(lambda x: x[keep], p))
+    ends = sum(int((step[2] | step[3]).sum()) for step in cpu[1:])
+    check(ends > 0, f"{label} card vs cpu: no episode ended")
+    return {"max_abs_dev": max(worst), "tolerance": BIPEDAL_CHECK_TOL, "branch_lanes_a_step": branch_counts,
+            "episode_ends": ends, "envs": n, "steps": steps}
+
+
+def replayed_sticky_action(p: float, drawn: collections.deque, dev=None):
+    """A StickyAction whose repeat draws the CPU run records into ``drawn``
+    (``dev`` None) and the card run on ``dev`` replays: the two generators
+    draw different numbers."""
+    from gymnasium_tpu_torch.wrappers import StickyAction
+
+    class Replayed(StickyAction):
+        def draws(self, wstate, n):
+            if dev is None:
+                drawn.append(super().draws(wstate, n))
+                return drawn[-1]
+            return drawn.popleft().to(dev)
+
+    return Replayed(p)
+
+
+def compare_wrappers_with_cpu(dev, n: int = WRAPPER_CHECK_ENVS, steps: int = WRAPPER_CHECK_STEPS) -> dict:
+    """The new functional wrappers on the card against the CPU (teacher-forced):
+    the walker through ClipAction, TimeAwareObservation and
+    FrameStackObservation(4); MountainCar through StickyAction (replayed
+    draws), DelayObservation, TransformObservation, TransformReward and
+    ClipReward;
+    Pendulum through RescaleAction, TransformAction, RescaleObservation and
+    TimeAwareObservation (normalised)."""
+    from gymnasium_tpu_torch import wrappers as w
+    from gymnasium_tpu_torch.envs.phys2d import MountainCarFunctional, PendulumFunctional
+    from gymnasium_tpu_torch.functional import tree_map
+
+    result = {}
+    walker_stack = lambda: (w.ClipAction(-1.0, 1.0), w.TimeAwareObservation(), w.FrameStackObservation(4))  # noqa: E731
+    # the last of the four frames is the step's observation, the time appended
+    result["bipedal_walker"] = compare_bipedal_with_cpu(dev, False, n, steps, walker_stack, lambda o: o[:, -1, :24])
+    result["bipedal_walker"]["wrappers"] = ["ClipAction", "TimeAwareObservation", "FrameStackObservation(4)"]
+
+    drawn = collections.deque()
+    sides = iter((None, dev))
+    car_stack = lambda: (replayed_sticky_action(0.25, drawn, next(sides)), w.DelayObservation(2),  # noqa: E731
+                         w.TransformObservation(lambda o: o * 2.0), w.TransformReward(lambda r: r * 0.5),
+                         w.ClipReward(-0.25, 0.0))
+    low, high = np.array([-1.0, -1.0, -8.0], np.float32), np.array([1.0, 1.0, 8.0], np.float32)
+    pend_stack = lambda: (w.RescaleAction(-2.0, 2.0), w.TransformAction(lambda a: a * 0.75),  # noqa: E731
+                          w.RescaleObservation(low, high), w.TimeAwareObservation(True, CLASSIC_CHECK_LIMIT))
+    for name, func, stack in (("mountaincar", MountainCarFunctional(), car_stack),
+                              ("pendulum", PendulumFunctional(), pend_stack)):
+        gen = torch.Generator().manual_seed(3)
+        actions = [func.action_space.sample_torch(gen, (n,)) for _ in range(steps)]
+        cpu, card = teacher_forced_with_cpu(dev, func, n, actions, CLASSIC_CHECK_LIMIT, stack)
+        worst = []
+        tree_map(agree_within(f"{name} wrapped", 1e-5, worst), card, cpu)
+        result[name] = {"max_abs_dev": max(worst), "tolerance": 1e-5, "envs": n, "steps": steps}
+    check(not drawn, "the card took fewer StickyAction draws than the CPU")
+    return result
 
 
 def classic_env(name: str):
@@ -1579,6 +1984,7 @@ def main() -> int:
 
 def smoke(xml_path: str) -> int:
     """Every phase on the card; ``xml_path`` holds :data:`MJCF_CHAIN_XML`."""
+    from gymnasium_tpu_torch.envs.box2d.bipedal_walker import walker_solver
     from gymnasium_tpu_torch.envs.dynamics.lunar_lander import lander_step
     from gymnasium_tpu_torch.envs.mujoco import SwimmerFunctional
     from gymnasium_tpu_torch.envs.mujoco.mujoco_env import load_model
@@ -1586,6 +1992,7 @@ def smoke(xml_path: str) -> int:
     from gymnasium_tpu_torch.ops import build
     from gymnasium_tpu_torch.ops import cartpole_rollout as cr
     from gymnasium_tpu_torch.ops import planar_step as pl
+    from gymnasium_tpu_torch.ops import walker_terrain as wt
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -1599,6 +2006,7 @@ def smoke(xml_path: str) -> int:
     start = time.perf_counter()
     steps = {name: art.fused_step(name, articulated_env(name).frame_skip) for name in ART_ENVS}
     planar = lander_step(PLANAR_GRAVITY)
+    walker = walker_solver()  # BipedalWalker and its hardcore variant share the world
     # Swimmer's substep (frame_skip 1) and the MJCF model's step, compiled from XML
     xml_model, xml_meta = load_model(xml_path)
     print(f"mjcf: compiled {xml_path} through load_model: nq {xml_model.nq}, nv {xml_model.nv}, "
@@ -1606,9 +2014,10 @@ def smoke(xml_path: str) -> int:
     more = {"swimmer_fs1": art.fused_step("swimmer", 1), "mjcf": art.fused_step(xml_path, MJCF_FRAME_SKIP)}
     generated = {step.build_name: step.source.text for step in (*steps.values(), *more.values())}
     generated[planar.build_name] = planar.source.text
+    generated[walker.build_name] = walker.source.text
     print(f"generate: {time.perf_counter() - start:.2f} s; operations an env-call: "
           + ", ".join(f"{name} {step.source.ops_per_env}" for name, step in (*steps.items(), *more.items()))
-          + f", lunar_lander {planar.source.ops_per_env}", flush=True)
+          + f", lunar_lander {planar.source.ops_per_env}, bipedal_walker {walker.source.ops_per_env}", flush=True)
     start = time.perf_counter()
     built = build.build(build.KERNELS, generated)
     print(f"build: {time.perf_counter() - start:.2f} s for {sorted(built)}", flush=True)
@@ -1626,14 +2035,18 @@ def smoke(xml_path: str) -> int:
     # name; a launch of any other generated build shows as a key too.
     gen_zero = {step.build_name: 0 for step in (*steps.values(), *more.values())}
     gen_zero[planar.build_name] = 0
+    gen_zero[walker.build_name] = 0
+    gen_zero["walker_terrain"] = 0
 
     def counted(label, fn):
         cr.launches = 0
+        wt.launches = 0
         art.launches.clear()
         pl.launches.clear()
         out = fn()
         torch.cuda.synchronize()
-        counts = {"cartpole_rollout_fused": cr.launches, **gen_zero, **art.launches, **pl.launches}
+        counts = {"cartpole_rollout_fused": cr.launches, **gen_zero, **art.launches, **pl.launches,
+                  "walker_terrain": wt.launches}
         print(f"path {label}: launches {counts}", flush=True)
         return out, counts
 
@@ -1651,6 +2064,11 @@ def smoke(xml_path: str) -> int:
         robots[name], robot_counts[name] = counted(f"{name} TorchVectorEnv", lambda: run_articulated(dev, name))
         print(f"{name} TorchVectorEnv: {robots[name]}", flush=True)
     ll_rate, ll_counts = counted("lunar_lander TorchVectorEnv", lambda: run_lunar_lander(dev))
+    bipedal, bipedal_counts = {}, {}
+    for hardcore in (False, True):
+        name = "bipedal_walker_hardcore" if hardcore else "bipedal_walker"
+        bipedal[name], bipedal_counts[name] = counted(f"{name} TorchVectorEnv", lambda: run_bipedal(dev, hardcore))
+        print(f"{name} TorchVectorEnv: {bipedal[name]}", flush=True)
     classic, classic_counts = {}, {}
     for name in CLASSIC_ENVS:
         classic[name], classic_counts[name] = counted(f"{name} TorchVectorEnv", lambda: run_classic(dev, name))
@@ -1677,6 +2095,13 @@ def smoke(xml_path: str) -> int:
     ll_want = {"cartpole_rollout_fused": 0, **gen_zero,
                planar.build_name: 1 + 2 * PLANAR_WARM_STEPS + 1 + 2 * PLANAR_ROLLOUT}
     check(ll_counts == ll_want, f"lunar_lander path launches {ll_counts}, want {ll_want}")
+    # reset, then two walker launches and one terrain launch a step (the
+    # transition, the reset drawn for every lane), the masked reset
+    env_steps = BIPEDAL_WARM_STEPS + BIPEDAL_ROLLOUT
+    for name, counts in bipedal_counts.items():
+        want = {"cartpole_rollout_fused": 0, **gen_zero, walker.build_name: 1 + 2 * env_steps + 1,
+                "walker_terrain": 1 + env_steps + 1}
+        check(counts == want, f"{name} path launches {counts}, want {want}")
     for name, counts in classic_counts.items():
         check(not any(counts.values()), f"{name}: the path launched {counts}; it runs no kernel of the port")
     for name, counts in (("carracing_v3", car_counts), ("carracing_v3 discrete", car_discrete_counts)):
@@ -1692,6 +2117,8 @@ def smoke(xml_path: str) -> int:
           + "".join(f"{name} TorchVectorEnv.rollout({ART_ROLLOUT if name in ART_FULL_PATHS else ROBOT_ROLLOUT})="
                     f"{robots[name]['env_steps_per_s']:.0f}, " for name in ART_ENVS)
           + f"LunarLander TorchVectorEnv.rollout({PLANAR_ROLLOUT})={ll_rate:.0f}, "
+          + "".join(f"{name} TorchVectorEnv.rollout({BIPEDAL_ROLLOUT})={r['env_steps_per_s']:.0f}, "
+                    for name, r in bipedal.items())
           + ", ".join(f"{name} TorchVectorEnv.rollout({r['rollout_steps']})={r['env_steps_per_s']:.0f}"
                       for name, r in classic.items())
           + f", CarRacing (N={CAR_ENVS}) TorchVectorEnv.rollout({CAR_ROLLOUT})={car['env_steps_per_s']:.0f}"
@@ -1742,6 +2169,13 @@ def smoke(xml_path: str) -> int:
     planar_cmp = compare_planar_with_twin(planar, planar_inputs)
     print(f"planar kernel vs twin (lunar_lander, N={NUM_ENVS}, substeps {planar.substeps}): {planar_cmp}; "
           "deterministic", flush=True)
+    walker_inputs = walker_states(NUM_ENVS, dev)
+    walker_cmp = compare_planar_with_twin(walker, walker_inputs)
+    walker_ragged = compare_planar_with_twin(walker, walker_states(BIPEDAL_RAGGED, dev, seed=1))
+    print(f"planar kernel vs twin (bipedal_walker, N={NUM_ENVS}, substeps {walker.substeps}): {walker_cmp}; "
+          f"N={BIPEDAL_RAGGED}: {walker_ragged}; deterministic", flush=True)
+    terrain_cmp = [compare_terrain_with_twin(n, dev) for n in (NUM_ENVS, BIPEDAL_RAGGED)]
+    print(f"walker_terrain kernel vs twin, normal and hardcore: {terrain_cmp}", flush=True)
 
     # -- times ----------------------------------------------------------------
     results = {}
@@ -1860,6 +2294,76 @@ def smoke(xml_path: str) -> int:
             "ok": True,
         }
     )
+    walker_events_ms = cuda_ms(lambda: walker(*walker_inputs), 50, 5)
+    walker_ms = device_ms(lambda: walker(*walker_inputs), "step_kernel", 50)
+    walker_plain_ms = cuda_ms(lambda: walker.reference(*walker_inputs), 1, 1)
+    walker_bound, walker_bound_by = planar_bound_ms(walker, NUM_ENVS)
+    print(f"planar_step[bipedal_walker] N={NUM_ENVS}: device {walker_ms:.4f} ms/call, "
+          f"events {walker_events_ms:.4f} ms, bound {walker_bound:.4f} ms ({walker_bound_by}), "
+          f"{walker_bound / walker_ms:.2%} of bound; plain twin {walker_plain_ms:.2f} ms/call", flush=True)
+    walker_launches = {name: counts[walker.build_name] for name, counts in bipedal_counts.items()}
+    kernels.append(
+        {
+            "name": "planar_step[bipedal_walker]",
+            "route": "cuda",
+            "source": "gymnasium_tpu_torch/csrc/planar_step.cuh",
+            "generator": "gymnasium_tpu_torch/ops/planar_codegen.py",
+            "replaces": "gymnasium_tpu/ops/pallas_planar.py:37",
+            "held_to": "gymnasium_tpu/physics/planar.py:99 world_step (JAX runs the walker's ticks as plain jnp)",
+            "launches": sum(walker_launches.values()),
+            "launches_by_path": walker_launches,
+            "on_main_path": sum(walker_launches.values()) > 0,
+            "max_abs_err": max(walker_cmp[f"max_abs_err_{k}"] for k in ("bodies", "cimp")),
+            **walker_cmp,
+            "ragged": {"envs": BIPEDAL_RAGGED, **walker_ragged},
+            "ms": walker_ms,
+            "events_ms": walker_events_ms,
+            "plain_ms": walker_plain_ms,
+            "bound_ms": walker_bound,
+            "bound_by": walker_bound_by,
+            "library_ms": None,
+            "substeps": walker.substeps,
+            "ops_per_env": walker.source.ops_per_env,
+            "sass_instructions": sass[walker.build_name],
+            "code_bytes": SASS_BYTES * sass[walker.build_name],
+            "nvcc_s": built.get(walker.build_name, {}).get("seconds"),
+            **ptxas.get(walker.build_name, {}),
+            "ok": True,
+        }
+    )
+    u, d = terrain_draws(NUM_ENVS, dev)
+    terrain_times = {}
+    for mode, draws in (("normal", None), ("hardcore", d)):
+        events = cuda_ms(lambda: wt.walker_terrain(u, draws), 50, 5)
+        ms = device_ms(lambda: wt.walker_terrain(u, draws), "terrain_kernel", 50)
+        plain = cuda_ms(lambda: wt.walker_terrain_reference(u, draws), 1, 1)
+        bnd, bnd_by = terrain_bound_ms(NUM_ENVS, draws is not None)
+        terrain_times[mode] = {"ms": ms, "events_ms": events, "plain_ms": plain, "bound_ms": bnd, "bound_by": bnd_by}
+        print(f"walker_terrain[{mode}] N={NUM_ENVS}: device {ms:.4f} ms/call, events {events:.4f} ms, "
+              f"bound {bnd:.5f} ms ({bnd_by}), {bnd / ms:.2%} of bound; plain twin {plain:.2f} ms/call", flush=True)
+    terrain_launches = {name: counts["walker_terrain"] for name, counts in bipedal_counts.items()}
+    kernels.append(
+        {
+            "name": "walker_terrain",
+            "route": "cuda",
+            "source": "gymnasium_tpu_torch/csrc/walker_terrain.cu",
+            "replaces": "none: port-only (gymnasium_tpu/envs/box2d/bipedal_walker.py:218 generate_terrain, a lax.scan)",
+            "launches": sum(terrain_launches.values()),
+            "launches_by_path": terrain_launches,
+            "on_main_path": sum(terrain_launches.values()) > 0,
+            "max_abs_err": max(c["max_abs_err"] for c in terrain_cmp),
+            "bit_equal": all(c["bit_equal"] for c in terrain_cmp),
+            "checked_envs": [c["envs"] for c in terrain_cmp],
+            **terrain_times["normal"],
+            "hardcore": terrain_times["hardcore"],
+            "library_ms": None,
+            "sass_instructions": sass["walker_terrain"],
+            "code_bytes": SASS_BYTES * sass["walker_terrain"],
+            "nvcc_s": built.get("walker_terrain", {}).get("seconds"),
+            **ptxas.get("walker_terrain", {}),
+            "ok": True,
+        }
+    )
     # -- profiled paths: one Ant env step, the PPO trainer --------------------
     # They run after the kernel timings: a device_ms trace taken after other
     # profiled work in the process missed one CartPole launch in every try.
@@ -1879,6 +2383,19 @@ def smoke(xml_path: str) -> int:
                                                 "kernel<ArticulatedStep>", launches_a_step=4)
     print(f"swimmer TorchVectorEnv step under torch.profiler (N={NUM_ENVS}): "
           f"{json.dumps(swim['env_step_profile'])}", flush=True)
+    for hardcore in (False, True):
+        name = "bipedal_walker_hardcore" if hardcore else "bipedal_walker"
+        bipedal[name]["env_step_profile"] = profile_env_step(
+            dev, walker_env(hardcore), name, walker_env(hardcore).max_episode_steps, "step_kernel", launches_a_step=2)
+        print(f"{name} TorchVectorEnv step under torch.profiler (N={NUM_ENVS}): "
+              f"{json.dumps(bipedal[name]['env_step_profile'])}", flush=True)
+        bipedal[name]["device_vs_cpu"] = compare_bipedal_with_cpu(dev, hardcore)
+        print(f"{name} on the card vs the CPU ({BIPEDAL_CHECK_STEPS} steps from the CPU's carry, N={NUM_ENVS}, "
+              f"same draws): {bipedal[name]['device_vs_cpu']}", flush=True)
+    wrapped = compare_wrappers_with_cpu(dev)
+    print(f"functional wrappers on the card vs the CPU ({WRAPPER_CHECK_STEPS} steps from the CPU's carry, "
+          f"N={WRAPPER_CHECK_ENVS}): {wrapped}", flush=True)
+    print(json.dumps({"bipedal": {"card": card_line(), "envs": NUM_ENVS, **bipedal}, "wrappers": wrapped}), flush=True)
     car["device_vs_cpu"] = compare_car_racing_with_cpu(dev)
     print(f"carracing_v3 on the card vs the CPU ({CAR_CHECK_STEPS} steps, N={CAR_CHECK_ENVS}, injected draws): "
           f"{car['device_vs_cpu']}", flush=True)

@@ -23,6 +23,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from gymnasium_tpu_torch.ops.planar_codegen import ChunkTerrain
 from gymnasium_tpu_torch.ops.planar_step import FusedPlanarStep
 from gymnasium_tpu_torch.physics.planar import BodySpec, ContactSpec, JointSpec, PlanarWorld
 
@@ -257,10 +258,8 @@ def lander_step(gravity: float = -10.0) -> FusedPlanarStep:
     name = "lunar_lander_g" + repr(float(gravity)).replace("-", "m").replace(".", "p")
     return FusedPlanarStep(
         _lander_world(float(gravity)),
-        CHUNKS,
-        W / (CHUNKS - 1),
-        _MOTOR_SPEED,
-        _MOTOR_TORQUE,
+        ChunkTerrain(CHUNKS, W / (CHUNKS - 1)),
+        (_MOTOR_SPEED, _MOTOR_TORQUE),
         substeps=_SUBSTEPS,
         name=name,
     )

@@ -30,7 +30,7 @@ BUILD_DIR = _PACKAGE / "build"
 GEN_DIR = BUILD_DIR / "gen"
 
 #: Every hand-written kernel source of the port, by name (``csrc/<name>.cu``).
-KERNELS = ("cartpole_rollout",)
+KERNELS = ("cartpole_rollout", "walker_terrain")
 
 # -fmad=false keeps each float operation rounded where the plain PyTorch
 # version rounds it; -Xptxas -v reports registers and spills in the build log.

@@ -3,8 +3,8 @@
 A generator (``ops/articulated_codegen.py``, ``ops/planar_codegen.py``) writes
 its program once, over a small ops namespace (``cos``, ``sin``, ``sincos``,
 ``sqrt``, ``floor``, ``abs``, ``maximum``, ``minimum``, ``where``, ``clip``,
-and the loop ``repeat``; arithmetic and comparisons through Python
-operators), and runs over:
+``div``, the indexed ``load`` from an env's row and the loop ``repeat``;
+arithmetic and comparisons through Python operators), and runs over:
 
 - :class:`TorchOps`: the per-env values are ``(N,)`` float32 tensors, and the
   generator computes the program itself. This is a kernel's plain PyTorch
@@ -25,7 +25,9 @@ both forms run the same operations, with the same rounding.
 A python float stays a python float until it meets a per-env value, so
 constants fold in float64 and round to float32 once, as a weakly typed python
 scalar does in ``jnp``. Operations on constants alone fold in float32, as the
-card would round them.
+card would round them. A python float divided by a per-env value goes
+through ``ops.div``: torch computes ``float / tensor`` as a reciprocal times
+the float, which rounds twice.
 """
 
 from __future__ import annotations
@@ -51,11 +53,16 @@ class TorchOps:
 
     def __init__(self, device):
         self.device = device
+        self._scalars: dict[float, torch.Tensor] = {}  # each python number's tensor, made once
 
     def _tensor(self, x) -> torch.Tensor:
         if isinstance(x, torch.Tensor):
             return x
-        return torch.tensor(float(x), dtype=torch.float32, device=self.device)
+        value = float(x)
+        scalar = self._scalars.get(value)
+        if scalar is None:
+            scalar = self._scalars[value] = torch.tensor(value, dtype=torch.float32, device=self.device)
+        return scalar
 
     def cos(self, x):
         return torch.cos(self._tensor(x))
@@ -83,6 +90,15 @@ class TorchOps:
 
     def abs(self, x):
         return torch.abs(self._tensor(x))
+
+    def div(self, a, b):
+        """``a / b`` rounded once, whichever operand is a python float."""
+        return torch.div(self._tensor(a), self._tensor(b))
+
+    def load(self, row, index):
+        """``row[i, index[i]]`` of an ``(N, K)`` row, ``index`` an ``(N,)``
+        tensor of whole floats in ``[0, K)``."""
+        return torch.gather(row, 1, index.long().unsqueeze(1)).squeeze(1)
 
     def maximum(self, a, b):
         if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
@@ -235,6 +251,10 @@ class SymOps:
     def input(self, name: str, varying: bool) -> Sym:
         return Sym(self, "input", dtype="f", varying=varying, value=name)
 
+    def row(self, name: str) -> Sym:
+        """The env's row of floats in global memory, named ``name`` in C."""
+        return Sym(self, "input", dtype="p", varying=False, value=name)
+
     def const(self, value) -> Sym:
         if isinstance(value, (bool, np.bool_)):
             key, dtype, value = ("const", bool(value)), "b", np.bool_(value)
@@ -327,6 +347,13 @@ class SymOps:
     def abs(self, x):
         return self.op("abs", x)
 
+    def div(self, a, b):
+        return self.op("div", a, b)
+
+    def load(self, row, index):
+        """``row[(int)index]``: one load from the env's row."""
+        return self.op("load", row, index)
+
     def maximum(self, a, b):
         return self.op("max", a, b)
 
@@ -390,6 +417,8 @@ def _expression(node: Sym) -> str:
         return f"-{args[0]}"
     if node.kind == "select":
         return f"{args[0]} ? {args[1]} : {args[2]}"
+    if node.kind == "load":
+        return f"{args[0]}[(int){args[1]}]"
     raise ValueError(f"no C form for {node.kind}")
 
 

@@ -1,12 +1,15 @@
-"""Static tables of the planar (Box2D-class) engine.
+"""The planar (Box2D-class) engine: static world tables and ``world_step``.
 
-Counterpart of the spec types of the JAX package's ``physics/planar.py``: a
-world is a fixed set of bodies, revolute joints (limits, motors) and ground
-contact probes, with the solver's constants. The dynamic state is a ``(B,
-6)`` row ``[x, y, angle, vx, vy, omega]`` per body. The batched engine
-``world_step`` is not ported yet; the port steps a world only through the
-generated substep of :mod:`gymnasium_tpu_torch.ops.planar_step`, which runs
-the same solver.
+Counterpart of the JAX package's ``physics/planar.py``: a world is a fixed
+set of bodies, revolute joints (limits, motors) and ground contact probes,
+with the solver's constants. The dynamic state is a ``(B, 6)`` row ``[x, y,
+angle, vx, vy, omega]`` per body.
+
+:func:`world_step` advances a batch of worlds one tick. It is the program of
+:mod:`gymnasium_tpu_torch.ops.planar_codegen` over ``(N,)`` torch tensors,
+the one solver program the port has: the generated CUDA kernel of
+:mod:`gymnasium_tpu_torch.ops.planar_step` runs it too, several ticks a
+launch.
 """
 
 from __future__ import annotations
@@ -14,8 +17,9 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
-__all__ = ["BodySpec", "JointSpec", "ContactSpec", "PlanarWorld"]
+__all__ = ["BodySpec", "JointSpec", "ContactSpec", "PlanarWorld", "world_step"]
 
 
 class BodySpec(NamedTuple):
@@ -60,7 +64,56 @@ class PlanarWorld(NamedTuple):
     max_correction: float = 0.2  # per-iteration position clamp (b2_maxLinearCorrection)
     # Per-iteration clamp on the joint point-constraint position correction:
     # 0.0 solves the full anchor error in one shot per iteration; > 0 corrects
-    # at most this many metres of anchor error an iteration (the walker's
-    # world uses 0.2). The generated substep does not implement the clamp and
-    # refuses a world that sets it.
+    # at most this many metres of anchor error an iteration (Box2D-style
+    # bounded sub-pulls; the walker's world uses 0.2, so its 0.53 m
+    # creation-pose hip gap closes over several iterations).
     joint_correction_clamp: float = 0.0
+
+
+def world_step(
+    state: torch.Tensor,
+    world: PlanarWorld,
+    motor_speed,
+    motor_torque,
+    ground_height_fn,
+    external_force: torch.Tensor | None = None,
+    warm_start=None,
+):
+    """Advance a batch of worlds one ``world.dt``, as the JAX ``world_step``.
+
+    Args:
+        state: (N, B, 6) body rows.
+        motor_speed: (J,) or (N, J) target relative angular velocities.
+        motor_torque: (J,) or (N, J) max motor torques (0 disables a motor).
+        ground_height_fn: ``f(x) -> ground_y`` over (N,) tensors.
+        external_force: optional (N, B, 3) ``[fx, fy, torque]`` per body.
+        warm_start: optional ``(j_imp (N, J, 5), c_imp (N, C, 2))``: the
+            previous step's accumulated impulses (Box2D warm starting); a
+            contact whose depth is not positive drops its impulse.
+
+    Returns:
+        ``(new_state, contact_flags (N, C) bool, (j_imp, c_imp))``, float32.
+        Joint impulse rows are ``[motor, low, up, px, py]``, contact rows
+        ``[normal, tangent]``; the flags are each probe's pre-step
+        ``depth > 0``.
+    """
+    # imported here: the ops package imports this module's tables
+    from gymnasium_tpu_torch.ops.codegen import TorchOps
+    from gymnasium_tpu_torch.ops.planar_codegen import planar_tables, run_twin
+
+    n, dev = state.shape[0], state.device
+    t = planar_tables(world, None, substeps=1, external=external_force is not None)
+    if warm_start is None:
+        warm_start = (
+            torch.zeros((n, t.njoint, 5), dtype=torch.float32, device=dev),
+            torch.zeros((n, t.ncontact, 2), dtype=torch.float32, device=dev),
+        )
+
+    def per_env(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=dev).expand(n, t.njoint)
+
+    bodies, jimp, cimp, flags = run_twin(
+        t, TorchOps(dev), ground_height_fn, state, external_force, *warm_start,
+        per_env(motor_speed), per_env(motor_torque),
+    )
+    return bodies, flags, (jimp, cimp)

@@ -18,8 +18,11 @@ Reset semantics follow NEXT_STEP autoreset: the step after a done is the
 reset step (reward 0, flags False, obs = reset obs), and each wrapper gets
 that step's ``reset_mask`` (the pre-step ``prev_done``).
 
-Ported so far: the core, the running statistics, ``NormalizeObservation``,
-``NormalizeReward`` and ``EpisodeStatistics``.
+Every functional wrapper of the JAX package is here: the running
+statistics with ``NormalizeObservation`` and ``NormalizeReward``,
+``FrameStackObservation``, ``TimeAwareObservation``, ``DelayObservation``,
+``StickyAction``, the ``Transform*``, ``Clip*`` and ``Rescale*`` transforms,
+and ``EpisodeStatistics``.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ import numpy as np
 import torch
 
 from gymnasium_tpu_torch import spaces
-from gymnasium_tpu_torch.functional import EnvCarry, TimeStep, tree_map
+from gymnasium_tpu_torch.functional import EnvCarry, TimeStep, _lanes, tree_map
 
 __all__ = [
     "FuncWrapper",
@@ -44,6 +47,19 @@ __all__ = [
     "NormalizeObservation",
     "NormalizeReward",
     "NormalizeRewardState",
+    "FrameStackObservation",
+    "TimeAwareObservation",
+    "DelayObservation",
+    "DelayObservationState",
+    "StickyAction",
+    "StickyActionState",
+    "TransformObservation",
+    "TransformAction",
+    "TransformReward",
+    "ClipAction",
+    "ClipReward",
+    "RescaleAction",
+    "RescaleObservation",
     "EpisodeStatistics",
     "EpisodeStatsState",
     "episode_stats_to_infos",
@@ -296,6 +312,281 @@ class NormalizeReward(FuncWrapper):
     def state_per_env(self, wstate, num_envs):
         # shared return statistics, per-env accumulator
         return NormalizeRewardState(rms=_shared(wstate.rms), accumulated=True)
+
+
+class FrameStackObservation(FuncWrapper):
+    """Stack the last ``stack_size`` observations along a new axis 1.
+
+    Output obs ``(N, stack, *obs_shape)``, oldest frame first. ``padding_type``
+    ``"reset"`` pads a fresh episode with copies of its reset observation,
+    ``"zero"`` with zeros. The state is the rolling buffer.
+    """
+
+    def __init__(self, stack_size: int, padding_type: str = "reset"):
+        if stack_size < 1:
+            raise ValueError(f"stack_size must be >= 1, got {stack_size}")
+        if padding_type not in ("reset", "zero"):
+            raise ValueError(f"padding_type must be 'reset' or 'zero', got {padding_type!r}")
+        self.stack_size = stack_size
+        self.padding_type = padding_type
+
+    def _fresh(self, obs):
+        # padding in slots [0, stack - 1), the new obs last
+        pad = obs if self.padding_type == "reset" else torch.zeros_like(obs)
+        return torch.stack([pad] * (self.stack_size - 1) + [obs], dim=1)
+
+    def init(self, rng, obs, carry, params=None):
+        buf = self._fresh(obs)
+        return buf, buf
+
+    def update(self, wstate, ts, reset_mask, carry):
+        obs = ts.obs
+        rolled = torch.cat([wstate[:, 1:], obs[:, None]], dim=1)
+        buf = torch.where(_lanes(reset_mask, rolled), self._fresh(obs), rolled)
+        return buf, ts._replace(obs=buf)
+
+    def observation_space(self, space):
+        from gymnasium_tpu_torch.vector.utils import batch_space  # the vector env imports this module
+
+        return batch_space(space, self.stack_size)
+
+
+class TimeAwareObservation(FuncWrapper):
+    """Append the in-episode step counter to a flat Box observation.
+
+    Time is 0 at reset and grows by one a step (``EnvCarry.steps``);
+    ``normalize_time=True`` divides it by ``max_episode_steps``. Stateless.
+    """
+
+    def __init__(self, normalize_time: bool = False, max_episode_steps: int | None = None):
+        if normalize_time and max_episode_steps is None:
+            raise ValueError("normalize_time=True requires max_episode_steps")
+        self.normalize_time = normalize_time
+        self.max_episode_steps = max_episode_steps
+
+    def _with_time(self, obs, steps):
+        t = steps.to(obs.dtype)
+        if self.normalize_time:
+            t = t / self.max_episode_steps
+        return torch.cat([obs, t[:, None]], dim=-1)
+
+    def init(self, rng, obs, carry, params=None):
+        return None, self._with_time(obs, carry.steps)
+
+    def update(self, wstate, ts, reset_mask, carry):
+        return wstate, ts._replace(obs=self._with_time(ts.obs, carry.steps))
+
+    def observation_space(self, space):
+        high = self.max_episode_steps if self.max_episode_steps is not None else np.inf
+        time_high = 1.0 if self.normalize_time else high
+        return spaces.Box(
+            np.concatenate([np.broadcast_to(space.low, space.shape), [0.0]]),
+            np.concatenate([np.broadcast_to(space.high, space.shape), [time_high]]),
+            dtype=space.dtype.name,
+        )
+
+
+class DelayObservationState(NamedTuple):
+    buffer: torch.Tensor  # (N, delay + 1, *obs), most recent last
+    count: torch.Tensor  # (N,) int32, observations seen this episode
+
+
+class DelayObservation(FuncWrapper):
+    """Emit each env's observation from ``delay`` steps earlier in its
+    episode, zeros until then; the buffer restarts with the episode."""
+
+    def __init__(self, delay: int):
+        if delay < 1:
+            raise ValueError(f"delay must be >= 1, got {delay}")
+        self.delay = delay
+
+    def _emit(self, buffer, count):
+        oldest = buffer[:, 0]
+        return torch.where(_lanes(count > self.delay, oldest), oldest, torch.zeros_like(oldest))
+
+    def _fresh(self, obs):
+        # the episode's first observation goes last
+        return torch.stack([torch.zeros_like(obs)] * self.delay + [obs], dim=1)
+
+    def init(self, rng, obs, carry, params=None):
+        buffer = self._fresh(obs)
+        count = torch.ones(obs.shape[0], dtype=torch.int32, device=obs.device)
+        return DelayObservationState(buffer, count), self._emit(buffer, count)
+
+    def update(self, wstate, ts, reset_mask, carry):
+        obs = ts.obs
+        pushed = torch.cat([wstate.buffer[:, 1:], obs[:, None]], dim=1)
+        buffer = torch.where(_lanes(reset_mask, pushed), self._fresh(obs), pushed)
+        count = torch.where(reset_mask, 1, wstate.count + 1).to(torch.int32)
+        return DelayObservationState(buffer, count), ts._replace(obs=self._emit(buffer, count))
+
+
+class StickyActionState(NamedTuple):
+    rng: torch.Generator  # the batch's generator, which the repeat draws advance
+    last_action: torch.Tensor  # (N, ...) the previously executed action
+    is_first: torch.Tensor  # (N,) True right after an episode starts
+
+
+class StickyAction(FuncWrapper):
+    """Repeat the previously executed action with probability ``p``, never
+    on an episode's first step (``repeat_action_duration=1``).
+
+    A step's repeat draws are :meth:`draws` (U[0, 1), one a lane, from the
+    generator in the state) and their map :meth:`apply`, so a test can feed
+    the JAX wrapper's draws to the map.
+    """
+
+    def __init__(self, repeat_action_probability: float, action_space: Any = None):
+        if not 0 <= repeat_action_probability < 1:
+            raise ValueError(
+                f"repeat_action_probability should be in [0, 1), got {repeat_action_probability}"
+            )
+        self.p = repeat_action_probability
+        self._action_space = action_space
+
+    def action_space(self, space):
+        # the single-env action space, captured when the stack is assembled,
+        # gives init the shape and dtype of the last-action buffer
+        self._action_space = space
+        return space
+
+    def init(self, rng, obs, carry, params=None):
+        if self._action_space is None:
+            raise ValueError(
+                "StickyAction needs the action space: pass action_space= or assemble it "
+                "through TorchVectorEnv or make_train_step"
+            )
+        n, space = carry.prev_done.shape[0], self._action_space
+        # integer actions are sampled as int32 (Space.sample_torch)
+        dtype = torch.int32 if np.dtype(space.dtype).kind in "iu" else torch.float32
+        last = torch.zeros((n,) + tuple(space.shape), dtype=dtype, device=obs.device)
+        return StickyActionState(rng, last, torch.ones(n, dtype=torch.bool, device=obs.device)), obs
+
+    def draws(self, wstate: StickyActionState, n: int) -> torch.Tensor:
+        """The repeat draws of a step: U[0, 1) (n,)."""
+        return torch.rand((n,), generator=wstate.rng, device=wstate.rng.device)
+
+    def apply(self, wstate: StickyActionState, action, u):
+        """The action executed for draws ``u``: the last one where ``u < p``
+        on a lane past its episode's first step, else ``action``."""
+        repeat = (u < self.p) & ~wstate.is_first
+        last = wstate.last_action
+        chosen = torch.where(_lanes(repeat, action), last, action.to(last.dtype))
+        return wstate._replace(last_action=chosen), chosen
+
+    def transform_action(self, wstate, action):
+        return self.apply(wstate, action, self.draws(wstate, action.shape[0]))
+
+    def update(self, wstate, ts, reset_mask, carry):
+        # the step after a reset step is an episode's first real step
+        return wstate._replace(is_first=reset_mask), ts
+
+
+# ---------------------------------------------------------------------------
+# Stateless transforms
+# ---------------------------------------------------------------------------
+
+
+class TransformObservation(FuncWrapper):
+    """Apply ``fn(obs) -> obs``, a function of batched tensors."""
+
+    def __init__(self, fn: Callable[[Any], Any]):
+        self.fn = fn
+
+    def init(self, rng, obs, carry, params=None):
+        return None, self.fn(obs)
+
+    def update(self, wstate, ts, reset_mask, carry):
+        return wstate, ts._replace(obs=self.fn(ts.obs))
+
+
+class TransformAction(FuncWrapper):
+    """Apply ``fn(action) -> action`` before the step."""
+
+    def __init__(self, fn: Callable[[Any], Any]):
+        self.fn = fn
+
+    def transform_action(self, wstate, action):
+        return wstate, self.fn(action)
+
+
+class TransformReward(FuncWrapper):
+    """Apply ``fn(reward) -> reward``."""
+
+    def __init__(self, fn: Callable[[Any], Any]):
+        self.fn = fn
+
+    def update(self, wstate, ts, reset_mask, carry):
+        return wstate, ts._replace(reward=self.fn(ts.reward))
+
+
+class _Bounds:
+    """Float32 arrays as tensors, made once a device: a copy from the host
+    on every step would wait for the device."""
+
+    def __init__(self, *arrays):
+        self.arrays = [np.asarray(a, np.float32) for a in arrays]
+        self._on: dict = {}
+
+    def on(self, device) -> list:
+        tensors = self._on.get(device)
+        if tensors is None:
+            tensors = self._on[device] = [torch.as_tensor(a, device=device) for a in self.arrays]
+        return tensors
+
+
+class ClipAction(TransformAction):
+    """Clip actions into ``[low, high]``."""
+
+    def __init__(self, low, high):
+        bounds = _Bounds(low, high)
+
+        def clip(a):
+            lo, hi = bounds.on(a.device)
+            return torch.clamp(a, lo, hi)
+
+        super().__init__(clip)
+
+
+class ClipReward(TransformReward):
+    """Clip rewards into ``[min_reward, max_reward]`` (either may be None)."""
+
+    def __init__(self, min_reward: float | None = None, max_reward: float | None = None):
+        super().__init__(lambda r: torch.clamp(r, min_reward, max_reward))
+
+
+class RescaleAction(TransformAction):
+    """Affinely map actions from ``[min_action, max_action]`` onto the env's
+    ``[low, high]``, in float32: ``clip(low + scale * (a - min_action), low,
+    high)`` with ``scale = (high - low) / (max_action - min_action)``."""
+
+    def __init__(self, low, high, min_action=-1.0, max_action=1.0):
+        low, high = np.asarray(low, np.float32), np.asarray(high, np.float32)
+        min_a, max_a = np.float32(min_action), np.float32(max_action)
+        bounds = _Bounds(low, high, min_a, (high - low) / (max_a - min_a))
+
+        def rescale(a):
+            lo, hi, lo_a, scale = bounds.on(a.device)
+            return torch.clamp(lo + scale * (a - lo_a), lo, hi)
+
+        super().__init__(rescale)
+
+
+class RescaleObservation(TransformObservation):
+    """Affinely map observations from ``[low, high]`` onto ``[min_obs,
+    max_obs]``, in float32: ``min_obs + scale * (obs - low)`` with ``scale =
+    (max_obs - min_obs) / (high - low)``."""
+
+    def __init__(self, low, high, min_obs=-1.0, max_obs=1.0):
+        low, high = np.asarray(low, np.float32), np.asarray(high, np.float32)
+        min_o, max_o = np.float32(min_obs), np.float32(max_obs)
+        bounds = _Bounds(min_o, (max_o - min_o) / (high - low), low)
+
+        def rescale(o):
+            lo_o, scale, lo = bounds.on(o.device)
+            return lo_o + scale * (o - lo)
+
+        super().__init__(rescale)
 
 
 # ---------------------------------------------------------------------------

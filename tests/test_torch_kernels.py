@@ -24,7 +24,10 @@ from chip_smoke import (
     compare_ppo_with_cpu,
     compare_rollout_with_twin,
     compare_swimmer_with_cpu,
+    compare_terrain_with_twin,
     planar_states,
+    walker_env,
+    walker_states,
 )
 from gymnasium_tpu_torch.envs.dynamics.lunar_lander import lander_step
 from gymnasium_tpu_torch.ops import articulated_step as art
@@ -278,3 +281,41 @@ def test_car_racing_on_the_card_matches_cpu(cuda):
     result = compare_car_racing_with_cpu(cuda)
     assert (cr.launches, dict(art.launches), dict(pl.launches)) == before
     assert result["episode_ends"] > 0 and result["max_edge_pixel_share"] < 0.01
+
+
+@pytest.mark.parametrize("n", [333, 4096])
+def test_walker_planar_kernel_matches_twin(cuda, n):
+    """The walker's build (four ticks, per-env motors, the heightfield read
+    by index, the bounded sub-pull) equals its twin in every bit, with lanes
+    on both sides of the clamp, at a ragged N and the workload's."""
+    from gymnasium_tpu_torch.envs.box2d.bipedal_walker import walker_solver
+
+    step = walker_solver()
+    before = pl.launches[step.build_name]
+    result = compare_planar_with_twin(step, walker_states(n, cuda, seed=6))
+    assert pl.launches[step.build_name] == before + 2
+    assert result["bit_equal"] and result["branch_lanes"]["clamped_joint_pull"] > 0
+
+
+@pytest.mark.parametrize("n", [333, 4096])
+def test_walker_terrain_kernel_matches_twin(cuda, n):
+    from gymnasium_tpu_torch.ops import walker_terrain as wt
+
+    before = wt.launches
+    assert compare_terrain_with_twin(n, cuda)["bit_equal"]
+    assert wt.launches == before + 4
+
+
+def test_bipedal_vector_env_launches_two_walker_kernels_and_a_terrain_kernel_a_step(cuda):
+    from gymnasium_tpu_torch.envs.box2d.bipedal_walker import walker_solver
+    from gymnasium_tpu_torch.ops import walker_terrain as wt
+    from gymnasium_tpu_torch.vector import TorchVectorEnv
+
+    env = TorchVectorEnv(walker_env(True), 256, max_episode_steps=2000, device=cuda)
+    env.reset(seed=0)
+    before, terrain_before = dict(pl.launches), wt.launches
+    carry, traj = env.rollout(3)
+    torch.cuda.synchronize()
+    assert pl.launches - collections.Counter(before) == {walker_solver().build_name: 6}
+    assert wt.launches == terrain_before + 3
+    assert traj.obs.shape == (3, 256, 24) and bool(torch.isfinite(traj.obs).all())
