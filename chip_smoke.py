@@ -73,6 +73,21 @@ read just after:
   the CPU (``compare_swimmer_with_cpu``);
 - a ``MujocoFuncEnv`` over the compiled XML chain at 4096 envs:
   ``rollout(20)``, one launch of its generated kernel an env step;
+- the registry's paths: ``gymnasium_tpu_torch.make_vec(id, num_envs=4096)``
+  with no mode for CartPole-v1, HalfCheetah-v5, LunarLander-v3 and
+  BipedalWalkerHardcore-v3 (the ``torch`` mode on the card, the spec's step
+  limit, reset, four steps, ``rollout(100)``, ``make_vec(envs.spec)``
+  rebuilding the env; the first four steps then equal a ``TorchVectorEnv``
+  built by hand in every bit); ``gymnasium_tpu_torch.make("phys2d/CartPole-v1")``
+  on the card for one episode through ``PassiveEnvChecker``,
+  ``OrderEnforcing`` and ``TimeLimit`` with every warning an error, and
+  ``contains`` of CUDA tensors; ``FunctionalTorchEnv`` (one env, a batch of
+  one) over HalfCheetah, Ant and LunarLander for 20 steps, one kernel launch
+  a step, then the same steps on the CPU from the card's first state with
+  the card's actions and draws; ``Tuple``, ``Dict`` and ``MultiBinary``
+  samples drawn on the card at 4096. The registry paths' kernels (the
+  articulated builds of HalfCheetah and Ant, the lander's and the walker's
+  planar builds) are held against their twins at N=1 and N=33 too;
 - the PPO trainer at ``tools/bench_ppo.py``'s widths: CartPole-v1 (4096 envs,
   64 steps a rollout, hidden (128, 128)) and HalfCheetah-v5 (4096 x 64,
   hidden (256, 256), with NormalizeObservation, NormalizeReward and
@@ -98,7 +113,7 @@ pace where a call's host work outlasts its kernel. It counts each library's SASS
 prints the card's name and power limit, one ``{"bipedal": {...},
 "wrappers": {...}}`` line, one ``{"carracing": {...}, "swimmer":
 {...}, "mjcf": {...}}`` line, one ``{"classic": {...}}`` line,
-one ``{"ppo": {...}}`` line, one
+one ``{"ppo": {...}}`` line, one ``{"registry": {...}}`` line, one
 ``{"kernels": [...]}`` line, and last the line ``{"ok": true, "device":
 {...}}``. Any failed check
 raises, so the exit code is 0 only when every phase passed. Without a CUDA
@@ -226,22 +241,23 @@ PPO_CHECK_ENVS, PPO_CHECK_STEPS = 256, 16
 # transition is likewise the kernel on one side and the twin on the other.
 PPO_CHECK_TOL = 1e-5
 
-# The cheap functionals (gymnasium_tpu_torch.envs.<module>.<class>): bench.py's
-# four FAMILY_CASES rows by their names there, then the others. Each entry:
-# (class, options, the step limit gymnasium_tpu/envs/__init__.py registers,
-# rollout steps). CliffWalking registers none and takes 200, as
-# tests/functional/test_tabular.py does; Blackjack and CPD end by
-# themselves. CPD plays random opponents, the policy whose step draws.
+# The cheap functionals: bench.py's four FAMILY_CASES rows by their names
+# there, then the others. Each entry: (the id the port's registry holds it
+# under, rollout steps). The functional env, its options and its step limit
+# come from the id's spec (:func:`registered_func`, :func:`step_limit`):
+# CliffWalking-v1 and tabular/Blackjack-v0 register no limit; Blackjack and
+# CPD end by themselves. CPD plays random opponents, the policy whose step
+# draws.
 CLASSIC_ENVS = {
-    "frozenlake8x8": ("tabular.FrozenLake8x8Functional", {}, 200, 512),
-    "taxi_v3": ("tabular.TaxiFunctional", {}, 200, 512),
-    "pendulum_v1": ("phys2d.PendulumFunctional", {}, 200, 512),
-    "mountaincar_continuous_v0": ("phys2d.ContinuousMountainCarFunctional", {}, 999, 512),
-    "acrobot_v1": ("phys2d.AcrobotFunctional", {}, 500, 100),
-    "mountaincar_v0": ("phys2d.MountainCarFunctional", {}, 200, 100),
-    "cliffwalking_v1": ("tabular.CliffWalkingFunctional", {}, 200, 100),
-    "blackjack_v1": ("tabular.BlackjackFunctional", {}, None, 100),
-    "cpd_random": ("blockchain.BlockchainCPDFunctional", {"opponent_policy": "random"}, None, 100),
+    "frozenlake8x8": ("FrozenLake8x8-v1", 512),
+    "taxi_v3": ("Taxi-v3", 512),
+    "pendulum_v1": ("Pendulum-v1", 512),
+    "mountaincar_continuous_v0": ("MountainCarContinuous-v0", 512),
+    "acrobot_v1": ("Acrobot-v1", 100),
+    "mountaincar_v0": ("MountainCar-v0", 100),
+    "cliffwalking_v1": ("CliffWalking-v1", 100),
+    "blackjack_v1": ("tabular/Blackjack-v0", 100),
+    "cpd_random": ("BlockchainCPD-v0-Random", 100),
 }
 CLASSIC_BENCH_ROWS = ("frozenlake8x8", "taxi_v3", "pendulum_v1", "mountaincar_continuous_v0")
 CLASSIC_WARM_STEPS = 4
@@ -279,6 +295,21 @@ SWIMMER_CHECK_STEPS, SWIMMER_CHECK_LIMIT = 8, 3
 SWIMMER_CHECK_TOL = 1e-4
 MJCF_FRAME_SKIP = 2
 MJCF_ROLLOUT = 20
+# The registry phase: gymnasium_tpu_torch.make_vec(id, num_envs=4096) with no
+# mode for each id, reset, REGISTRY_WARM_STEPS steps and
+# rollout(REGISTRY_ROLLOUT). REGISTRY_LIMITS are the step limits the JAX
+# package registers, held against the port's specs. Then FunctionalTorchEnv
+# (a batch of one) over SINGLE_IDS for SINGLE_STEPS steps against the CPU,
+# within the tolerance of the card-against-CPU phases of its kernel
+# (SWIMMER_CHECK_TOL articulated, BIPEDAL_CHECK_TOL planar), and every kernel
+# of these paths against its twin at N=1 and N=RAGGED_ENVS.
+REGISTRY_LIMITS = {"CartPole-v1": 500, "HalfCheetah-v5": 1000, "LunarLander-v3": 1000, "BipedalWalkerHardcore-v3": 2000}
+REGISTRY_IDS = tuple(REGISTRY_LIMITS)
+REGISTRY_WARM_STEPS = 4
+REGISTRY_ROLLOUT = 100
+SINGLE_IDS = ("HalfCheetah-v5", "Ant-v5", "LunarLander-v3")
+SINGLE_STEPS = 20
+RAGGED_ENVS = 33
 
 # The MJCF phase's model, written to a temporary file and compiled through
 # load_model: a planar chain with a slide root, two limited hinges, two
@@ -1024,11 +1055,12 @@ def planar_branch_lanes(step, bodies, external, terrain, jimp, cimp, *motors) ->
     return {name: int(hit.sum()) for name, hit in lanes.items()}
 
 
-def compare_planar_with_twin(step, inputs) -> dict:
+def compare_planar_with_twin(step, inputs, every_branch: bool = True) -> dict:
     """One kernel call against the plain twin on the same inputs. Raises on
-    any differing value or flag, if two calls differ in a bit, or if a side
-    of the solver is reached by no lane. Returns the largest deviations (0),
-    whether the bits are equal too, and the branch counts."""
+    any differing value or flag, if two calls differ in a bit, or (with
+    ``every_branch``; a batch of a few lanes cannot) if a side of the solver
+    is reached by no lane. Returns the largest deviations (0), whether the
+    bits are equal too, and the branch counts."""
     out = step(*inputs)
     again = step(*inputs)
     torch.cuda.synchronize()
@@ -1052,7 +1084,7 @@ def compare_planar_with_twin(step, inputs) -> dict:
     check(result["bit_equal"], f"{step.name}: kernel and twin differ in the sign of a zero")
     branches = planar_branch_lanes(step, *inputs)
     missing = [name for name, count in branches.items() if count == 0]
-    check(not missing, f"{step.name}: no lane reaches {missing}")
+    check(not every_branch or not missing, f"{step.name}: no lane reaches {missing}")
     result["branch_lanes"] = branches
     return result
 
@@ -1089,6 +1121,10 @@ def walker_env(hardcore: bool = False):
     return BipedalWalkerFunctional({"hardcore": hardcore})
 
 
+def walker_id(hardcore: bool = False) -> str:
+    return "BipedalWalkerHardcore-v3" if hardcore else "BipedalWalker-v3"
+
+
 def run_bipedal(dev, hardcore: bool, n: int = NUM_ENVS) -> dict:
     """BipedalWalker (hardcore: its hardcore variant) under ``TorchVectorEnv``
     at its step limit: reset, a few sampled steps, a masked reset of every
@@ -1101,7 +1137,7 @@ def run_bipedal(dev, hardcore: bool, n: int = NUM_ENVS) -> dict:
 
     func = walker_env(hardcore)
     label = "bipedal_walker_hardcore" if hardcore else "bipedal_walker"
-    env = TorchVectorEnv(func, n, max_episode_steps=func.max_episode_steps, device=dev)
+    env = TorchVectorEnv(func, n, max_episode_steps=step_limit(walker_id(hardcore)), device=dev)
     obs, _ = env.reset(seed=0)
     check(obs.shape == (n, 24) and obs.dtype == torch.float32, f"{label} reset obs {tuple(obs.shape)} {obs.dtype}")
     terrain_reset = env.carry.state["terrain"].clone()
@@ -1328,13 +1364,26 @@ def compare_wrappers_with_cpu(dev, n: int = WRAPPER_CHECK_ENVS, steps: int = WRA
     return result
 
 
+def step_limit(env_id: str) -> int | None:
+    """The step limit the port's registry holds for ``env_id``."""
+    import gymnasium_tpu_torch as gym
+
+    return gym.spec(env_id).max_episode_steps
+
+
+def registered_func(env_id: str):
+    """A new instance of the functional env that ``env_id``'s spec names
+    (``torch_entry_point``), with the spec's options."""
+    import gymnasium_tpu_torch as gym
+    from gymnasium_tpu_torch.envs.registration import load_env_creator
+
+    spec = gym.spec(env_id)
+    return load_env_creator(spec.torch_entry_point)(dict(spec.kwargs) or None)
+
+
 def classic_env(name: str):
     """A new instance of the functional env ``name`` of :data:`CLASSIC_ENVS`."""
-    import importlib
-
-    path, options, _, _ = CLASSIC_ENVS[name]
-    module, cls = path.rsplit(".", 1)
-    return getattr(importlib.import_module(f"gymnasium_tpu_torch.envs.{module}"), cls)(dict(options))
+    return registered_func(CLASSIC_ENVS[name][0])
 
 
 def inside(space, x: torch.Tensor) -> bool:
@@ -1401,8 +1450,8 @@ def run_classic(dev, name: str, n: int = NUM_ENVS) -> dict:
     from gymnasium_tpu_torch.functional import tree_map
     from gymnasium_tpu_torch.vector import TorchVectorEnv
 
-    _, _, limit, rollout = CLASSIC_ENVS[name]
-    env = TorchVectorEnv(classic_env(name), n, max_episode_steps=limit, device=dev)
+    env_id, rollout = CLASSIC_ENVS[name]
+    env = TorchVectorEnv(classic_env(name), n, max_episode_steps=step_limit(env_id), device=dev)
     obs, _ = env.reset(seed=0)
     check(inside(env.single_observation_space, obs), f"{name}: reset obs outside the observation space")
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -1751,6 +1800,235 @@ def run_mjcf(dev, path: str, n: int = NUM_ENVS) -> dict:
             "kernel": func._step.build_name, "lanes_on_the_floor": touching}
 
 
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal dtypes, shapes and bytes (so -0.0 differs from 0.0)."""
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)))
+
+
+def hand_built(env_id: str):
+    """The functional env of a :data:`REGISTRY_IDS` path built by hand, not
+    through the registry."""
+    from gymnasium_tpu_torch.envs.box2d import BipedalWalkerFunctional
+    from gymnasium_tpu_torch.envs.box2d.lunar_lander import LunarLanderFunctional
+    from gymnasium_tpu_torch.envs.mujoco import HalfCheetahFunctional
+    from gymnasium_tpu_torch.envs.phys2d.cartpole import CartPoleFunctional
+
+    return {"CartPole-v1": CartPoleFunctional, "HalfCheetah-v5": HalfCheetahFunctional,
+            "LunarLander-v3": LunarLanderFunctional,
+            "BipedalWalkerHardcore-v3": lambda: BipedalWalkerFunctional({"hardcore": True})}[env_id]()
+
+
+def run_registry_vec(dev, env_id: str, n: int = NUM_ENVS) -> dict:
+    """``gymnasium_tpu_torch.make_vec(env_id, num_envs=n)`` with no mode and
+    no device: reset, :data:`REGISTRY_WARM_STEPS` sampled steps, then
+    ``rollout(REGISTRY_ROLLOUT)``. Checks the mode (``torch``), the device,
+    the step limit against the spec's and :data:`REGISTRY_LIMITS`, the
+    outputs, and that ``make_vec(envs.spec)`` rebuilds the same env. Returns
+    the wall times, the actions and the first steps' outputs (for
+    :func:`compare_registry_with_hand_built`)."""
+    import gymnasium_tpu_torch as gym
+    from gymnasium_tpu_torch.vector import TorchVectorEnv
+
+    start = time.perf_counter()
+    env = gym.make_vec(env_id, num_envs=n)
+    make_s = time.perf_counter() - start
+    mode = env.spec.kwargs.get("vectorization_mode")
+    check(isinstance(env, TorchVectorEnv) and mode == "torch", f"{env_id}: make_vec gave {type(env).__name__}, {mode}")
+    check(env.device.type == torch.device(dev).type and env.num_envs == n,
+          f"{env_id}: on {env.device} with {env.num_envs} envs")
+    limit = gym.spec(env_id).max_episode_steps
+    check(env.time_limit == limit == REGISTRY_LIMITS[env_id],
+          f"{env_id}: time_limit {env.time_limit}, spec {limit}, registered {REGISTRY_LIMITS[env_id]}")
+    obs, _ = env.reset(seed=0)
+    outs = [obs.clone()]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    actions = []
+    for _ in range(REGISTRY_WARM_STEPS):
+        actions.append(env.single_action_space.sample_torch(gen, (n,)))
+        outs.append(tuple(x.clone() for x in env.step(actions[-1])[:4]))
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    carry, traj = env.rollout(REGISTRY_ROLLOUT)
+    torch.cuda.synchronize()
+    rollout_s = time.perf_counter() - start
+    shape = (REGISTRY_ROLLOUT, n) + env.single_observation_space.shape
+    check(traj.obs.shape == shape, f"{env_id}: rollout obs {tuple(traj.obs.shape)}, want {shape}")
+    check(bool(torch.isfinite(traj.obs.float()).all() and torch.isfinite(traj.reward).all()), f"{env_id}: not finite")
+    check(int(carry.steps.max()) <= limit, f"{env_id}: a step counter passed the limit {limit}")
+    again = gym.make_vec(env.spec)
+    check(again.spec.kwargs == env.spec.kwargs and again.time_limit == limit and again.num_envs == n
+          and again.device == env.device, f"{env_id}: make_vec(envs.spec) built another env: {again.spec.kwargs}")
+    return {"mode": mode, "time_limit": env.time_limit, "device": str(env.device), "make_s": make_s,
+            "rollout_steps": REGISTRY_ROLLOUT, "rollout_s": rollout_s, "env_steps_per_s": n * REGISTRY_ROLLOUT / rollout_s,
+            "terminations": int(traj.terminated.sum()), "truncations": int(traj.truncated.sum()),
+            "_actions": actions, "_outs": outs}
+
+
+def compare_registry_with_hand_built(dev, env_id: str, run: dict, n: int = NUM_ENVS) -> int:
+    """The first steps of :func:`run_registry_vec` against a ``TorchVectorEnv``
+    built by hand over the same functional env with the same seed and
+    actions on the same card. Raises unless every output equals in every
+    bit. Returns the number of tensors compared."""
+    from gymnasium_tpu_torch.vector import TorchVectorEnv
+
+    env = TorchVectorEnv(hand_built(env_id), n, max_episode_steps=REGISTRY_LIMITS[env_id], device=dev)
+    obs, _ = env.reset(seed=0)
+    check(same_bits(obs, run["_outs"][0]), f"{env_id}: make_vec's reset obs differs from the hand-built env's")
+    compared = 1
+    for i, action in enumerate(run["_actions"]):
+        for label, got, want in zip(("obs", "reward", "terminated", "truncated"), run["_outs"][i + 1], env.step(action)):
+            check(same_bits(got, want), f"{env_id}: step {i} {label} differs from the hand-built env's")
+            compared += 1
+    return compared
+
+
+def wrapper_chain(env) -> list[str]:
+    names = []
+    while hasattr(env, "env"):
+        names.append(type(env).__name__)
+        env = env.env
+    return names + [type(env).__name__]
+
+
+def run_registry_single(dev) -> dict:
+    """``gymnasium_tpu_torch.make("phys2d/CartPole-v1")`` on the card: one
+    episode to its end through ``PassiveEnvChecker``, ``OrderEnforcing`` and
+    ``TimeLimit``, every warning raised as an error (the checker must accept
+    the CUDA observations). Then ``contains`` of CUDA tensors: a Box
+    observation inside and outside its bounds, a Discrete and a
+    MultiDiscrete value, each answered as for the same values on the host."""
+    import warnings
+
+    import gymnasium_tpu_torch as gym
+
+    start = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        env = gym.make("phys2d/CartPole-v1")
+        chain = wrapper_chain(env)
+        check(chain == ["TimeLimit", "OrderEnforcing", "PassiveEnvChecker", "FunctionalTorchEnv"],
+              f"make's wrappers {chain}")
+        check(env.unwrapped.device.type == torch.device(dev).type, f"make's env on {env.unwrapped.device}")
+        env.action_space.seed(0)
+        obs, _ = env.reset(seed=0)
+        steps, inside_all = 0, True
+        while True:
+            obs, reward, terminated, truncated, _ = env.step(env.action_space.sample())
+            steps += 1
+            check(obs.device.type == torch.device(dev).type and obs.shape == (4,), f"make's obs {obs.device} {tuple(obs.shape)}")
+            inside_all &= env.observation_space.contains(obs) or terminated
+            if terminated or truncated:
+                break
+    seconds = time.perf_counter() - start
+    check(inside_all, "a CartPole observation before the episode's end is not in its space")
+    check(steps <= step_limit("phys2d/CartPole-v1"), f"an episode of {steps} steps")
+    box = env.observation_space
+    inside = torch.zeros(4, device=dev)
+    outside = torch.tensor([10.0, 0.0, 0.0, 0.0], device=dev)
+    answers = {
+        "box_inside": box.contains(inside), "box_inside_host": box.contains(inside.cpu()),
+        "box_outside": box.contains(outside), "box_outside_host": box.contains(outside.cpu()),
+        "discrete": gym.spaces.Discrete(2).contains(torch.tensor(1, device=dev)),
+        "discrete_host": gym.spaces.Discrete(2).contains(torch.tensor(1)),
+        "multidiscrete": gym.spaces.MultiDiscrete([3, 3]).contains(torch.tensor([1, 2], device=dev)),
+        "multidiscrete_host": gym.spaces.MultiDiscrete([3, 3]).contains(torch.tensor([1, 2])),
+    }
+    check(answers["box_inside"] and not answers["box_outside"] and answers["discrete"], f"contains {answers}")
+    for key in ("box_inside", "box_outside", "discrete", "multidiscrete"):
+        check(answers[key] == answers[f"{key}_host"], f"contains of a CUDA tensor differs from the host's: {answers}")
+    return {"steps": steps, "terminated": bool(terminated), "truncated": bool(truncated), "seconds": seconds,
+            "wrappers": chain, "contains": answers}
+
+
+def run_single_env(dev, env_id: str, steps: int = SINGLE_STEPS) -> dict:
+    """``FunctionalTorchEnv`` over ``env_id``'s functional env on the card (a
+    batch of one): reset, then ``steps`` seeded actions of its space, with
+    the draws recorded. Returns the wall time, the first state, the actions,
+    the draws and the steps' outputs (for :func:`compare_single_env_with_cpu`)."""
+    from gymnasium_tpu_torch.envs.functional_torch_env import FunctionalTorchEnv
+    from gymnasium_tpu_torch.functional import tree_map
+
+    draws = {"reset_draws": [], "transition_draws": []}
+
+    def record(hook, draw, rng, count):
+        draws[hook].append(draw(rng, count))
+        return draws[hook][-1]
+
+    env = FunctionalTorchEnv(with_draws(registered_func(env_id), record), device=dev)
+    env.action_space.seed(0)
+    actions = [env.action_space.sample() for _ in range(steps)]
+    start = time.perf_counter()
+    obs, _ = env.reset(seed=0)
+    state0 = tree_map(torch.clone, env.state)
+    outs = [env.step(action) for action in actions]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    check(all(o[0].device.type == env.device.type and o[0].shape == env.observation_space.shape for o in outs),
+          f"{env_id}: single-env obs")
+    check(all(bool(torch.isfinite(o[0]).all()) for o in outs), f"{env_id}: single-env obs not finite")
+    return {"steps": steps, "seconds": seconds, "_state0": state0, "_actions": actions, "_draws": draws, "_outs": outs}
+
+
+def compare_single_env_with_cpu(env_id: str, run: dict, tol: float) -> dict:
+    """The same steps as :func:`run_single_env` on the CPU, from the card's
+    first state with the card's actions and draws. Raises unless the flags
+    are equal and every observation and reward is within ``tol * (1 +
+    |cpu|)``. Returns the largest deviations."""
+    from gymnasium_tpu_torch.envs.functional_torch_env import FunctionalTorchEnv
+    from gymnasium_tpu_torch.functional import tree_map
+
+    replays = {hook: iter(draws) for hook, draws in run["_draws"].items()}
+
+    def replay(hook, draw, rng, count):
+        return tuple(None if x is None else x.cpu() for x in next(replays[hook]))
+
+    env = FunctionalTorchEnv(with_draws(registered_func(env_id), replay), device="cpu")
+    env.reset(seed=0)
+    env.state = tree_map(lambda x: x.cpu(), run["_state0"])
+    worst = {"obs": 0.0, "reward": 0.0}
+    for i, (action, card) in enumerate(zip(run["_actions"], run["_outs"])):
+        cpu = env.step(action)
+        err = (card[0].cpu().double() - cpu[0].double()).abs()
+        check(bool((err <= tol * (1.0 + cpu[0].double().abs())).all()),
+              f"{env_id} single env, step {i}: obs differs from the CPU's by {float(err.max())}")
+        check(abs(card[1] - cpu[1]) <= tol * (1.0 + abs(cpu[1])), f"{env_id} step {i}: reward {card[1]} vs {cpu[1]}")
+        check(card[2] == cpu[2] and card[3] == cpu[3], f"{env_id} step {i}: flags differ from the CPU's")
+        worst["obs"] = max(worst["obs"], float(err.max()))
+        worst["reward"] = max(worst["reward"], abs(card[1] - cpu[1]))
+    check(all(next(it, None) is None for it in replays.values()), f"{env_id}: the CPU took fewer draws than the card")
+    return {"max_abs_dev": worst, "tolerance": tol}
+
+
+def run_device_spaces(dev, n: int = NUM_ENVS) -> dict:
+    """``sample_torch`` of ``Tuple(Box, Discrete)``, ``Dict`` and
+    ``MultiBinary`` at batch ``n`` on the card: on the device, inside the
+    space (``contains_torch``), and two draws differ."""
+    from gymnasium_tpu_torch import spaces
+
+    cases = {
+        "Tuple(Box, Discrete)": spaces.Tuple([spaces.Box(-1.0, 2.0, (3,)), spaces.Discrete(6, start=-2)]),
+        "Dict": spaces.Dict({"u": spaces.Box(0.0, 1.0, (2,)), "k": spaces.Discrete(4), "m": spaces.MultiBinary(3)}),
+        "MultiBinary": spaces.MultiBinary([2, 3]),
+    }
+
+    def leaves(x):
+        if isinstance(x, dict):
+            return [leaf for key in x for leaf in leaves(x[key])]
+        return [leaf for part in x for leaf in leaves(part)] if isinstance(x, tuple) else [x]
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    result = {}
+    for name, space in cases.items():
+        first, second = space.sample_torch(gen, (n,)), space.sample_torch(gen, (n,))
+        check(all(leaf.device.type == torch.device(dev).type and leaf.shape[0] == n for leaf in leaves(first)),
+              f"{name}: samples not on the device")
+        check(bool(space.contains_torch(first)) and bool(space.contains_torch(second)), f"{name}: sample outside")
+        check(any(not torch.equal(a, b) for a, b in zip(leaves(first), leaves(second))), f"{name}: two draws equal")
+        result[name] = [f"{tuple(leaf.shape)} {leaf.dtype}" for leaf in leaves(first)]
+    return result
+
+
 def ppo_case(name: str, n: int = NUM_ENVS, rollout: int = PPO_ROLLOUT, compute_dtype=torch.bfloat16):
     """``(func_env, config, wrappers)`` of a PPO workload of ``tools/bench_ppo.py``,
     HalfCheetah with the episode statistics of the multichip dry run added."""
@@ -2082,6 +2360,15 @@ def smoke(xml_path: str) -> int:
     print(f"swimmer TorchVectorEnv: {swim}", flush=True)
     mjcf, mjcf_counts = counted("mjcf TorchVectorEnv", lambda: run_mjcf(dev, xml_path))
     print(f"mjcf TorchVectorEnv: {mjcf}", flush=True)
+    registry, registry_counts = {}, {}
+    for env_id in REGISTRY_IDS:
+        registry[env_id], registry_counts[env_id] = counted(f"make_vec({env_id!r}, {NUM_ENVS})",
+                                                            lambda: run_registry_vec(dev, env_id))
+    single_cartpole, single_cartpole_counts = counted('make("phys2d/CartPole-v1")', lambda: run_registry_single(dev))
+    single, single_counts = {}, {}
+    for env_id in SINGLE_IDS:
+        single[env_id], single_counts[env_id] = counted(f"FunctionalTorchEnv({env_id})",
+                                                        lambda: run_single_env(dev, env_id))
     check(head_counts == {"cartpole_rollout_fused": 2 * HEADLINE_BLOCKS, **gen_zero},
           f"headline launches {head_counts}")
     check(not any(vec_counts.values()) and not any(entry_counts.values()),
@@ -2111,6 +2398,31 @@ def smoke(xml_path: str) -> int:
     check(swim_counts == swim_want, f"swimmer path launches {swim_counts}, want {swim_want}")
     mjcf_want = {"cartpole_rollout_fused": 0, **gen_zero, more["mjcf"].build_name: MJCF_ROLLOUT}
     check(mjcf_counts == mjcf_want, f"mjcf path launches {mjcf_counts}, want {mjcf_want}")
+    # the registry's paths launch a step as the direct paths do: CartPole none,
+    # HalfCheetah one, the lander two (the transition, the reset tick drawn
+    # for every lane) after one at reset, the walker two and a terrain launch
+    reg_steps = REGISTRY_WARM_STEPS + REGISTRY_ROLLOUT
+    registry_want = {
+        "CartPole-v1": {},
+        "HalfCheetah-v5": {steps["half_cheetah"].build_name: reg_steps},
+        "LunarLander-v3": {planar.build_name: 1 + 2 * reg_steps},
+        "BipedalWalkerHardcore-v3": {walker.build_name: 1 + 2 * reg_steps, "walker_terrain": 1 + reg_steps},
+    }
+    for env_id, counts in registry_counts.items():
+        want = {"cartpole_rollout_fused": 0, **gen_zero, **registry_want[env_id]}
+        check(counts == want, f"make_vec({env_id!r}) path launches {counts}, want {want}")
+        registry[env_id]["launches"] = {k: v for k, v in counts.items() if v}
+        registry[env_id]["launches_a_step"] = {k: (v - (1 if env_id in ("LunarLander-v3", "BipedalWalkerHardcore-v3")
+                                                      else 0)) / reg_steps for k, v in counts.items() if v}
+    check(not any(single_cartpole_counts.values()), f"make('phys2d/CartPole-v1') launched {single_cartpole_counts}")
+    # a single env's step is one transition: one launch; the lander's reset one more
+    single_want = {"HalfCheetah-v5": {steps["half_cheetah"].build_name: SINGLE_STEPS},
+                   "Ant-v5": {steps["ant"].build_name: SINGLE_STEPS},
+                   "LunarLander-v3": {planar.build_name: 1 + SINGLE_STEPS}}
+    for env_id, counts in single_counts.items():
+        want = {"cartpole_rollout_fused": 0, **gen_zero, **single_want[env_id]}
+        check(counts == want, f"FunctionalTorchEnv({env_id}) path launches {counts}, want {want}")
+        single[env_id]["launches"] = {k: v for k, v in counts.items() if v}
     main_launches = head_counts["cartpole_rollout_fused"]
     print(f"main path: host-clock env-steps/s headline bf16={headline['torch.bfloat16']:.0f} "
           f"f32={headline['torch.float32']:.0f}, CartPole TorchVectorEnv.rollout(256)={vec_rate:.0f}, "
@@ -2176,6 +2488,29 @@ def smoke(xml_path: str) -> int:
           f"N={BIPEDAL_RAGGED}: {walker_ragged}; deterministic", flush=True)
     terrain_cmp = [compare_terrain_with_twin(n, dev) for n in (NUM_ENVS, BIPEDAL_RAGGED)]
     print(f"walker_terrain kernel vs twin, normal and hardcore: {terrain_cmp}", flush=True)
+
+    # -- the registry paths' kernels at a batch of one and a ragged batch -----
+    small = {"articulated_step[half_cheetah]": {}, "articulated_step[ant]": {},
+             "planar_step[lunar_lander]": {}, "planar_step[bipedal_walker]": {}}
+    for n_small in (1, RAGGED_ENVS):
+        for name in ("half_cheetah", "ant"):
+            inputs = articulated_states(steps[name].model, n_small, dev, seed=n_small)
+            dq, dqd, lanes, bits = compare_articulated_with_twin(steps[name], *inputs)
+            small[f"articulated_step[{name}]"][n_small] = {
+                "max_abs_err": max(dq, dqd), "bit_equal": bits, "small_angle_lanes": lanes,
+                "events_ms": cuda_ms(lambda: steps[name](*inputs), 50, 5)}
+        for label, step, inputs in (("lunar_lander", planar, planar_states(n_small, dev, seed=n_small)),
+                                    ("bipedal_walker", walker, walker_states(n_small, dev, seed=n_small))):
+            cmp = compare_planar_with_twin(step, inputs, every_branch=False)
+            cmp["events_ms"] = cuda_ms(lambda: step(*inputs), 50, 5)
+            small[f"planar_step[{label}]"][n_small] = cmp
+    print(f"kernels vs twins at N=1 and N={RAGGED_ENVS}: {json.dumps(small)}", flush=True)
+    for env_id in REGISTRY_IDS:
+        registry[env_id]["bit_equal_to_hand_built"] = compare_registry_with_hand_built(dev, env_id, registry[env_id])
+    for env_id in SINGLE_IDS:
+        tol = BIPEDAL_CHECK_TOL if env_id.startswith("LunarLander") else SWIMMER_CHECK_TOL
+        single[env_id]["device_vs_cpu"] = compare_single_env_with_cpu(env_id, single[env_id], tol)
+    device_spaces = run_device_spaces(dev)
 
     # -- times ----------------------------------------------------------------
     results = {}
@@ -2371,7 +2706,8 @@ def smoke(xml_path: str) -> int:
     print(f"ant TorchVectorEnv step under torch.profiler (N={NUM_ENVS}): {json.dumps(ant_profile)}", flush=True)
     next(k for k in kernels if k["name"] == "articulated_step[ant]")["env_step_profile"] = ant_profile
     for name in CLASSIC_BENCH_ROWS:
-        classic[name]["env_step_profile"] = profile_env_step(dev, classic_env(name), name, CLASSIC_ENVS[name][2])
+        classic[name]["env_step_profile"] = profile_env_step(dev, classic_env(name), name,
+                                                             step_limit(CLASSIC_ENVS[name][0]))
         print(f"{name} TorchVectorEnv step under torch.profiler (N={NUM_ENVS}): "
               f"{json.dumps(classic[name]['env_step_profile'])}", flush=True)
     car["env_step_profile"] = profile_env_step(
@@ -2386,7 +2722,7 @@ def smoke(xml_path: str) -> int:
     for hardcore in (False, True):
         name = "bipedal_walker_hardcore" if hardcore else "bipedal_walker"
         bipedal[name]["env_step_profile"] = profile_env_step(
-            dev, walker_env(hardcore), name, walker_env(hardcore).max_episode_steps, "step_kernel", launches_a_step=2)
+            dev, walker_env(hardcore), name, step_limit(walker_id(hardcore)), "step_kernel", launches_a_step=2)
         print(f"{name} TorchVectorEnv step under torch.profiler (N={NUM_ENVS}): "
               f"{json.dumps(bipedal[name]['env_step_profile'])}", flush=True)
         bipedal[name]["device_vs_cpu"] = compare_bipedal_with_cpu(dev, hardcore)
@@ -2430,6 +2766,31 @@ def smoke(xml_path: str) -> int:
                                          "ppo half_cheetah": ppo_counts["half_cheetah"][build_name]}
             entry["launches"] += ppo_counts["half_cheetah"][build_name]
 
+    # the registry's paths are part of the main path: their launches join each kernel's count
+    kernel_build = {"cartpole_rollout_fused": "cartpole_rollout_fused", "walker_terrain": "walker_terrain",
+                    "planar_step[lunar_lander]": planar.build_name, "planar_step[bipedal_walker]": walker.build_name,
+                    **{f"articulated_step[{name}]": step.build_name for name, step in steps.items()}}
+    registry_paths = {**{f"make_vec({env_id!r})": registry_counts[env_id] for env_id in REGISTRY_IDS},
+                      'make("phys2d/CartPole-v1")': single_cartpole_counts,
+                      **{f"FunctionalTorchEnv({env_id})": single_counts[env_id] for env_id in SINGLE_IDS}}
+    for entry in kernels:
+        build_name = kernel_build.get(entry["name"])
+        by_path = {path: counts[build_name] for path, counts in registry_paths.items() if counts.get(build_name)}
+        if by_path:
+            earlier = entry.get("launches_by_path", {"direct TorchVectorEnv paths": entry["launches"]})
+            entry["launches_by_path"] = {**earlier, **by_path}
+            entry["launches"] += sum(by_path.values())
+        if entry["name"] in small:
+            entry["small_batches"] = small[entry["name"]]
+    print(json.dumps({"registry": {
+        "card": card_line(), "envs": NUM_ENVS,
+        "make_vec": {env_id: {k: v for k, v in r.items() if not k.startswith("_")} for env_id, r in registry.items()},
+        "make": single_cartpole,
+        "functional_torch_env": {env_id: {k: v for k, v in r.items() if not k.startswith("_")}
+                                 for env_id, r in single.items()},
+        "kernels_small_batches": small,
+        "device_spaces": device_spaces,
+    }}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     result = {"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}
     print(json.dumps(result), flush=True)

@@ -78,10 +78,6 @@ FRICTION = 2.5
 N_LIDAR = 10
 _LIDAR_SAMPLES = 24  # ray-march resolution against the heightfield
 
-#: Step limits of BipedalWalker-v3 and of its hardcore variant.
-MAX_EPISODE_STEPS = 1600
-HARDCORE_MAX_EPISODE_STEPS = 2000
-
 
 def _poly_props(poly_px, density):
     """mass, centroid, inertia-about-centroid of a polygon body."""
@@ -371,11 +367,6 @@ class BipedalWalkerFunctional(FuncEnv):
         super().__init__(options)
         self.observation_space = spaces.Box(_OBS_LOW, _OBS_HIGH)
         self.action_space = spaces.Box(-np.ones(4, np.float32), np.ones(4, np.float32))
-
-    @property
-    def max_episode_steps(self) -> int:
-        """The step limit the JAX package registers for this variant."""
-        return HARDCORE_MAX_EPISODE_STEPS if self.hardcore else MAX_EPISODE_STEPS
 
     def reset_draws(self, rng: torch.Generator, n: int) -> tuple:
         """The U[0, 1) draws of ``n`` resets: terrain steps (n, 200), obstacle

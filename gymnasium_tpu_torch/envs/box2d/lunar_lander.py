@@ -78,11 +78,15 @@ class LunarLanderFunctional(FuncEnv):
     def initial(self, rng: torch.Generator, params: dyn.LunarParams | None = None):
         return tree_map(lambda x: x[0], self.initial_batched(rng, 1, params))
 
-    def initial_batched(self, rng: torch.Generator, n: int, params: dyn.LunarParams | None = None):
+    def reset_draws(self, rng: torch.Generator, n: int) -> tuple:
+        """The draws of ``n`` resets: ``terrain_u`` (n, CHUNKS + 1) and ``force_u`` (n, 2)."""
         terrain_u = torch.rand((n, dyn.CHUNKS + 1), generator=rng, device=rng.device)
         # jax.random.uniform(minval=-1, maxval=1) is u * (max - min) + min
         force_u = torch.rand((n, 2), generator=rng, device=rng.device) * 2.0 - 1.0
-        return self.reset_values(terrain_u, force_u, params)
+        return terrain_u, force_u
+
+    def initial_batched(self, rng: torch.Generator, n: int, params: dyn.LunarParams | None = None):
+        return self.reset_values(*self.reset_draws(rng, n), params)
 
     def transition_values(self, state, action, dispersion, wind=None, params: dyn.LunarParams | None = None):
         """The transition for given draws: ``dispersion ~ U[-1, 1)`` (N, 2)
@@ -99,13 +103,17 @@ class LunarLanderFunctional(FuncEnv):
             action = torch.clamp(action.to(torch.float32), -1.0, 1.0)
         return dyn.full_step(state, action, dispersion, wind, p, self.continuous)
 
-    def transition(self, state, action, rng: torch.Generator, params: dyn.LunarParams | None = None):
-        n = state["body"].shape[0]
+    def transition_draws(self, rng: torch.Generator, n: int) -> tuple:
+        """The draws of ``n`` transitions: ``dispersion`` (n, 2) and, with
+        wind enabled, ``wind`` (n, 2), else None."""
         dispersion = torch.rand((n, 2), generator=rng, device=rng.device) * 2.0 - 1.0
         wind = None
         if self.enable_wind:
             wind = torch.rand((n, 2), generator=rng, device=rng.device) * 2.0 - 1.0
-        return self.transition_values(state, action, dispersion, wind, params)
+        return dispersion, wind
+
+    def transition(self, state, action, rng: torch.Generator, params: dyn.LunarParams | None = None):
+        return self.transition_values(state, action, *self.transition_draws(rng, state["body"].shape[0]), params)
 
     def observation(self, state, rng, params: dyn.LunarParams | None = None):
         return dyn.observe(state["body"], state["leg1"], state["leg2"]).to(torch.float32)

@@ -66,6 +66,10 @@ class FuncEnv:
     - ``observation(state, rng, params) -> obs``
     - ``reward(state, action, next_state, rng, params) -> reward``
     - ``terminal(state, rng, params) -> bool``
+
+    ``state_info``/``transition_info`` give the single-env adapter's info
+    dicts; ``render_init``/``render_image``/``render_close`` raise until an
+    env brings a renderer.
     """
 
     observation_space: Any
@@ -94,9 +98,44 @@ class FuncEnv:
         """Whether ``state`` is terminal."""
         raise NotImplementedError
 
+    # -- info hooks --------------------------------------------------------
+
+    def state_info(self, state, params: Any = None) -> dict[str, Any]:
+        """Info dict for an initial state."""
+        return {}
+
+    def transition_info(self, state, action, next_state, params: Any = None) -> dict[str, Any]:
+        """Info dict for a transition."""
+        return {}
+
     def get_default_params(self, **kwargs: Any) -> Any:
         """Default dynamics parameters."""
         return None
+
+    # -- transformation ----------------------------------------------------
+
+    def transform(self, func: Callable[[Callable], Callable]) -> None:
+        """Rebind every hook through ``func`` in place (e.g. ``torch.compile``),
+        as the JAX package's ``FuncEnv.transform`` does with ``jax.jit``."""
+        self.initial = func(self.initial)  # type: ignore[method-assign]
+        self.transition = func(self.transition)  # type: ignore[method-assign]
+        self.observation = func(self.observation)  # type: ignore[method-assign]
+        self.reward = func(self.reward)  # type: ignore[method-assign]
+        self.terminal = func(self.terminal)  # type: ignore[method-assign]
+
+    # -- rendering ---------------------------------------------------------
+
+    def render_image(self, state, render_state, params: Any = None):
+        """Render ``state`` into ``(render_state, image)``."""
+        raise NotImplementedError
+
+    def render_init(self, **kwargs: Any):
+        """Initialise the host-side render state."""
+        raise NotImplementedError
+
+    def render_close(self, render_state) -> None:
+        """Close the host-side render state."""
+        raise NotImplementedError
 
 
 def vectorize_func_env(func_env: FuncEnv, num_envs: int) -> FuncEnv:

@@ -293,6 +293,13 @@ class Box(Space[np.ndarray]):
         return sample.to(torch.float32 if self.dtype.kind == "f" else torch.int32)
 
     def contains(self, x: Any) -> bool:
+        if isinstance(x, torch.Tensor) and x.device.type != "cpu":
+            # as for the same values on the host: cast to the space's dtype,
+            # then one read of the device's answer
+            if tuple(x.shape) != self.shape:
+                return False
+            cast = x.to(torch.from_numpy(np.empty((), self.dtype)).dtype)
+            return bool(self.contains_torch(cast).item())
         if not isinstance(x, np.ndarray):
             try:
                 x = np.asarray(x, dtype=self.dtype)

@@ -11,7 +11,7 @@ from typing import Any, Iterable
 import numpy as np
 import torch
 
-from gymnasium_tpu_torch.spaces.space import Space, sample_device
+from gymnasium_tpu_torch.spaces.space import Space, numpy_dtype, sample_device
 
 
 class Discrete(Space[np.int64]):
@@ -109,6 +109,12 @@ class Discrete(Space[np.int64]):
         casts to the space's."""
         if isinstance(x, int):
             as_np = self.dtype.type(x)
+        elif isinstance(x, torch.Tensor):
+            # a 0-d integer tensor on any device: its value read once
+            dtype = numpy_dtype(x.dtype)
+            if x.shape != () or not np.issubdtype(dtype, np.integer):
+                return False
+            as_np = dtype.type(x.item())
         elif (
             hasattr(x, "dtype")
             and np.issubdtype(x.dtype, np.integer)

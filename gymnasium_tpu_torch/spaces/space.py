@@ -125,6 +125,16 @@ class Space(Generic[T_cov]):
         self.__dict__.update(state)
 
 
+def numpy_dtype(dtype) -> np.dtype:
+    """The numpy counterpart of a torch or numpy dtype (bfloat16 has none and
+    maps to float32, the type it widens to losslessly)."""
+    if isinstance(dtype, torch.dtype):
+        if dtype == torch.bfloat16:
+            return np.dtype(np.float32)
+        return torch.empty((), dtype=dtype).numpy().dtype
+    return np.dtype(dtype)
+
+
 def sample_device(generator: torch.Generator, device) -> torch.device:
     """The device a sampler draws on: ``device``, else the generator's."""
     return generator.device if device is None else torch.device(device)

@@ -1,5 +1,14 @@
-"""Wrappers of the torch port (the functional, device-side ones so far)."""
+"""Wrappers of the torch port: the functional, device-side ones
+(:mod:`~gymnasium_tpu_torch.wrappers.func`) and the single-env ones ``make``
+applies (:mod:`~gymnasium_tpu_torch.wrappers.common`)."""
 
+from gymnasium_tpu_torch.wrappers.common import (
+    Autoreset,
+    OrderEnforcing,
+    PassiveEnvChecker,
+    RecordEpisodeStatistics,
+    TimeLimit,
+)
 from gymnasium_tpu_torch.wrappers.func import (
     ClipAction,
     ClipReward,
@@ -23,6 +32,11 @@ from gymnasium_tpu_torch.wrappers.func import (
 )
 
 __all__ = [
+    "Autoreset",
+    "OrderEnforcing",
+    "PassiveEnvChecker",
+    "RecordEpisodeStatistics",
+    "TimeLimit",
     "ClipAction",
     "ClipReward",
     "DelayObservation",

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 import gymnasium_tpu.envs as jax_envs
+import gymnasium_tpu_torch as torch_gym
 from chip_smoke import walker_states
 from gymnasium_tpu.envs.box2d import bipedal_walker as BW
 from gymnasium_tpu_torch.envs.box2d import BipedalWalkerFunctional, BipedalWalkerHardcore
@@ -62,8 +63,10 @@ def test_spaces_and_step_limits_match_jax(hardcore):
         assert a.shape == b.shape and a.dtype == b.dtype
         np.testing.assert_array_equal(a.low, b.low)
         np.testing.assert_array_equal(a.high, b.high)
-    spec = jax_envs.registry["BipedalWalkerHardcore-v3" if hardcore else "BipedalWalker-v3"]
-    assert port.max_episode_steps == spec.max_episode_steps == (2000 if hardcore else 1600)
+    env_id = "BipedalWalkerHardcore-v3" if hardcore else "BipedalWalker-v3"
+    spec = jax_envs.registry[env_id]
+    assert torch_gym.spec(env_id).max_episode_steps == spec.max_episode_steps == (2000 if hardcore else 1600)
+    assert torch_gym.spec(env_id).kwargs == spec.kwargs
     assert port.hardcore == hardcore
 
 

@@ -69,8 +69,9 @@ def test_batch_space_matches_jax():
     x = md.sample_torch(torch.Generator(), (100,))
     assert x.shape == (100, 8) and bool(md.contains_torch(x))
     assert md.contains(md.sample())
-    with pytest.raises(TypeError):
-        batch_space(md, 2)
+    # a batched MultiDiscrete batches again, to the Box that JAX's batch_space gives
+    again, jagain = batch_space(md, 2), jax_batch_space(jax_batch_space(jspaces.Discrete(3), 8), 2)
+    assert type(again).__name__ == type(jagain).__name__ == "Box" and repr(again) == repr(jagain)
 
 
 def test_seeding_matches_jax_host_seeding():

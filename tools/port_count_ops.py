@@ -33,18 +33,22 @@ from gymnasium_tpu_torch.ops import planar_step  # noqa: E402
 from gymnasium_tpu_torch.vector import TorchVectorEnv  # noqa: E402
 
 
+ENV_IDS = {
+    "bipedal_walker": "BipedalWalker-v3",
+    "bipedal_walker_hardcore": "BipedalWalkerHardcore-v3",
+    "lunar_lander": "LunarLander-v3",
+}
+
+
 def env_factory(name: str):
-    """``(functional env, step limit)`` of an env name."""
-    if name.startswith("bipedal_walker"):
-        from gymnasium_tpu_torch.envs.box2d import BipedalWalkerFunctional
+    """``(functional env, step limit)`` of an env name, from the port's registry."""
+    import gymnasium_tpu_torch as gym
+    from gymnasium_tpu_torch.envs.registration import load_env_creator
 
-        func = BipedalWalkerFunctional({"hardcore": name.endswith("hardcore")})
-        return func, func.max_episode_steps
-    if name == "lunar_lander":
-        from gymnasium_tpu_torch.envs.box2d.lunar_lander import LunarLanderFunctional
-
-        return LunarLanderFunctional(), 1000
-    raise ValueError(f"unknown env {name!r}")
+    if name not in ENV_IDS:
+        raise ValueError(f"unknown env {name!r}")
+    spec = gym.spec(ENV_IDS[name])
+    return load_env_creator(spec.torch_entry_point)(spec.kwargs or None), spec.max_episode_steps
 
 
 class Counter(TorchDispatchMode):
