@@ -88,6 +88,15 @@ read just after:
   samples drawn on the card at 4096. The registry paths' kernels (the
   articulated builds of HalfCheetah and Ant, the lander's and the walker's
   planar builds) are held against their twins at N=1 and N=33 too;
+- the host env classes: ``gymnasium_tpu_torch.make(id)`` with no device
+  (the card) for the eleven MuJoCo-class v5 ids (:data:`HOST_IDS`):
+  ``reset(seed=0)`` (no launch) and 20 steps of numpy actions, one launch
+  of the robot's build an env step (Swimmer: four of its ``frame_skip=1``
+  build), host-clock ms a step. After the kernel timings, the first five
+  steps again on the same env made with ``device="cpu"`` from the card's
+  state before each step, five profiled steps of HalfCheetah and Ant, and
+  one ``rgb_array`` frame of each; every robot's build is held against its
+  twin at N=1, with its CUDA-event time a call there;
 - the PPO trainer at ``tools/bench_ppo.py``'s widths: CartPole-v1 (4096 envs,
   64 steps a rollout, hidden (128, 128)) and HalfCheetah-v5 (4096 x 64,
   hidden (256, 256), with NormalizeObservation, NormalizeReward and
@@ -113,7 +122,8 @@ pace where a call's host work outlasts its kernel. It counts each library's SASS
 prints the card's name and power limit, one ``{"bipedal": {...},
 "wrappers": {...}}`` line, one ``{"carracing": {...}, "swimmer":
 {...}, "mjcf": {...}}`` line, one ``{"classic": {...}}`` line,
-one ``{"ppo": {...}}`` line, one ``{"registry": {...}}`` line, one
+one ``{"ppo": {...}}`` line, one ``{"host_envs": {...}}`` line, one
+``{"registry": {...}}`` line, one
 ``{"kernels": [...]}`` line, and last the line ``{"ok": true, "device":
 {...}}``. Any failed check
 raises, so the exit code is 0 only when every phase passed. Without a CUDA
@@ -123,6 +133,7 @@ device it exits non-zero and prints no result.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import copy
 import functools
 import json
@@ -310,6 +321,32 @@ REGISTRY_ROLLOUT = 100
 SINGLE_IDS = ("HalfCheetah-v5", "Ant-v5", "LunarLander-v3")
 SINGLE_STEPS = 20
 RAGGED_ENVS = 33
+# The host env phase: gymnasium_tpu_torch.make(id) with no device (the card)
+# for each MuJoCo-class v5 id, by the key of its articulated build and its
+# launches an env step (Swimmer: four of its frame_skip=1 build, the drag
+# between them). reset(seed=0), then HOST_STEPS steps of numpy actions; the
+# first HOST_CHECK_STEPS against the same env made with device="cpu", set to
+# the card's state before each step, within HOST_CHECK_TOL * (1 + |cpu|), the
+# tolerance of the single-env phase. HOST_PROFILED take PROFILED_ENV_STEPS
+# more steps under torch.profiler and render one rgb_array frame each.
+HOST_IDS = {
+    "HalfCheetah-v5": ("half_cheetah", 1),
+    "Ant-v5": ("ant", 1),
+    "Hopper-v5": ("hopper", 1),
+    "Walker2d-v5": ("walker2d_v5", 1),
+    "InvertedPendulum-v5": ("inverted_pendulum", 1),
+    "InvertedDoublePendulum-v5": ("inverted_double_pendulum", 1),
+    "Reacher-v5": ("reacher", 1),
+    "Pusher-v5": ("pusher_v5", 1),
+    "Humanoid-v5": ("humanoid", 1),
+    "HumanoidStandup-v5": ("humanoidstandup", 1),
+    "Swimmer-v5": ("swimmer_fs1", 4),
+}
+HOST_STEPS = 20
+HOST_CHECK_STEPS = 5
+HOST_CHECK_TOL = 1e-4
+HOST_PROFILED = ("HalfCheetah-v5", "Ant-v5")
+TRACE_OPENING_S = 0.05  # untimed host-env steps that open each profiled trace
 
 # The MJCF phase's model, written to a temporary file and compiled through
 # load_model: a planar chain with a slide root, two limited hinges, two
@@ -2000,6 +2037,162 @@ def compare_single_env_with_cpu(env_id: str, run: dict, tol: float) -> dict:
     return {"max_abs_dev": worst, "tolerance": tol}
 
 
+def host_actions(env, steps: int, seed: int = 0) -> np.ndarray:
+    """``steps`` actions inside ``env``'s Box, from a numpy generator."""
+    space = env.action_space
+    return np.random.default_rng(seed).uniform(space.low, space.high, (steps, *space.shape)).astype(np.float32)
+
+
+def run_host_env(dev, env_id: str, steps: int = HOST_STEPS) -> dict:
+    """``gymnasium_tpu_torch.make(env_id)`` with no device, so on the card:
+    ``reset(seed=0)``, then ``steps`` numpy actions. Records the launches at
+    reset and over the steps (every count set to 0 before each), the
+    host-clock ms a step (each step reads its state back to the host, as the
+    API asks), and for :func:`compare_host_env_with_cpu` the state before
+    each step and the step's outputs."""
+    import gymnasium_tpu_torch as gym
+    from gymnasium_tpu_torch.ops import articulated_step as art
+
+    env = gym.make(env_id)
+    check(env.unwrapped.device.type == torch.device(dev).type, f"{env_id}: make's env on {env.unwrapped.device}")
+    check(wrapper_chain(env)[:3] == ["TimeLimit", "OrderEnforcing", "PassiveEnvChecker"],
+          f"{env_id}: make's wrappers {wrapper_chain(env)}")
+    actions = host_actions(env, steps)
+    art.launches.clear()
+    start = time.perf_counter()
+    obs, _ = env.reset(seed=0)
+    reset_ms = (time.perf_counter() - start) * 1e3
+    reset_launches = dict(art.launches)
+    art.launches.clear()
+    states, outs = [], []
+    start = time.perf_counter()
+    for action in actions:
+        states.append(env.unwrapped.get_state())
+        outs.append(env.step(action))
+    seconds = time.perf_counter() - start
+    step_launches = dict(art.launches)
+    for o in outs:
+        check(o[0].dtype == np.float64 and o[0].shape == env.observation_space.shape, f"{env_id}: obs {o[0].shape}")
+        check(bool(np.isfinite(o[0]).all()) and isinstance(o[1], float), f"{env_id}: obs not finite or reward not a float")
+    env.close()
+    return {"steps": steps, "ms_a_step": seconds * 1e3 / steps, "reset_ms": reset_ms,
+            "reset_launches": reset_launches, "step_launches": step_launches,
+            "terminations": sum(bool(o[2]) for o in outs),
+            "_states": states, "_actions": actions, "_outs": outs}
+
+
+def compare_host_env_with_cpu(env_id: str, run: dict, checked: int = HOST_CHECK_STEPS,
+                              tol: float = HOST_CHECK_TOL) -> dict:
+    """The first ``checked`` steps of :func:`run_host_env` on the same env
+    made with ``device="cpu"``, set to the card's state before each step
+    (a float32 difference does not compound). Raises unless ``terminated``
+    is equal and the observation, the reward and the new ``qpos``/``qvel``
+    are within ``tol * (1 + |cpu|)``. Returns the largest deviations."""
+    import gymnasium_tpu_torch as gym
+
+    env = gym.make(env_id, device="cpu")
+    env.reset(seed=0)
+    worst = {"obs": 0.0, "reward": 0.0, "state": 0.0}
+    for i in range(checked):
+        env.unwrapped.set_state(*run["_states"][i])
+        card, cpu = run["_outs"][i], env.step(run["_actions"][i])
+        for label, got, want in (("obs", card[0], cpu[0]), ("reward", np.float64(card[1]), np.float64(cpu[1])),
+                                 ("state", np.concatenate(run["_states"][i + 1]), env.unwrapped.state_vector())):
+            err = np.abs(got - want)
+            check(bool((err <= tol * (1.0 + np.abs(want))).all()),
+                  f"{env_id} step {i}: {label} differs from the CPU's by {float(err.max())}")
+            worst[label] = max(worst[label], float(err.max()))
+        check(card[2] == cpu[2], f"{env_id} step {i}: terminated {card[2]} on the card, {cpu[2]} on the CPU")
+    env.close()
+    return {"max_abs_dev": worst, "checked_steps": checked, "tolerance": tol}
+
+
+def profile_host_env_step(dev, env_id: str, kernel: str, steps: int = PROFILED_ENV_STEPS) -> dict:
+    """``torch.profiler`` over ``steps`` host-env steps of ``make(env_id)`` on
+    the card, after a reset and an unprofiled step: kernels, memory copies
+    and stream synchronisations a step, the device's busy time a step and its
+    share of the profiled wall time, and ``kernel``'s device time a step.
+    The first launches of a trace can be lost, as in :func:`device_ms`: a
+    trace that opened with one untimed HalfCheetah step (0.2 ms) held 4 of
+    its 6 launches in every try of a run, where one untimed Ant step (4 ms)
+    lost none. So each trace opens with untimed steps for
+    :data:`TRACE_OPENING_S` and a synchronisation; the timed steps and a
+    closing synchronisation run inside a ``host_env_steps`` range, and a
+    device event counts where it starts inside that range's span on the
+    host's clock, which CUPTI's device times share: every timed step is
+    launched after the range opens and done before it closes. A trace that
+    did not see one launch of ``kernel`` a step is taken again, up to five
+    times."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import gymnasium_tpu_torch as gym
+
+    cuda = torch.autograd.DeviceType.CUDA
+    env = gym.make(env_id)
+    env.reset(seed=0)
+    actions = host_actions(env, 2 + steps, seed=1)
+    env.step(actions[0])
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            opened = time.perf_counter()
+            env.step(actions[1])
+            while time.perf_counter() - opened < TRACE_OPENING_S:
+                env.step(actions[1])
+            torch.cuda.synchronize()
+            with record_function("host_env_steps"):
+                start = time.perf_counter()
+                for action in actions[2:]:
+                    env.step(action)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - start) * 1e3 / steps
+        events = prof.events()
+        host = [e.time_range for e in events if e.name == "host_env_steps" and e.device_type != cuda]
+        check(len(host) == 1, f"{env_id}: {len(host)} host ranges of host_env_steps in a trace")
+        lo, hi = host[0].start, host[0].end
+        everywhere = [e for e in events if e.device_type == cuda and not e.is_user_annotation]
+        device = [e for e in everywhere if lo <= e.time_range.start < hi]
+        copies = [e for e in device if e.name.startswith(("Memcpy", "Memset"))]
+        kernels = [e for e in device if not e.name.startswith(("Memcpy", "Memset"))]
+        own = [e for e in kernels if kernel in e.name]
+        if len(own) == steps:
+            break
+        starts = [round(e.time_range.start - lo) for e in everywhere if kernel in e.name]
+        print(f"profile_host_env_step: a trace of {env_id} saw {len(own)} of {steps} launches of {kernel} "
+              f"in the range; the trace's start at {starts} us from the range's, which lasts {round(hi - lo)} us",
+              flush=True)
+    check(len(own) == steps, f"{env_id}: the profiler saw {len(own)} of {steps} launches of {kernel}")
+    env.close()
+    syncs = [e for e in events if e.name == "cudaStreamSynchronize" and lo <= e.time_range.start < hi]
+    busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3 / steps
+    by_name = collections.Counter()
+    for e in kernels:
+        by_name[e.name[:80]] += e.time_range.elapsed_us()
+    return {"env": env_id, "profiled_steps": steps, "profiled_step_ms": wall_ms,
+            "kernels_a_step": len(kernels) / steps, "copies_a_step": len(copies) / steps,
+            "stream_syncs_a_step": len(syncs) / steps,
+            "device_busy_ms_a_step": busy_ms, "device_busy_share": busy_ms / wall_ms,
+            "kernel_device_ms_a_step": sum(e.time_range.elapsed_us() for e in own) / 1e3 / steps,
+            "top_kernels_device_ms_a_step": {k: us / 1e3 / steps for k, us in by_name.most_common(5)}}
+
+
+def render_host_frame(env_id: str) -> dict:
+    """One ``rgb_array`` frame of ``make(env_id, render_mode="rgb_array")`` on
+    the card after ``reset(seed=0)``: (480, 480, 3) uint8 and not constant."""
+    import gymnasium_tpu_torch as gym
+
+    env = gym.make(env_id, render_mode="rgb_array")
+    env.reset(seed=0)
+    start = time.perf_counter()
+    frame = env.render()
+    ms = (time.perf_counter() - start) * 1e3
+    env.close()
+    check(isinstance(frame, np.ndarray) and frame.shape == (480, 480, 3) and frame.dtype == np.uint8,
+          f"{env_id}: frame {getattr(frame, 'shape', None)} {getattr(frame, 'dtype', None)}")
+    colours = int(np.unique(frame.reshape(-1, 3), axis=0).shape[0])
+    check(colours > 1, f"{env_id}: the frame is one colour")
+    return {"shape": list(frame.shape), "dtype": str(frame.dtype), "colours": colours, "render_ms": ms}
+
+
 def run_device_spaces(dev, n: int = NUM_ENVS) -> dict:
     """``sample_torch`` of ``Tuple(Box, Discrete)``, ``Dict`` and
     ``MultiBinary`` at batch ``n`` on the card: on the device, inside the
@@ -2272,6 +2465,14 @@ def smoke(xml_path: str) -> int:
     from gymnasium_tpu_torch.ops import planar_step as pl
     from gymnasium_tpu_torch.ops import walker_terrain as wt
 
+    began = time.perf_counter()
+    laps = [began]
+
+    def lap(label: str) -> None:
+        """Print the seconds since the script's start and since the last lap."""
+        laps.append(time.perf_counter())
+        print(f"elapsed after {label}: {laps[-1] - began:.1f} s (+{laps[-1] - laps[-2]:.1f} s)", flush=True)
+
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     print(f"device: {kind}", flush=True)
@@ -2304,9 +2505,14 @@ def smoke(xml_path: str) -> int:
         ptxas[name] = ptxas_summary(info["log"])
         print(f"nvcc {name}: {info['seconds']:.2f} s, {ptxas[name]}", flush=True)
         print(info["log"].strip(), flush=True)
-    sass = {name: sass_instructions(build.library_path(name)) for name in build.KERNELS}
-    sass.update({name: sass_instructions(build.library_path(name, text)) for name, text in generated.items()})
+    lap("the builds")
+    # one cuobjdump a library, all at once
+    libraries = {name: build.library_path(name) for name in build.KERNELS}
+    libraries.update({name: build.library_path(name, text) for name, text in generated.items()})
+    with concurrent.futures.ThreadPoolExecutor(len(libraries)) as pool:
+        sass = dict(zip(libraries, pool.map(sass_instructions, libraries.values())))
     print("SASS instructions a library: " + ", ".join(f"{k} {v}" for k, v in sass.items()), flush=True)
+    lap("the SASS counts")
 
     # -- main path: each path with every launch count at 0 just before --------
     # Counts by kernel: the CartPole rollout, and each generated build by its
@@ -2321,11 +2527,12 @@ def smoke(xml_path: str) -> int:
         wt.launches = 0
         art.launches.clear()
         pl.launches.clear()
+        start = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         counts = {"cartpole_rollout_fused": cr.launches, **gen_zero, **art.launches, **pl.launches,
                   "walker_terrain": wt.launches}
-        print(f"path {label}: launches {counts}", flush=True)
+        print(f"path {label}: {time.perf_counter() - start:.2f} s, launches {counts}", flush=True)
         return out, counts
 
     print(f"clocks.sm, power.draw before the warm-up block: {query_gpu('clocks.sm,power.draw')}", flush=True)
@@ -2369,6 +2576,11 @@ def smoke(xml_path: str) -> int:
     for env_id in SINGLE_IDS:
         single[env_id], single_counts[env_id] = counted(f"FunctionalTorchEnv({env_id})",
                                                         lambda: run_single_env(dev, env_id))
+    host, host_counts = {}, {}
+    for env_id in HOST_IDS:
+        host[env_id], host_counts[env_id] = counted(f"make({env_id!r})", lambda: run_host_env(dev, env_id))
+        print(f"make({env_id!r}) on the card: {host[env_id]['ms_a_step']:.4f} ms a step (host clock, "
+              f"{HOST_STEPS} steps), reset {host[env_id]['reset_ms']:.2f} ms", flush=True)
     check(head_counts == {"cartpole_rollout_fused": 2 * HEADLINE_BLOCKS, **gen_zero},
           f"headline launches {head_counts}")
     check(not any(vec_counts.values()) and not any(entry_counts.values()),
@@ -2423,6 +2635,18 @@ def smoke(xml_path: str) -> int:
         want = {"cartpole_rollout_fused": 0, **gen_zero, **single_want[env_id]}
         check(counts == want, f"FunctionalTorchEnv({env_id}) path launches {counts}, want {want}")
         single[env_id]["launches"] = {k: v for k, v in counts.items() if v}
+    # a host env step is one launch of the robot's build (Swimmer: four of its
+    # frame_skip=1 build); its reset launches none
+    host_builds = {**steps, "swimmer_fs1": more["swimmer_fs1"]}
+    for env_id, counts in host_counts.items():
+        key, per_step = HOST_IDS[env_id]
+        build_name = host_builds[key].build_name
+        want = {"cartpole_rollout_fused": 0, **gen_zero, build_name: per_step * HOST_STEPS}
+        check(counts == want, f"make({env_id!r}) path launches {counts}, want {want}")
+        check(host[env_id]["reset_launches"] == {}, f"make({env_id!r}): reset launched {host[env_id]['reset_launches']}")
+        check(host[env_id]["step_launches"] == {build_name: per_step * HOST_STEPS},
+              f"make({env_id!r}): steps launched {host[env_id]['step_launches']}")
+        host[env_id]["launches"] = {build_name: counts[build_name]}
     main_launches = head_counts["cartpole_rollout_fused"]
     print(f"main path: host-clock env-steps/s headline bf16={headline['torch.bfloat16']:.0f} "
           f"f32={headline['torch.float32']:.0f}, CartPole TorchVectorEnv.rollout(256)={vec_rate:.0f}, "
@@ -2443,6 +2667,7 @@ def smoke(xml_path: str) -> int:
         print(f"headline host-clock ms per block, obs={name}: "
               + " ".join(f"{t:.4f}" for t in times), flush=True)
 
+    lap("the main paths")
     # -- the CartPole kernel against its plain version ------------------------
     n, s, seed = NUM_ENVS, STEPS_PER_BLOCK, 0
     args = (
@@ -2505,6 +2730,17 @@ def smoke(xml_path: str) -> int:
             cmp["events_ms"] = cuda_ms(lambda: step(*inputs), 50, 5)
             small[f"planar_step[{label}]"][n_small] = cmp
     print(f"kernels vs twins at N=1 and N={RAGGED_ENVS}: {json.dumps(small)}", flush=True)
+    lap("the kernels against their twins")
+    # every host env's build at a batch of one, as its env step launches it
+    host_small = {}
+    for env_id, (key, _) in HOST_IDS.items():
+        step = host_builds[key]
+        inputs = articulated_states(step.model, 1, dev, seed=1)
+        dq, dqd, lanes, bits = compare_articulated_with_twin(step, *inputs)
+        host_small[key] = {"build": step.build_name, "max_abs_err": max(dq, dqd), "bit_equal": bits,
+                           "events_ms": cuda_ms(lambda: step(*inputs), 50, 5)}
+    print(f"host envs' builds vs twins at N=1: {json.dumps(host_small)}", flush=True)
+    lap("the host envs' builds at N=1")
     for env_id in REGISTRY_IDS:
         registry[env_id]["bit_equal_to_hand_built"] = compare_registry_with_hand_built(dev, env_id, registry[env_id])
     for env_id in SINGLE_IDS:
@@ -2512,6 +2748,7 @@ def smoke(xml_path: str) -> int:
         single[env_id]["device_vs_cpu"] = compare_single_env_with_cpu(env_id, single[env_id], tol)
     device_spaces = run_device_spaces(dev)
 
+    lap("the kernel checks")
     # -- times ----------------------------------------------------------------
     results = {}
     for obs_dtype in (torch.float32, torch.bfloat16):
@@ -2699,6 +2936,7 @@ def smoke(xml_path: str) -> int:
             "ok": True,
         }
     )
+    lap("the kernel times")
     # -- profiled paths: one Ant env step, the PPO trainer --------------------
     # They run after the kernel timings: a device_ms trace taken after other
     # profiled work in the process missed one CartPole launch in every try.
@@ -2728,6 +2966,7 @@ def smoke(xml_path: str) -> int:
         bipedal[name]["device_vs_cpu"] = compare_bipedal_with_cpu(dev, hardcore)
         print(f"{name} on the card vs the CPU ({BIPEDAL_CHECK_STEPS} steps from the CPU's carry, N={NUM_ENVS}, "
               f"same draws): {bipedal[name]['device_vs_cpu']}", flush=True)
+    lap("the profiled paths and the walkers against the CPU")
     wrapped = compare_wrappers_with_cpu(dev)
     print(f"functional wrappers on the card vs the CPU ({WRAPPER_CHECK_STEPS} steps from the CPU's carry, "
           f"N={WRAPPER_CHECK_ENVS}): {wrapped}", flush=True)
@@ -2741,11 +2980,13 @@ def smoke(xml_path: str) -> int:
     print(json.dumps({"carracing": {"card": card_line(), "continuous": car, "discrete": car_discrete},
                       "swimmer": {"card": card_line(), "envs": NUM_ENVS, **swim},
                       "mjcf": {"card": card_line(), "envs": NUM_ENVS, **mjcf}}), flush=True)
+    lap("the wrappers, CarRacing and Swimmer against the CPU")
     for name in CLASSIC_ENVS:
         classic[name]["device_vs_cpu"] = compare_classic_with_cpu(dev, name)
         print(f"{name} on the card vs the CPU ({CLASSIC_CHECK_STEPS} steps, N={NUM_ENVS}, injected draws): "
               f"{classic[name]['device_vs_cpu']}", flush=True)
     print(json.dumps({"classic": {"card": card_line(), "envs": NUM_ENVS, **classic}}), flush=True)
+    lap("the classic envs against the CPU")
     ppo, ppo_counts = {}, {}
     for name in ("cartpole", "half_cheetah"):
         ppo[name], ppo_counts[name] = counted(f"ppo {name}", lambda: run_ppo(dev, name))
@@ -2759,6 +3000,23 @@ def smoke(xml_path: str) -> int:
           f"HalfCheetah={ppo['half_cheetah']['env_steps_per_s']:.0f}", flush=True)
     ppo["device_vs_cpu"] = compare_ppo_with_cpu(dev)
     print(json.dumps({"ppo": {"card": card_line(), **ppo}}), flush=True)
+    lap("the PPO paths and PPO against the CPU")
+    for env_id in HOST_IDS:
+        host[env_id]["device_vs_cpu"] = compare_host_env_with_cpu(env_id, host[env_id])
+        print(f"make({env_id!r}) on the card vs the CPU ({HOST_CHECK_STEPS} steps, each from the card's state): "
+              f"{host[env_id]['device_vs_cpu']}", flush=True)
+    lap("the host envs against the CPU")
+    for env_id in HOST_PROFILED:
+        host[env_id]["env_step_profile"] = profile_host_env_step(dev, env_id, "kernel<ArticulatedStep>")
+        host[env_id]["frame"] = render_host_frame(env_id)
+        print(f"make({env_id!r}) step under torch.profiler: {json.dumps(host[env_id]['env_step_profile'])}; "
+              f"rgb_array frame {host[env_id]['frame']}", flush=True)
+    lap("the host envs' profiles and frames")
+    print(json.dumps({"host_envs": {
+        "card": card_line(), "steps": HOST_STEPS,
+        "envs": {env_id: {k: v for k, v in r.items() if not k.startswith("_")} for env_id, r in host.items()},
+        "builds_at_n1": host_small,
+    }}), flush=True)
     for entry in kernels:
         if entry["name"] == "articulated_step[half_cheetah]":
             build_name = steps["half_cheetah"].build_name
@@ -2770,9 +3028,11 @@ def smoke(xml_path: str) -> int:
     kernel_build = {"cartpole_rollout_fused": "cartpole_rollout_fused", "walker_terrain": "walker_terrain",
                     "planar_step[lunar_lander]": planar.build_name, "planar_step[bipedal_walker]": walker.build_name,
                     **{f"articulated_step[{name}]": step.build_name for name, step in steps.items()}}
+    kernel_build["articulated_step[swimmer_fs1]"] = more["swimmer_fs1"].build_name
     registry_paths = {**{f"make_vec({env_id!r})": registry_counts[env_id] for env_id in REGISTRY_IDS},
                       'make("phys2d/CartPole-v1")': single_cartpole_counts,
-                      **{f"FunctionalTorchEnv({env_id})": single_counts[env_id] for env_id in SINGLE_IDS}}
+                      **{f"FunctionalTorchEnv({env_id})": single_counts[env_id] for env_id in SINGLE_IDS},
+                      **{f"make({env_id!r})": host_counts[env_id] for env_id in HOST_IDS}}
     for entry in kernels:
         build_name = kernel_build.get(entry["name"])
         by_path = {path: counts[build_name] for path, counts in registry_paths.items() if counts.get(build_name)}
@@ -2782,6 +3042,9 @@ def smoke(xml_path: str) -> int:
             entry["launches"] += sum(by_path.values())
         if entry["name"] in small:
             entry["small_batches"] = small[entry["name"]]
+        key = entry["name"][len("articulated_step["):-1] if entry["name"].startswith("articulated_step[") else None
+        if key in host_small:
+            entry["n1"] = host_small[key]
     print(json.dumps({"registry": {
         "card": card_line(), "envs": NUM_ENVS,
         "make_vec": {env_id: {k: v for k, v in r.items() if not k.startswith("_")} for env_id, r in registry.items()},
@@ -2791,6 +3054,7 @@ def smoke(xml_path: str) -> int:
         "kernels_small_batches": small,
         "device_spaces": device_spaces,
     }}), flush=True)
+    lap("all phases")
     print(json.dumps({"kernels": kernels}), flush=True)
     result = {"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}
     print(json.dumps(result), flush=True)

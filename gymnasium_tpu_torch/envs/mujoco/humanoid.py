@@ -1,6 +1,7 @@
-"""Humanoid-v5 as a batch-first functional env.
+"""Humanoid-v5: its host env and its batch-first functional env.
 
-Counterpart of ``HumanoidFunctional`` in the JAX package's
+Counterpart of ``HumanoidEnv`` (the host class behind ``make``) and
+``HumanoidFunctional`` in the JAX package's
 ``envs/mujoco/humanoid.py``: a biped on a free root with the 348-value
 observation (positions, velocities, the static per-body inertia block, the
 bodies' centre-of-mass velocities, a zero actuator-force block and the
@@ -19,9 +20,11 @@ import torch
 
 from gymnasium_tpu_torch import spaces
 from gymnasium_tpu_torch.envs.mujoco.locomotion import MujocoFuncEnv
+from gymnasium_tpu_torch.envs.mujoco.mujoco_env import MujocoEnv
 from gymnasium_tpu_torch.physics.articulated import integrate_pos
+from gymnasium_tpu_torch.utils.ezpickle import EzPickle
 
-__all__ = ["HumanoidFunctional"]
+__all__ = ["HumanoidEnv", "HumanoidFunctional", "com_velocity"]
 
 # the per-body observation blocks have one row a body, the world excluded
 _NBODY_OBS = 13
@@ -45,6 +48,185 @@ def _com_inertia_block(model) -> np.ndarray:
     return np.concatenate(rows)
 
 
+def com_velocity(model, dyn: dict, q, qd):
+    """World velocity (N, nbody, 3) of each body's centre of mass: the forward
+    derivative of ``com_world(integrate_pos(q, qd, t))`` at ``t = 0``, along
+    the quaternion retraction of the free root. ``dyn`` is ``model``'s
+    :func:`~gymnasium_tpu_torch.physics.articulated.make_dynamics`."""
+
+    def com(t):
+        return dyn["com_world"](integrate_pos(model, q, qd, t))[0]
+
+    zero = torch.zeros((), dtype=q.dtype, device=q.device)
+    return torch.func.jvp(com, (zero,), (torch.ones_like(zero),))[1]
+
+
+class HumanoidEnv(MujocoEnv, EzPickle):
+    """Walk forward without falling over."""
+
+    model_name_default = "humanoid"
+
+    def __init__(
+        self,
+        forward_reward_weight: float = 1.25,
+        ctrl_cost_weight: float = 0.1,
+        contact_cost_weight: float = 5e-7,
+        contact_cost_range: tuple[float, float] = (-np.inf, 10.0),
+        healthy_reward: float = 5.0,
+        terminate_when_unhealthy: bool = True,
+        healthy_z_range: tuple[float, float] = (1.0, 2.0),
+        reset_noise_scale: float = 1e-2,
+        exclude_current_positions_from_observation: bool = True,
+        include_cinert_in_observation: bool = True,
+        include_cvel_in_observation: bool = True,
+        include_qfrc_actuator_in_observation: bool = True,
+        include_cfrc_ext_in_observation: bool = True,
+        render_mode: str | None = None,
+        **kwargs: Any,
+    ):
+        EzPickle.__init__(
+            self,
+            forward_reward_weight,
+            ctrl_cost_weight,
+            contact_cost_weight,
+            contact_cost_range,
+            healthy_reward,
+            terminate_when_unhealthy,
+            healthy_z_range,
+            reset_noise_scale,
+            exclude_current_positions_from_observation,
+            include_cinert_in_observation,
+            include_cvel_in_observation,
+            include_qfrc_actuator_in_observation,
+            include_cfrc_ext_in_observation,
+            render_mode,
+            **kwargs,
+        )
+        self.forward_reward_weight = forward_reward_weight
+        self.ctrl_cost_weight = ctrl_cost_weight
+        self.healthy_reward = healthy_reward
+        self.terminate_when_unhealthy = terminate_when_unhealthy
+        self._healthy_z_range = healthy_z_range
+        self._exclude_xy = exclude_current_positions_from_observation
+        self.contact_cost_weight = contact_cost_weight
+        self._contact_cost_range = contact_cost_range
+        self._include_cinert = include_cinert_in_observation
+        self._include_cvel = include_cvel_in_observation
+        self._include_qfrc = include_qfrc_actuator_in_observation
+        self._include_cfrc = include_cfrc_ext_in_observation
+        # 22 + 23, cinert 130, cvel 78, qfrc_actuator[6:] 17, cfrc_ext 78
+        # (upstream humanoid_v5.py:436-470: 348 values by default)
+        obs_dim = 45 if exclude_current_positions_from_observation else 47
+        obs_dim += 130 * include_cinert_in_observation
+        obs_dim += 78 * include_cvel_in_observation
+        obs_dim += 17 * include_qfrc_actuator_in_observation
+        obs_dim += 78 * include_cfrc_ext_in_observation
+        super().__init__(
+            self.model_name_default,
+            frame_skip=kwargs.pop("frame_skip", 5),
+            observation_space=spaces.Box(-np.inf, np.inf, (obs_dim,), np.float64),
+            render_mode=render_mode,
+            reset_noise_scale=reset_noise_scale,
+            **kwargs,
+        )
+        self._cinert = _com_inertia_block(self.model)
+        self._last_ctrl = np.zeros(self.model.nu)
+
+    @property
+    def torso_z(self) -> float:
+        """The torso's height."""
+        return float(self.qpos[2])
+
+    def is_healthy(self) -> bool:
+        min_z, max_z = self._healthy_z_range
+        return bool(min_z < self.torso_z < max_z)
+
+    def _compute(self, name: str, q, qd):
+        if name == "com_velocity":
+            return com_velocity(self.model, self._dyn, q, qd)
+        return super()._compute(name, q, qd)
+
+    def _com_velocity_block(self) -> np.ndarray:
+        vel = self._helper("com_velocity")
+        rows = [np.concatenate([vel[b], np.zeros(3)]) for b in range(min(len(vel), _NBODY_OBS))]
+        while len(rows) < _NBODY_OBS:
+            rows.append(np.zeros(6))
+        return np.concatenate(rows)
+
+    def _get_obs(self) -> np.ndarray:
+        # the free root: qpos[3:7] its orientation, qvel[3:6] its body-frame
+        # angular velocity, MuJoCo's layout
+        position = np.concatenate([np.array([self.torso_z]), self.qpos[3:7], self.qpos[7:]])
+        if not self._exclude_xy:
+            position = np.concatenate([self.qpos[:2], position])
+        parts = [position, self.qvel]
+        if self._include_cinert:
+            parts.append(self._cinert)
+        if self._include_cvel:
+            parts.append(self._com_velocity_block())
+        if self._include_qfrc:
+            qfrc_actuator = np.zeros(self.model.nv)
+            qfrc_actuator[self.model.act_dof] = self.model.act_gear * self._last_ctrl
+            parts.append(qfrc_actuator[6:])  # upstream's qfrc_actuator[6:] (17)
+        if self._include_cfrc:
+            parts.append(self.cfrc_ext[:_NBODY_OBS].reshape(-1))
+        return np.concatenate(parts).astype(np.float64)
+
+    def _reset_info(self):
+        # upstream humanoid_v5.py:534-541, without the tendon keys (no tendons here)
+        return {
+            "x_position": self.qpos[0],
+            "y_position": self.qpos[1],
+            "distance_from_origin": np.linalg.norm(self.qpos[0:2] - self.init_qpos[0:2]),
+        }
+
+    def _sample_initial_state(self):
+        noise = self._reset_noise_scale
+        qpos = self.init_qpos + self.np_random.uniform(-noise, noise, self.model.nq)
+        qpos[3:7] /= np.linalg.norm(qpos[3:7]) + 1e-24
+        qvel = self.init_qvel + self.np_random.uniform(-noise, noise, self.model.nv)
+        return qpos, qvel
+
+    def step(self, action):
+        # the forward velocity is the whole robot's centre of mass's
+        # (upstream humanoid_v5.py:473-477), not the root frame's
+        xy_before = self.mass_center_xy()
+        self.do_simulation(action)
+        self._last_ctrl = np.clip(
+            np.asarray(action), self.model.act_ctrlrange[:, 0], self.model.act_ctrlrange[:, 1]
+        )
+        xy_after = self.mass_center_xy()
+        x_velocity, y_velocity = (xy_after - xy_before) / self.dt
+
+        forward_reward = float(self.forward_reward_weight * x_velocity)
+        healthy = self.is_healthy()
+        healthy_reward = float(self.healthy_reward * (healthy or not self.terminate_when_unhealthy))
+        ctrl_cost = self.ctrl_cost_weight * float(np.sum(np.square(action)))
+        # over the wrenches, clipped (upstream humanoid_v5.py:422-427)
+        contact_cost = float(
+            np.clip(self.contact_cost_weight * np.sum(np.square(self.cfrc_ext)), *self._contact_cost_range)
+        )
+
+        # upstream's grouping: (forward + survive) + (reward_ctrl + reward_contact)
+        reward = (forward_reward + healthy_reward) + (-ctrl_cost + -contact_cost)
+        terminated = self.terminate_when_unhealthy and not healthy
+        info = {
+            # positions of the root frame, velocities of the centre of mass
+            "x_position": float(self.qpos[0]),
+            "y_position": float(self.qpos[1]),
+            "x_velocity": float(x_velocity),
+            "y_velocity": float(y_velocity),
+            "distance_from_origin": float(np.linalg.norm(self.qpos[0:2] - self.init_qpos[0:2])),
+            "reward_forward": float(forward_reward),
+            "reward_ctrl": -ctrl_cost,
+            "reward_contact": -contact_cost,
+            "reward_survive": float(healthy_reward),
+        }
+        if self.render_mode == "human":
+            self.render()
+        return self._get_obs(), reward, terminated, False, info
+
+
 class HumanoidFunctional(MujocoFuncEnv):
     """Walk forward without falling over."""
 
@@ -58,15 +240,8 @@ class HumanoidFunctional(MujocoFuncEnv):
         self._cinert = _com_inertia_block(self.model)
 
     def com_velocity(self, q, qd):
-        """World velocity (N, nbody, 3) of each body's centre of mass: the
-        forward derivative of ``com_world(integrate_pos(q, qd, t))`` at
-        ``t = 0``, along the quaternion retraction of the free root."""
-
-        def com(t):
-            return self._dyn["com_world"](integrate_pos(self.model, q, qd, t))[0]
-
-        zero = torch.zeros((), dtype=q.dtype, device=q.device)
-        return torch.func.jvp(com, (zero,), (torch.ones_like(zero),))[1]
+        """:func:`com_velocity` of this env's model."""
+        return com_velocity(self.model, self._dyn, q, qd)
 
     def observation(self, state, rng, params: Any = None):
         q, qd = state["qpos"], state["qvel"]

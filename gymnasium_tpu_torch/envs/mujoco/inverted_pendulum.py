@@ -1,6 +1,7 @@
-"""InvertedPendulum-v5 as a batch-first functional env.
+"""InvertedPendulum-v5: its host env and its batch-first functional env.
 
-Counterpart of ``InvertedPendulumFunctional`` in the JAX package's
+Counterpart of ``InvertedPendulumEnv`` (the host class behind ``make``) and
+``InvertedPendulumFunctional`` in the JAX package's
 ``envs/mujoco/inverted_pendulum.py``: observation ``qpos ++ qvel``, reward 1
 while the pole stays within 0.2 rad of upright, which is also when the
 episode goes on.
@@ -15,8 +16,42 @@ import torch
 
 from gymnasium_tpu_torch import spaces
 from gymnasium_tpu_torch.envs.mujoco.locomotion import MujocoFuncEnv
+from gymnasium_tpu_torch.envs.mujoco.mujoco_env import MujocoEnv
+from gymnasium_tpu_torch.utils.ezpickle import EzPickle
 
-__all__ = ["InvertedPendulumFunctional"]
+__all__ = ["InvertedPendulumEnv", "InvertedPendulumFunctional"]
+
+
+class InvertedPendulumEnv(MujocoEnv, EzPickle):
+    """Balance a pole on a sliding cart."""
+
+    def __init__(
+        self,
+        reset_noise_scale: float = 0.01,
+        render_mode: str | None = None,
+        **kwargs: Any,
+    ):
+        EzPickle.__init__(self, reset_noise_scale, render_mode, **kwargs)
+        super().__init__(
+            "inverted_pendulum",
+            frame_skip=kwargs.pop("frame_skip", 2),
+            observation_space=spaces.Box(-np.inf, np.inf, (4,), np.float64),
+            render_mode=render_mode,
+            reset_noise_scale=reset_noise_scale,
+            **kwargs,
+        )
+
+    def _get_obs(self) -> np.ndarray:
+        return np.concatenate([self.qpos, self.qvel]).astype(np.float64)
+
+    def step(self, action):
+        self.do_simulation(action)
+        obs = self._get_obs()
+        terminated = bool(not np.isfinite(obs).all() or (np.abs(obs[1]) > 0.2))
+        reward = float(not terminated)
+        if self.render_mode == "human":
+            self.render()
+        return obs, reward, terminated, False, {"reward_survive": reward}
 
 
 class InvertedPendulumFunctional(MujocoFuncEnv):

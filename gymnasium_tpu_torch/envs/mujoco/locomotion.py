@@ -1,8 +1,12 @@
-"""Functional MuJoCo-class robots over the fused articulated step.
+"""The planar locomotion host env and the functional MuJoCo-class robots.
 
-Counterpart of ``MujocoFuncEnv`` in the JAX package's
-``envs/mujoco/locomotion.py``. The hooks are batch-first: ``transition`` is
-one call of the fused step (:mod:`gymnasium_tpu_torch.ops.articulated_step`)
+Counterpart of the JAX package's ``envs/mujoco/locomotion.py``.
+:class:`PlanarLocomotionEnv` is the host class of the robots rewarded for
+their x velocity (HalfCheetah, Hopper, Walker2d, Swimmer), over
+:class:`~gymnasium_tpu_torch.envs.mujoco.mujoco_env.MujocoEnv`; it computes
+in float64 numpy on the state the env step reads back.
+
+``MujocoFuncEnv``'s hooks are batch-first: ``transition`` is one call of the fused step (:mod:`gymnasium_tpu_torch.ops.articulated_step`)
 over the whole batch, which is the JAX ``transition`` and
 ``transition_batched`` in one hook. It launches the generated CUDA kernel on
 a CUDA batch and runs the plain twin on a CPU batch. Observations and rewards
@@ -20,13 +24,87 @@ import numpy as np
 import torch
 
 from gymnasium_tpu_torch import spaces
-from gymnasium_tpu_torch.envs.mujoco.mujoco_env import load_model
+from gymnasium_tpu_torch.envs.mujoco.mujoco_env import MujocoEnv, load_model
 from gymnasium_tpu_torch.functional import FuncEnv, tree_map
 from gymnasium_tpu_torch.ops.articulated_step import fused_step
 from gymnasium_tpu_torch.physics.articulated import init_qpos, make_dynamics
 from gymnasium_tpu_torch.utils.draws import uniform_map
 
-__all__ = ["MujocoFuncEnv"]
+__all__ = ["PlanarLocomotionEnv", "MujocoFuncEnv"]
+
+
+class PlanarLocomotionEnv(MujocoEnv):
+    """A planar robot rewarded for its x velocity: ``qpos[0]`` is the root's
+    x slide."""
+
+    # subclass configuration
+    forward_reward_weight: float = 1.0
+    ctrl_cost_weight: float = 0.0
+    healthy_reward: float = 0.0
+    terminate_when_unhealthy: bool = True
+    velocity_clip: float = np.inf
+    exclude_x: bool = True
+    # a robot with a root z slide reports info["z_distance_from_origin"]
+    # (upstream hopper_v5.py:294): the qpos index of that slide
+    z_index: int | None = None
+    # a robot in the xy plane (Swimmer) also reports its y position and
+    # velocity and its distance from the origin (upstream swimmer_v5.py:250-262)
+    report_xy: bool = False
+
+    def control_cost(self, action) -> float:
+        """Quadratic actuation cost."""
+        return self.ctrl_cost_weight * float(np.sum(np.square(action)))
+
+    def is_healthy(self) -> bool:
+        """Override for termination conditions."""
+        return True
+
+    def _get_obs(self) -> np.ndarray:
+        qpos = self.qpos[1:] if self.exclude_x else self.qpos
+        qvel = np.clip(self.qvel, -self.velocity_clip, self.velocity_clip)
+        return np.concatenate([qpos, qvel]).astype(np.float64)
+
+    def step(self, action):
+        x_before = self.qpos[0]
+        y_before = self.qpos[1] if self.report_xy else 0.0
+        self.do_simulation(action)
+        x_after = self.qpos[0]
+        x_velocity = (x_after - x_before) / self.dt
+
+        ctrl_cost = float(self.control_cost(action))
+        forward_reward = float(self.forward_reward_weight * x_velocity)
+        healthy = self.is_healthy()
+        healthy_reward = float(self.healthy_reward * (healthy or not self.terminate_when_unhealthy))
+
+        # summed in upstream's grouping of its info terms (its reward-sum test)
+        reward = forward_reward + healthy_reward + -ctrl_cost
+        terminated = self.terminate_when_unhealthy and not healthy
+        info = {
+            "x_position": x_after,
+            "x_velocity": x_velocity,
+            "reward_forward": forward_reward,
+            "reward_ctrl": -ctrl_cost,
+            "reward_survive": healthy_reward,
+        }
+        if self.z_index is not None:
+            info["z_distance_from_origin"] = float(self.qpos[self.z_index] - self.init_qpos[self.z_index])
+        if self.report_xy:
+            info["y_position"] = float(self.qpos[1])
+            info["y_velocity"] = float((self.qpos[1] - y_before) / self.dt)
+            info["distance_from_origin"] = float(np.linalg.norm(self.qpos[0:2] - self.init_qpos[0:2]))
+        if self.render_mode == "human":
+            self.render()
+        return self._get_obs(), reward, terminated, False, info
+
+    def _reset_info(self):
+        # upstream's v5 reset info: the step info's position keys at the reset state
+        info = {"x_position": self.qpos[0]}
+        if self.z_index is not None:
+            info["z_distance_from_origin"] = self.qpos[self.z_index] - self.init_qpos[self.z_index]
+        if self.report_xy:
+            info["y_position"] = self.qpos[1]
+            info["distance_from_origin"] = np.linalg.norm(self.qpos[0:2] - self.init_qpos[0:2])
+        return info
 
 
 class MujocoFuncEnv(FuncEnv):

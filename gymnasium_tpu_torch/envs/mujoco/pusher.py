@@ -1,6 +1,7 @@
-"""Pusher-v5 as a batch-first functional env.
+"""Pusher-v5: its host env and its batch-first functional env.
 
-Counterpart of ``PusherFunctional`` in the JAX package's
+Counterpart of ``PusherEnv`` (the host class behind ``make``) and
+``PusherFunctional`` in the JAX package's
 ``envs/mujoco/pusher.py``: a seven-joint arm pushes a cylinder to a goal on
 a table. The observation is the arm's positions and velocities and the
 world positions of the arm's tip, the object and the goal by forward
@@ -18,9 +19,90 @@ import torch
 
 from gymnasium_tpu_torch import spaces
 from gymnasium_tpu_torch.envs.mujoco.locomotion import MujocoFuncEnv
+from gymnasium_tpu_torch.envs.mujoco.mujoco_env import MujocoEnv
 from gymnasium_tpu_torch.utils.draws import uniform_map
+from gymnasium_tpu_torch.utils.ezpickle import EzPickle
 
-__all__ = ["PusherFunctional"]
+__all__ = ["PusherEnv", "PusherFunctional"]
+
+
+class PusherEnv(MujocoEnv, EzPickle):
+    """Push the object onto the goal."""
+
+    def __init__(
+        self,
+        reward_near_weight: float = 0.5,
+        reward_dist_weight: float = 1.0,
+        reward_control_weight: float = 0.1,
+        render_mode: str | None = None,
+        **kwargs: Any,
+    ):
+        EzPickle.__init__(
+            self, reward_near_weight, reward_dist_weight, reward_control_weight, render_mode, **kwargs
+        )
+        self._reward_near_weight = reward_near_weight
+        self._reward_dist_weight = reward_dist_weight
+        self._reward_control_weight = reward_control_weight
+        super().__init__(
+            "pusher_v5",
+            frame_skip=kwargs.pop("frame_skip", 5),
+            observation_space=spaces.Box(-np.inf, np.inf, (23,), np.float64),
+            render_mode=render_mode,
+            **kwargs,
+        )
+        names = self.meta["body_names"]
+        self._tips_idx = names.index("tips_arm") if "tips_arm" in names else len(names) - 3
+        self._obj_idx = names.index("object") if "object" in names else len(names) - 2
+        self._goal_idx = names.index("goal") if "goal" in names else len(names) - 1
+
+    def _sample_initial_state(self):
+        qpos = self.init_qpos.copy()
+        # the object's xy on the table, away from the goal
+        while True:
+            cyl_pos = np.array(
+                [
+                    self.np_random.uniform(low=-0.3, high=0),
+                    self.np_random.uniform(low=-0.2, high=0.2),
+                ]
+            )
+            goal_pos = np.array([0.0, 0.0])
+            if np.linalg.norm(cyl_pos - goal_pos) > 0.17:
+                break
+        # the object's two slides follow the arm's 7 joints
+        qpos[7:9] = cyl_pos
+        qvel = self.init_qvel + self.np_random.uniform(-0.005, 0.005, self.model.nv)
+        qvel[7:] = 0.0
+        return qpos, qvel
+
+    def _positions(self):
+        return self._helper("fk")[1]
+
+    def _get_obs(self) -> np.ndarray:
+        p = self._positions()
+        return np.concatenate(
+            [self.qpos[:7], self.qvel[:7], p[self._tips_idx], p[self._obj_idx], p[self._goal_idx]]
+        ).astype(np.float64)
+
+    def step(self, action):
+        p = self._positions()
+        vec_1 = p[self._obj_idx] - p[self._tips_idx]
+        vec_2 = p[self._obj_idx] - p[self._goal_idx]
+        # each term carries its weight; the reward is their sum (upstream pusher_v5.py:229-233)
+        reward_near = -float(np.linalg.norm(vec_1)) * self._reward_near_weight
+        reward_dist = -float(np.linalg.norm(vec_2)) * self._reward_dist_weight
+        reward_ctrl = -float(np.square(action).sum()) * self._reward_control_weight
+        reward = reward_dist + reward_ctrl + reward_near
+
+        self.do_simulation(action)
+        if self.render_mode == "human":
+            self.render()
+        return (
+            self._get_obs(),
+            reward,
+            False,
+            False,
+            {"reward_dist": reward_dist, "reward_ctrl": reward_ctrl, "reward_near": reward_near},
+        )
 
 
 class PusherFunctional(MujocoFuncEnv):

@@ -1,6 +1,7 @@
-"""Swimmer-v5 as a batch-first functional env: three links in a viscous fluid.
+"""Swimmer-v5, three links in a viscous fluid: its host env and its functional env.
 
-Counterpart of ``SwimmerFunctional`` in the JAX package's
+Counterpart of ``SwimmerEnv`` (the host class behind ``make``) and
+``SwimmerFunctional`` in the JAX package's
 ``envs/mujoco/swimmer.py``: forward velocity minus 1e-4 times the squared
 action, observation ``qpos[2:] ++ qvel`` (8 values), never terminal,
 ``frame_skip=4``. Each of the four substeps adds the fluid's drag to the
@@ -29,11 +30,12 @@ import numpy as np
 import torch
 
 from gymnasium_tpu_torch import spaces
-from gymnasium_tpu_torch.envs.mujoco.locomotion import MujocoFuncEnv
+from gymnasium_tpu_torch.envs.mujoco.locomotion import MujocoFuncEnv, PlanarLocomotionEnv
 from gymnasium_tpu_torch.ops.articulated_step import fused_step
 from gymnasium_tpu_torch.physics.articulated import spd_solve
+from gymnasium_tpu_torch.utils.ezpickle import EzPickle
 
-__all__ = ["SwimmerFunctional"]
+__all__ = ["SwimmerEnv", "SwimmerFunctional"]
 
 
 def fluid_tables(model) -> dict[str, np.ndarray]:
@@ -90,14 +92,19 @@ class SwimmerFunctional(MujocoFuncEnv):
         t_world = torch.sum(axes * torque[..., None, :], dim=-1)
         return torch.sum(Jv * f_world[:, :, None, :] + Jw * t_world[:, :, None, :], dim=(1, 3))
 
-    def transition(self, state, action, rng, params: Any = None):
-        q, qd = state["qpos"], state["qvel"]
+    def swim(self, q, qd, ctrl, frame_skip: int):
+        """``frame_skip`` substeps from ``(q, qd)`` under ``ctrl``: each adds
+        the drag's velocity change, then launches the ``frame_skip=1`` build."""
         eye = self.constant("eye", np.eye(self.model.nv), q.device)
-        for _ in range(self.frame_skip):
+        for _ in range(frame_skip):
             tau = self.drag_torques(q, qd)
             M = self._dyn["mass_matrix"](q)
             qd = qd + self.model.timestep * spd_solve(M + 1e-9 * eye, tau)
-            q, qd = self._step(q, qd, action)
+            q, qd = self._step(q, qd, ctrl)
+        return q, qd
+
+    def transition(self, state, action, rng, params: Any = None):
+        q, qd = self.swim(state["qpos"], state["qvel"], action, self.frame_skip)
         return {"qpos": q, "qvel": qd, "prev_x": state["qpos"][:, 0]}
 
     def observation(self, state, rng, params: Any = None):
@@ -106,3 +113,56 @@ class SwimmerFunctional(MujocoFuncEnv):
     def reward(self, state, action, next_state, rng, params: Any = None):
         x_velocity = (next_state["qpos"][:, 0] - next_state["prev_x"]) / self.dt
         return x_velocity - 1e-4 * torch.sum(torch.square(action), dim=-1)
+
+
+class SwimmerEnv(PlanarLocomotionEnv, EzPickle):
+    """Swim forward through the viscous fluid.
+
+    An env step is ``frame_skip`` launches of Swimmer's ``frame_skip=1``
+    build, the fluid's drag added to the velocities before each.
+    """
+
+    forward_reward_weight = 1.0
+    ctrl_cost_weight = 1e-4
+    terminate_when_unhealthy = False
+    report_xy = True
+
+    def __init__(
+        self,
+        forward_reward_weight: float = 1.0,
+        ctrl_cost_weight: float = 1e-4,
+        reset_noise_scale: float = 0.1,
+        exclude_current_positions_from_observation: bool = True,
+        render_mode: str | None = None,
+        **kwargs: Any,
+    ):
+        EzPickle.__init__(
+            self,
+            forward_reward_weight,
+            ctrl_cost_weight,
+            reset_noise_scale,
+            exclude_current_positions_from_observation,
+            render_mode,
+            **kwargs,
+        )
+        self.forward_reward_weight = forward_reward_weight
+        self.ctrl_cost_weight = ctrl_cost_weight
+        self._exclude_xy = exclude_current_positions_from_observation
+        obs_dim = 8 if exclude_current_positions_from_observation else 10
+        super().__init__(
+            "swimmer",
+            frame_skip=kwargs.pop("frame_skip", 4),
+            observation_space=spaces.Box(-np.inf, np.inf, (obs_dim,), np.float64),
+            render_mode=render_mode,
+            reset_noise_scale=reset_noise_scale,
+            **kwargs,
+        )
+        self._fluid = SwimmerFunctional()
+        self._step = self._fluid._step  # the frame_skip=1 build
+
+    def _advance(self, q, qd, ctrl):
+        return self._fluid.swim(q, qd, ctrl, self.frame_skip)
+
+    def _get_obs(self) -> np.ndarray:
+        qpos = self.qpos[2:] if self._exclude_xy else self.qpos
+        return np.concatenate([qpos, self.qvel]).astype(np.float64)

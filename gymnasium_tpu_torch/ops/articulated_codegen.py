@@ -57,6 +57,7 @@ from gymnasium_tpu_torch.physics.articulated import (
 __all__ = [
     "ModelTables",
     "model_tables",
+    "kinematics_and_bias",
     "make_substep",
     "clip_controls",
     "GeneratedSource",
@@ -252,6 +253,189 @@ def clip_controls(t: ModelTables, ops, crows):
     return [ops.clip(crows[a], t.ctrl_lo[a], t.ctrl_hi[a]) for a in range(t.nu)]
 
 
+def kinematics_and_bias(t: ModelTables, ops, qrows, qdrows):
+    """The substep's forward kinematics and Newton-Euler bias over lists of
+    per-env values: ``(Rs, ps, axes_w, pivots_w, Iw, Jv, c_rows)``, the
+    bodies' rotations and origins, each dof's world axis and pivot, the
+    bodies' world inertias, their com Jacobians (``None`` where a dof does
+    not move a body) and the bias ``c_rows`` (velocity terms, gravity and
+    the joint springs) of each dof.
+    """
+    model = t.model
+    nv, nbody = t.nv, t.nbody
+    amask, strict, strict_rot, jtypes = t.amask, t.strict, t.strict_rot, t.jtypes
+    masses, joint_ref = t.masses, t.joint_ref
+
+    # ---------------- forward kinematics ------------------------
+    Rs, ps = [None] * nbody, [None] * nbody
+    axes_w, pivots_w = [None] * nv, [None] * nv
+    for b in range(nbody):
+        parent = int(model.bodies.parent[b])
+        if parent < 0:
+            R_p = [[1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.0, 0.0, 1.0]]
+            p_p = [0.0, 0.0, 0.0]
+        else:
+            R_p, p_p = Rs[parent], ps[parent]
+
+        if is_free_root_body(model, b):
+            w, x, y, z = qrows[3], qrows[4], qrows[5], qrows[6]
+            nn = w * w + x * x + y * y + z * z
+            s2 = 2.0 / ops.maximum(nn, 1e-12)
+            R = [
+                [1 - s2 * (y * y + z * z), s2 * (x * y - w * z), s2 * (x * z + w * y)],
+                [s2 * (x * y + w * z), 1 - s2 * (x * x + z * z), s2 * (y * z - w * x)],
+                [s2 * (x * z - w * y), s2 * (y * z + w * x), 1 - s2 * (x * x + y * y)],
+            ]
+            p = [qrows[0], qrows[1], qrows[2]]
+            start = int(model.bodies.dof_start[b])
+            for k in range(3):
+                e = [0.0, 0.0, 0.0]
+                e[k] = 1.0
+                axes_w[start + k] = e
+                pivots_w[start + k] = [0.0, 0.0, 0.0]
+            for k in range(3):
+                axes_w[start + 3 + k] = [R[0][k], R[1][k], R[2][k]]
+                pivots_w[start + 3 + k] = p
+            Rs[b], ps[b] = R, p
+            continue
+
+        Rfix = [[float(v) for v in row] for row in quat_to_mat_np(model.bodies.quat[b])]
+        R = _matmul(R_p, Rfix)
+        p = _vadd(p_p, _matvec(R_p, [float(v) for v in model.bodies.pos[b]]))
+        start = int(model.bodies.dof_start[b])
+        count = int(model.bodies.dof_count[b])
+        for k in range(start, start + count):
+            axis = [float(v) for v in model.joints.axis[k]]
+            anchor = [float(v) for v in model.joints.anchor[k]]
+            qk = qrows[q_index(model, k)]
+            if joint_ref[k]:
+                qk = _sub(qk, joint_ref[k])
+            axes_w[k] = _matvec(R, axis)
+            if jtypes[k] == SLIDE:
+                pivots_w[k] = [0.0, 0.0, 0.0]
+                p = _vadd(p, _matvec(R, _scale(axis, qk)))
+            else:
+                pivots_w[k] = _vadd(p, _matvec(R, anchor))
+                c_, s_ = ops.cos(qk), ops.sin(qk)
+                ax, ay, az = axis
+                K = [[0.0, -az, ay], [az, 0.0, -ax], [-ay, ax, 0.0]]
+                Rj = [
+                    [
+                        _add(
+                            _add(_mul(c_, 1.0 if i == j else 0.0), _mul(s_, K[i][j])),
+                            _mul(_sub(1.0, c_), axis[i] * axis[j]),
+                        )
+                        for j in range(3)
+                    ]
+                    for i in range(3)
+                ]
+                p = _vadd(p, _matvec(R, _vsub(anchor, _matvec(Rj, anchor))))
+                R = _matmul(R, Rj)
+        Rs[b], ps[b] = R, p
+
+    # body com positions and world inertias R I Rᵀ
+    pcs = [
+        _vadd(ps[b], _matvec(Rs[b], t.coms[b])) if any(t.coms[b]) else ps[b]
+        for b in range(nbody)
+    ]
+    Iw = []
+    for b in range(nbody):
+        I = t.inertias[b]
+        RI = [
+            [_dot3(Rs[b][i], [float(I[m][j]) for m in range(3)]) for j in range(3)]
+            for i in range(3)
+        ]
+        Iw.append([[_dot3(RI[i], Rs[b][j]) for j in range(3)] for i in range(3)])
+
+    # ---------------- geometric Jacobians -----------------------
+    Jv = [[None] * nv for _ in range(nbody)]
+    for b in range(nbody):
+        for k in range(nv):
+            if not amask[b, k]:
+                continue
+            if jtypes[k] == SLIDE:
+                Jv[b][k] = axes_w[k]
+            else:
+                Jv[b][k] = _cross(axes_w[k], _vsub(pcs[b], pivots_w[k]))
+
+    # ---------------- closed-form convective terms --------------
+    u = [_scale(axes_w[k], qdrows[k]) if jtypes[k] == HINGE else None for k in range(nv)]
+    s_vec = [_scale(axes_w[k], qdrows[k]) if jtypes[k] == SLIDE else None for k in range(nv)]
+    daw = []
+    for k in range(nv):
+        w_pre = [0.0, 0.0, 0.0]
+        for j in range(nv):
+            if strict_rot[k, j] and u[j] is not None:
+                w_pre = _vadd(w_pre, u[j])
+        daw.append(_cross(w_pre, axes_w[k]))
+    dow = []
+    for k in range(nv):
+        acc = [0.0, 0.0, 0.0]
+        for j in range(nv):
+            if not strict[k, j]:
+                continue
+            if s_vec[j] is not None:
+                acc = _vadd(acc, s_vec[j])
+            else:
+                acc = _vadd(acc, _cross(u[j], _vsub(pivots_w[k], pivots_w[j])))
+        dow.append(acc)
+    dpc = []
+    for b in range(nbody):
+        acc = [0.0, 0.0, 0.0]
+        for k in range(nv):
+            if Jv[b][k] is not None:
+                acc = _vadd(acc, _scale(Jv[b][k], qdrows[k]))
+        dpc.append(acc)
+    a0, al0 = [], []
+    for b in range(nbody):
+        acc = [0.0, 0.0, 0.0]
+        accw = [0.0, 0.0, 0.0]
+        for k in range(nv):
+            if not amask[b, k]:
+                continue
+            if jtypes[k] == SLIDE:
+                dJ = daw[k]
+            else:
+                dJ = _vadd(
+                    _cross(daw[k], _vsub(pcs[b], pivots_w[k])),
+                    _cross(axes_w[k], _vsub(dpc[b], dow[k])),
+                )
+                accw = _vadd(accw, _scale(daw[k], qdrows[k]))
+            acc = _vadd(acc, _scale(dJ, qdrows[k]))
+        a0.append(acc)
+        al0.append(accw)
+
+    # ---------------- bias (Newton-Euler + gravity/springs) -----
+    wb = []
+    for b in range(nbody):
+        acc = [0.0, 0.0, 0.0]
+        for k in range(nv):
+            if amask[b, k] and u[k] is not None:
+                acc = _vadd(acc, u[k])
+        wb.append(acc)
+    c_rows = [0.0] * nv
+    for b in range(nbody):
+        f_lin = _scale(a0[b], masses[b])
+        Iww = _matvec(Iw[b], wb[b])
+        t_ang = _vadd(_matvec(Iw[b], al0[b]), _cross(wb[b], Iww))
+        for k in range(nv):
+            if not amask[b, k]:
+                continue
+            c_rows[k] = _add(c_rows[k], _dot3(Jv[b][k], f_lin))
+            if jtypes[k] == HINGE:
+                c_rows[k] = _add(c_rows[k], _dot3(axes_w[k], t_ang))
+    for k in range(nv):
+        acc = 0.0
+        for b in range(nbody):
+            if amask[b, k]:
+                acc = _add(acc, _mul(masses[b], Jv[b][k][2]))
+        c_rows[k] = _sub(c_rows[k], _mul(t.gravity, acc))
+        if t.stiffness[k]:
+            qk = qrows[q_index(model, k)]
+            c_rows[k] = _add(c_rows[k], _mul(t.stiffness[k], _sub(qk, joint_ref[k])))
+    return Rs, ps, axes_w, pivots_w, Iw, Jv, c_rows
+
+
 def make_substep(t: ModelTables, ops, crows):
     """One substep ``(qrows, qdrows) -> (q_new, qd_new)`` over lists of
     per-env values, for the (already clipped) control rows ``crows``.
@@ -260,181 +444,15 @@ def make_substep(t: ModelTables, ops, crows):
     """
     model = t.model
     nv, nq, nbody, dt = t.nv, t.nq, t.nbody, t.dt
-    amask, strict, strict_rot, jtypes = t.amask, t.strict, t.strict_rot, t.jtypes
-    masses, joint_ref = t.masses, t.joint_ref
+    amask, jtypes = t.amask, t.jtypes
+    masses = t.masses
 
     tau_act = [0.0] * nv
     for a in range(t.nu):
         tau_act[t.act_dof[a]] = _add(tau_act[t.act_dof[a]], _mul(t.gear[a], crows[a]))
 
     def substep(qrows, qdrows):
-        # ---------------- forward kinematics ------------------------
-        Rs, ps = [None] * nbody, [None] * nbody
-        axes_w, pivots_w = [None] * nv, [None] * nv
-        for b in range(nbody):
-            parent = int(model.bodies.parent[b])
-            if parent < 0:
-                R_p = [[1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.0, 0.0, 1.0]]
-                p_p = [0.0, 0.0, 0.0]
-            else:
-                R_p, p_p = Rs[parent], ps[parent]
-
-            if is_free_root_body(model, b):
-                w, x, y, z = qrows[3], qrows[4], qrows[5], qrows[6]
-                nn = w * w + x * x + y * y + z * z
-                s2 = 2.0 / ops.maximum(nn, 1e-12)
-                R = [
-                    [1 - s2 * (y * y + z * z), s2 * (x * y - w * z), s2 * (x * z + w * y)],
-                    [s2 * (x * y + w * z), 1 - s2 * (x * x + z * z), s2 * (y * z - w * x)],
-                    [s2 * (x * z - w * y), s2 * (y * z + w * x), 1 - s2 * (x * x + y * y)],
-                ]
-                p = [qrows[0], qrows[1], qrows[2]]
-                start = int(model.bodies.dof_start[b])
-                for k in range(3):
-                    e = [0.0, 0.0, 0.0]
-                    e[k] = 1.0
-                    axes_w[start + k] = e
-                    pivots_w[start + k] = [0.0, 0.0, 0.0]
-                for k in range(3):
-                    axes_w[start + 3 + k] = [R[0][k], R[1][k], R[2][k]]
-                    pivots_w[start + 3 + k] = p
-                Rs[b], ps[b] = R, p
-                continue
-
-            Rfix = [[float(v) for v in row] for row in quat_to_mat_np(model.bodies.quat[b])]
-            R = _matmul(R_p, Rfix)
-            p = _vadd(p_p, _matvec(R_p, [float(v) for v in model.bodies.pos[b]]))
-            start = int(model.bodies.dof_start[b])
-            count = int(model.bodies.dof_count[b])
-            for k in range(start, start + count):
-                axis = [float(v) for v in model.joints.axis[k]]
-                anchor = [float(v) for v in model.joints.anchor[k]]
-                qk = qrows[q_index(model, k)]
-                if joint_ref[k]:
-                    qk = _sub(qk, joint_ref[k])
-                axes_w[k] = _matvec(R, axis)
-                if jtypes[k] == SLIDE:
-                    pivots_w[k] = [0.0, 0.0, 0.0]
-                    p = _vadd(p, _matvec(R, _scale(axis, qk)))
-                else:
-                    pivots_w[k] = _vadd(p, _matvec(R, anchor))
-                    c_, s_ = ops.cos(qk), ops.sin(qk)
-                    ax, ay, az = axis
-                    K = [[0.0, -az, ay], [az, 0.0, -ax], [-ay, ax, 0.0]]
-                    Rj = [
-                        [
-                            _add(
-                                _add(_mul(c_, 1.0 if i == j else 0.0), _mul(s_, K[i][j])),
-                                _mul(_sub(1.0, c_), axis[i] * axis[j]),
-                            )
-                            for j in range(3)
-                        ]
-                        for i in range(3)
-                    ]
-                    p = _vadd(p, _matvec(R, _vsub(anchor, _matvec(Rj, anchor))))
-                    R = _matmul(R, Rj)
-            Rs[b], ps[b] = R, p
-
-        # body com positions and world inertias R I Rᵀ
-        pcs = [
-            _vadd(ps[b], _matvec(Rs[b], t.coms[b])) if any(t.coms[b]) else ps[b]
-            for b in range(nbody)
-        ]
-        Iw = []
-        for b in range(nbody):
-            I = t.inertias[b]
-            RI = [
-                [_dot3(Rs[b][i], [float(I[m][j]) for m in range(3)]) for j in range(3)]
-                for i in range(3)
-            ]
-            Iw.append([[_dot3(RI[i], Rs[b][j]) for j in range(3)] for i in range(3)])
-
-        # ---------------- geometric Jacobians -----------------------
-        Jv = [[None] * nv for _ in range(nbody)]
-        for b in range(nbody):
-            for k in range(nv):
-                if not amask[b, k]:
-                    continue
-                if jtypes[k] == SLIDE:
-                    Jv[b][k] = axes_w[k]
-                else:
-                    Jv[b][k] = _cross(axes_w[k], _vsub(pcs[b], pivots_w[k]))
-
-        # ---------------- closed-form convective terms --------------
-        u = [_scale(axes_w[k], qdrows[k]) if jtypes[k] == HINGE else None for k in range(nv)]
-        s_vec = [_scale(axes_w[k], qdrows[k]) if jtypes[k] == SLIDE else None for k in range(nv)]
-        daw = []
-        for k in range(nv):
-            w_pre = [0.0, 0.0, 0.0]
-            for j in range(nv):
-                if strict_rot[k, j] and u[j] is not None:
-                    w_pre = _vadd(w_pre, u[j])
-            daw.append(_cross(w_pre, axes_w[k]))
-        dow = []
-        for k in range(nv):
-            acc = [0.0, 0.0, 0.0]
-            for j in range(nv):
-                if not strict[k, j]:
-                    continue
-                if s_vec[j] is not None:
-                    acc = _vadd(acc, s_vec[j])
-                else:
-                    acc = _vadd(acc, _cross(u[j], _vsub(pivots_w[k], pivots_w[j])))
-            dow.append(acc)
-        dpc = []
-        for b in range(nbody):
-            acc = [0.0, 0.0, 0.0]
-            for k in range(nv):
-                if Jv[b][k] is not None:
-                    acc = _vadd(acc, _scale(Jv[b][k], qdrows[k]))
-            dpc.append(acc)
-        a0, al0 = [], []
-        for b in range(nbody):
-            acc = [0.0, 0.0, 0.0]
-            accw = [0.0, 0.0, 0.0]
-            for k in range(nv):
-                if not amask[b, k]:
-                    continue
-                if jtypes[k] == SLIDE:
-                    dJ = daw[k]
-                else:
-                    dJ = _vadd(
-                        _cross(daw[k], _vsub(pcs[b], pivots_w[k])),
-                        _cross(axes_w[k], _vsub(dpc[b], dow[k])),
-                    )
-                    accw = _vadd(accw, _scale(daw[k], qdrows[k]))
-                acc = _vadd(acc, _scale(dJ, qdrows[k]))
-            a0.append(acc)
-            al0.append(accw)
-
-        # ---------------- bias (Newton-Euler + gravity/springs) -----
-        wb = []
-        for b in range(nbody):
-            acc = [0.0, 0.0, 0.0]
-            for k in range(nv):
-                if amask[b, k] and u[k] is not None:
-                    acc = _vadd(acc, u[k])
-            wb.append(acc)
-        c_rows = [0.0] * nv
-        for b in range(nbody):
-            f_lin = _scale(a0[b], masses[b])
-            Iww = _matvec(Iw[b], wb[b])
-            t_ang = _vadd(_matvec(Iw[b], al0[b]), _cross(wb[b], Iww))
-            for k in range(nv):
-                if not amask[b, k]:
-                    continue
-                c_rows[k] = _add(c_rows[k], _dot3(Jv[b][k], f_lin))
-                if jtypes[k] == HINGE:
-                    c_rows[k] = _add(c_rows[k], _dot3(axes_w[k], t_ang))
-        for k in range(nv):
-            acc = 0.0
-            for b in range(nbody):
-                if amask[b, k]:
-                    acc = _add(acc, _mul(masses[b], Jv[b][k][2]))
-            c_rows[k] = _sub(c_rows[k], _mul(t.gravity, acc))
-            if t.stiffness[k]:
-                qk = qrows[q_index(model, k)]
-                c_rows[k] = _add(c_rows[k], _mul(t.stiffness[k], _sub(qk, joint_ref[k])))
+        Rs, ps, axes_w, pivots_w, Iw, Jv, c_rows = kinematics_and_bias(t, ops, qrows, qdrows)
 
         # ---------------- torques: actuation + limits + contacts ----
         tau = list(tau_act)

@@ -7,10 +7,11 @@ ancestry masks, the free-root tests, the folded contact and limit constants),
 and the batched kinematics the robots' observations and rewards read
 (``dof_positions``, ``integrate_pos``, ``fk``, ``fk_full`` and the helpers of
 :func:`make_dynamics`), with the geometric Jacobians, the mass matrix and the
-unrolled Cholesky solve (:func:`spd_solve`) that Swimmer's fluid drag reads.
-A model steps only through the generated substep of
-:mod:`gymnasium_tpu_torch.ops.articulated_step`; ``make_dynamics`` has no
-``step``, bias or energies.
+unrolled Cholesky solve (:func:`spd_solve`) that Swimmer's fluid drag reads,
+the Newton-Euler bias and the energies. A model steps only through the
+generated substep of :mod:`gymnasium_tpu_torch.ops.articulated_step`:
+``make_dynamics(model)["step"]`` is one substep of its plain twin, and
+:func:`step_fn` is the fused step itself (the kernel on a CUDA tensor).
 
 The batched helpers take ``(N, nq)``/``(N, nv)`` float32 tensors and compute
 on their device. Small products are written as broadcast multiply-sums, as
@@ -45,6 +46,7 @@ __all__ = [
     "fk",
     "fk_full",
     "make_dynamics",
+    "step_fn",
     "spd_solve",
 ]
 
@@ -128,6 +130,16 @@ class ArticulatedModel(NamedTuple):
     def nbody(self) -> int:
         """Body count including the implicit world body (MuJoCo convention)."""
         return len(self.bodies.parent) + 1
+
+    @property
+    def body_mass(self) -> np.ndarray:
+        """(nbody,) masses with the world's 0 at row 0 (MuJoCo layout)."""
+        return np.concatenate([[0.0], np.asarray(self.bodies.mass, dtype=np.float64)])
+
+    @property
+    def ntendon(self) -> int:
+        """Tendons are not modelled by this engine."""
+        return 0
 
 
 def quat_to_mat_np(q) -> np.ndarray:
@@ -463,7 +475,18 @@ def make_dynamics(model: ArticulatedModel) -> dict:
       its ancestors' dofs move it (``pc_dot = sum_k Jv[:, :, k] qd_k``);
     - ``mass_matrix(q) -> (N, nv, nv)``, ``X^T X`` plus the armature, with
       ``X`` the rows ``sqrt(m) Jv^T`` and ``(R L)^T Jw^T`` of every body,
-      ``L`` the Cholesky factor of its inertia (the JAX helper's Gram form).
+      ``L`` the Cholesky factor of its inertia (the JAX helper's Gram form);
+    - ``bias(q, qd) -> (N, nv)``, the Newton-Euler velocity bias with gravity
+      and the joint springs, as the substep program computes it
+      (``ops/articulated_codegen.py::kinematics_and_bias`` over the twin's
+      rows);
+    - ``kinetic_energy(q, qd) -> (N,)``, from the bodies' velocities along
+      the position flow ``q (+) t qd`` (a forward derivative of
+      :func:`integrate_pos`, independent of the closed-form Jacobians), and
+      ``potential(q) -> (N,)``, gravity and the joint springs;
+    - ``step(q, qd, ctrl) -> (q', qd')``, one substep of the program the
+      fused step's plain twin runs (``ops/articulated_step.py``), on any
+      device.
     """
     constants = _Constants(model)
     nbody, nc = len(model.bodies.parent), len(model.contact_body)
@@ -473,6 +496,10 @@ def make_dynamics(model: ArticulatedModel) -> dict:
         "inertia_chol": inertia_chol,
         "body_mask": ancestor_dof_mask(model)[:, :, None],
         "armature": np.diag(np.asarray(model.joints.armature, np.float64)),
+        "armature_v": np.asarray(model.joints.armature, np.float64),
+        "inertia": np.asarray(model.bodies.inertia, np.float64),
+        "mass": np.asarray(model.bodies.mass, np.float64),
+        "stiffness": np.asarray(model.joints.stiffness, np.float64),
     }
     gram_on: dict[torch.device, dict[str, torch.Tensor]] = {}
 
@@ -551,6 +578,51 @@ def make_dynamics(model: ArticulatedModel) -> dict:
         X = torch.cat([lin, ang], dim=2).reshape(q.shape[0], 6 * nbody, model.nv)
         return torch.sum(X[:, :, :, None] * X[:, :, None, :], dim=1) + g["armature"]
 
+    def kinetic_energy(q, qd):
+        g = gram_tables(q.device)
+
+        def flow(t):
+            return com_world(integrate_pos(model, q, qd, t))
+
+        zero = torch.zeros((), dtype=q.dtype, device=q.device)
+        (_, R), (pc_dot, R_dot) = torch.func.jvp(flow, (zero,), (torch.ones_like(zero),))
+        # the world angular velocity from skew(R_dot R^T)
+        W = torch.sum(R_dot[..., :, None, :] * R[..., None, :, :], dim=-1)
+        omega = torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], dim=-1)
+        I_world = _mm(_mm(R, g["inertia"]), R.transpose(-1, -2))
+        t_lin = 0.5 * torch.sum(g["mass"] * torch.sum(pc_dot * pc_dot, dim=-1), dim=-1)
+        t_ang = 0.5 * torch.sum(I_world * omega[..., :, None] * omega[..., None, :], dim=(1, 2, 3))
+        t_arm = 0.5 * torch.sum(g["armature_v"] * qd * qd, dim=-1)
+        return t_lin + t_ang + t_arm
+
+    def potential(q):
+        c, g = constants.on(q.device), gram_tables(q.device)
+        pc, _ = com_world(q)
+        dq = dof_positions(model, q) - c["ref"]
+        spring = 0.5 * torch.sum(g["stiffness"] * dq * dq, dim=-1)
+        return -torch.sum(g["mass"] * model.gravity * pc[..., 2], dim=-1) + spring
+
+    substep = []
+
+    def program():
+        """The fused step of one substep, whose twin runs the program."""
+        if not substep:
+            # imported here: the generator imports this module
+            from gymnasium_tpu_torch.ops.articulated_step import make_fused_step
+
+            substep.append(make_fused_step(model, 1))
+        return substep[0]
+
+    def bias(q, qd):
+        from gymnasium_tpu_torch.ops.articulated_codegen import kinematics_and_bias
+        from gymnasium_tpu_torch.ops.codegen import TorchOps
+
+        rows = kinematics_and_bias(program().tables, TorchOps(q.device), list(q.T), list(qd.T))[-1]
+        return torch.stack([torch.as_tensor(r, dtype=q.dtype, device=q.device).expand(q.shape[0]) for r in rows], dim=1)
+
+    def step(q, qd, ctrl):
+        return program().reference(q, qd, ctrl)
+
     return {
         "fk": lambda q: _fk(model, constants.on(q.device), q, full=False),
         "com_world": com_world,
@@ -559,4 +631,18 @@ def make_dynamics(model: ArticulatedModel) -> dict:
         "limit_torques": limit_torques,
         "jacobians": jacobians,
         "mass_matrix": mass_matrix,
+        "bias": bias,
+        "kinetic_energy": kinetic_energy,
+        "potential": potential,
+        "step": step,
     }
+
+
+def step_fn(model: ArticulatedModel, frame_skip: int = 1, name: str = "model"):
+    """The fused step ``(q, qd, ctrl) -> (q', qd')`` of ``frame_skip``
+    substeps of ``model``: the generated kernel on CUDA tensors, its plain
+    twin on CPU tensors (:func:`~gymnasium_tpu_torch.ops.articulated_step.make_fused_step`,
+    whose ``name`` names the build)."""
+    from gymnasium_tpu_torch.ops.articulated_step import make_fused_step
+
+    return make_fused_step(model, frame_skip, name)

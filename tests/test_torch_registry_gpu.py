@@ -68,3 +68,22 @@ def test_single_env_on_the_card_agrees_with_the_cpu(cuda):
         got, want = card.step(action), cpu.step(action)
         torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-4, atol=1e-4)
     assert sum(art.launches.values()) == len(actions)
+
+
+def test_make_of_a_mujoco_id_steps_on_the_card_one_launch_a_step(cuda):
+    from gymnasium_tpu_torch.ops import articulated_step as art
+
+    env = gym.make("Ant-v5")
+    assert env.unwrapped.device.type == "cuda"
+    obs, _ = env.reset(seed=0)
+    cpu = gym.make("Ant-v5", device="cpu")
+    cpu.reset(seed=0)
+    actions = np.random.default_rng(0).uniform(-1, 1, (10, 8)).astype(np.float32)
+    art.launches.clear()
+    for action in actions:
+        cpu.unwrapped.set_state(*env.unwrapped.get_state())
+        got, want = env.step(action), cpu.step(action)
+        assert got[0].dtype == np.float64 and got[0].shape == (105,)
+        np.testing.assert_allclose(got[0], want[0], rtol=1e-4, atol=1e-4)
+        assert got[2] == want[2]
+    assert dict(art.launches) == {"articulated_ant_fs5": len(actions)}
