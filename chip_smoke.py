@@ -348,6 +348,32 @@ HOST_CHECK_TOL = 1e-4
 HOST_PROFILED = ("HalfCheetah-v5", "Ant-v5")
 TRACE_OPENING_S = 0.05  # untimed host-env steps that open each profiled trace
 
+# The Box2D host env phase: gymnasium_tpu_torch.make(id, **kwargs) with no
+# device (the card) for the planar host classes, by path label. reset(seed=0)
+# launches the path's planar build once (the walker: the terrain kernel
+# once, then its build once), and each of BOX2D_STEPS steps one launch of the
+# build. The first BOX2D_CHECK_STEPS steps run again on the CPU from the
+# card's state and generator, each output within (atol, rtol) of the CPU
+# tests (tests/test_torch_{lunar_lander,bipedal_walker}_env.py), per element.
+# HEURISTIC_SEEDS: demo_heuristic_lander on make("LunarLander-v3") lands above
+# HEURISTIC_LANDING (tests/envs/test_box2d_parity.py's gate).
+BOX2D_PATHS = {
+    "LunarLander-v3": ("LunarLander-v3", {}),
+    "LunarLanderContinuous-v3": ("LunarLanderContinuous-v3", {}),
+    "LunarLander-v3 wind": ("LunarLander-v3", {"enable_wind": True}),
+    "BipedalWalker-v3": ("BipedalWalker-v3", {}),
+    "BipedalWalkerHardcore-v3": ("BipedalWalkerHardcore-v3", {}),
+}
+BOX2D_STEPS = 20
+BOX2D_CHECK_STEPS = 5
+BOX2D_TOL = {"lander": {"obs": (1e-6, 1e-6), "reward": (1e-4, 1e-5)},
+             "walker": {"obs": (1e-5, 1e-5), "reward": (1e-4, 1e-5)}}
+BOX2D_PROFILED = ("LunarLander-v3", "BipedalWalker-v3")
+BOX2D_FRAMES = {"LunarLander-v3": (400, 600, 3), "BipedalWalker-v3": (400, 600, 3), "CarRacing-v3": (400, 600, 3)}
+HEURISTIC_SEEDS = (1, 2, 3)
+HEURISTIC_LANDING = 100.0
+CAR_HOST_STEPS = 20
+
 # The MJCF phase's model, written to a temporary file and compiled through
 # load_model: a planar chain with a slide root, two limited hinges, two
 # motors and a floor contact sphere (contact sphere only on the foot).
@@ -2038,8 +2064,10 @@ def compare_single_env_with_cpu(env_id: str, run: dict, tol: float) -> dict:
 
 
 def host_actions(env, steps: int, seed: int = 0) -> np.ndarray:
-    """``steps`` actions inside ``env``'s Box, from a numpy generator."""
+    """``steps`` actions inside ``env``'s Box (or Discrete), from a numpy generator."""
     space = env.action_space
+    if not hasattr(space, "low"):
+        return [int(a) for a in np.random.default_rng(seed).integers(0, space.n, steps)]
     return np.random.default_rng(seed).uniform(space.low, space.high, (steps, *space.shape)).astype(np.float32)
 
 
@@ -2175,9 +2203,9 @@ def profile_host_env_step(dev, env_id: str, kernel: str, steps: int = PROFILED_E
             "top_kernels_device_ms_a_step": {k: us / 1e3 / steps for k, us in by_name.most_common(5)}}
 
 
-def render_host_frame(env_id: str) -> dict:
+def render_host_frame(env_id: str, shape: tuple = (480, 480, 3)) -> dict:
     """One ``rgb_array`` frame of ``make(env_id, render_mode="rgb_array")`` on
-    the card after ``reset(seed=0)``: (480, 480, 3) uint8 and not constant."""
+    the card after ``reset(seed=0)``: ``shape`` uint8 and not constant."""
     import gymnasium_tpu_torch as gym
 
     env = gym.make(env_id, render_mode="rgb_array")
@@ -2186,11 +2214,159 @@ def render_host_frame(env_id: str) -> dict:
     frame = env.render()
     ms = (time.perf_counter() - start) * 1e3
     env.close()
-    check(isinstance(frame, np.ndarray) and frame.shape == (480, 480, 3) and frame.dtype == np.uint8,
+    check(isinstance(frame, np.ndarray) and frame.shape == shape and frame.dtype == np.uint8,
           f"{env_id}: frame {getattr(frame, 'shape', None)} {getattr(frame, 'dtype', None)}")
     colours = int(np.unique(frame.reshape(-1, 3), axis=0).shape[0])
     check(colours > 1, f"{env_id}: the frame is one colour")
     return {"shape": list(frame.shape), "dtype": str(frame.dtype), "colours": colours, "render_ms": ms}
+
+
+def box2d_kind(env_id: str) -> str:
+    return "walker" if env_id.startswith("Bipedal") else "lander"
+
+
+def run_box2d_env(dev, label: str, steps: int = BOX2D_STEPS) -> dict:
+    """``gymnasium_tpu_torch.make`` of the Box2D path ``label`` with no device,
+    so on the card: ``reset(seed=0)``, then ``steps`` numpy actions. Records
+    the planar and terrain launches at reset and over the steps (every count
+    set to 0 before the reset), the host-clock ms a step (each step reads one
+    packed row back, as the API asks), and for :func:`compare_box2d_env_with_cpu`
+    the env's state, generator and wind indices before each step (a step
+    replaces the state's tensors and never writes into them, so a shallow
+    copy keeps them) and the step's outputs."""
+    import gymnasium_tpu_torch as gym
+    from gymnasium_tpu_torch.ops import planar_step as pl
+    from gymnasium_tpu_torch.ops import walker_terrain as wt
+
+    env_id, kwargs = BOX2D_PATHS[label]
+    env = gym.make(env_id, **kwargs)
+    inner = env.unwrapped
+    check(inner.device.type == torch.device(dev).type, f"{label}: make's env on {inner.device}")
+    check(wrapper_chain(env)[:3] == ["TimeLimit", "OrderEnforcing", "PassiveEnvChecker"],
+          f"{label}: make's wrappers {wrapper_chain(env)}")
+    actions = host_actions(env, steps)
+
+    def counts() -> dict:
+        return {k: v for k, v in {**pl.launches, "walker_terrain": wt.launches}.items() if v}
+
+    pl.launches.clear()
+    wt.launches = 0
+    start = time.perf_counter()
+    obs, _ = env.reset(seed=0)
+    reset_ms = (time.perf_counter() - start) * 1e3
+    reset_launches = counts()
+    reset_snap = (dict(inner.state), inner.np_random.bit_generator.state)
+    snaps, outs = [], []
+    start = time.perf_counter()
+    for action in actions:
+        snaps.append((dict(inner.state), inner.np_random.bit_generator.state,
+                      getattr(inner, "wind_idx", None), getattr(inner, "torque_idx", None)))
+        outs.append(env.step(action))
+    seconds = time.perf_counter() - start
+    # the counts run on from the reset's, so the caller's total holds both
+    step_launches = {k: v - reset_launches.get(k, 0) for k, v in counts().items() if v != reset_launches.get(k, 0)}
+    shape = env.observation_space.shape
+    for o in (obs, *(o[0] for o in outs)):
+        check(isinstance(o, np.ndarray) and o.dtype == np.float32 and o.shape == shape, f"{label}: obs {o.shape}")
+        check(bool(np.isfinite(o).all()), f"{label}: obs not finite")
+    check(all(isinstance(o[1], float) and isinstance(o[2], bool) for o in outs), f"{label}: reward or flag type")
+    env.close()
+    return {"env_id": env_id, "kwargs": kwargs, "steps": steps, "ms_a_step": seconds * 1e3 / steps,
+            "reset_ms": reset_ms, "reset_launches": reset_launches, "step_launches": step_launches,
+            "terminations": sum(o[2] for o in outs), "_reset": (obs, reset_snap), "_snaps": snaps,
+            "_actions": actions, "_outs": outs}
+
+
+def compare_box2d_env_with_cpu(label: str, run: dict, checked: int = BOX2D_CHECK_STEPS) -> dict:
+    """The reset and the first ``checked`` steps of :func:`run_box2d_env` on
+    the same env made with ``device="cpu"``: the reset from the same seed,
+    each step from the card's state, generator and wind indices before it.
+    Raises unless ``terminated`` and the generators after each step are
+    equal and the observation and the reward are within
+    :data:`BOX2D_TOL` of the CPU's, element by element. Returns the largest
+    deviations."""
+    import gymnasium_tpu_torch as gym
+
+    env_id, kwargs = BOX2D_PATHS[label]
+    tol = BOX2D_TOL[box2d_kind(env_id)]
+    cpu = gym.make(env_id, device="cpu", **kwargs).unwrapped
+    worst = {"obs": 0.0, "reward": 0.0}
+
+    def agree(what: str, got, want, where: str) -> None:
+        atol, rtol = tol[what]
+        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        err = np.abs(got - want)
+        check(bool((err <= atol + rtol * np.abs(want)).all()),
+              f"{label} {where}: {what} differs from the CPU's by {float(err.max())}")
+        worst[what] = max(worst[what], float(err.max()))
+
+    card_obs, (_, card_rng) = run["_reset"]
+    agree("obs", card_obs, cpu.reset(seed=0)[0], "reset")
+    check(cpu.np_random.bit_generator.state == card_rng, f"{label}: the generators differ after the reset")
+    for i in range(checked):
+        state, rng, wind_idx, torque_idx = run["_snaps"][i]
+        cpu.state = {k: v.cpu() for k, v in state.items()}
+        cpu.np_random.bit_generator.state = rng
+        if wind_idx is not None:
+            cpu.wind_idx, cpu.torque_idx = wind_idx, torque_idx
+        card, want = run["_outs"][i], cpu.step(run["_actions"][i])
+        agree("obs", card[0], want[0], f"step {i}")
+        agree("reward", card[1], want[1], f"step {i}")
+        check(card[2] == want[2], f"{label} step {i}: terminated {card[2]} on the card, {want[2]} on the CPU")
+        check(cpu.np_random.bit_generator.state == run["_snaps"][i + 1][1],
+              f"{label} step {i}: the generators differ after the step")
+    cpu.close()
+    return {"max_abs_dev": worst, "checked_steps": checked, "tolerance": tol}
+
+
+def run_heuristic_landings() -> dict:
+    """``demo_heuristic_lander`` on ``make("LunarLander-v3")`` (the card) at
+    each of :data:`HEURISTIC_SEEDS`: the episode's total reward, which must
+    exceed :data:`HEURISTIC_LANDING`, its steps and host-clock seconds."""
+    import gymnasium_tpu_torch as gym
+    from gymnasium_tpu_torch.envs.box2d.lunar_lander import demo_heuristic_lander
+
+    out = {}
+    for seed in HEURISTIC_SEEDS:
+        env = gym.make("LunarLander-v3")
+        start = time.perf_counter()
+        total = demo_heuristic_lander(env, seed=seed)
+        seconds = time.perf_counter() - start
+        out[seed] = {"total_reward": total, "steps": env._elapsed_steps, "seconds": seconds}
+        env.close()
+        print(f"demo_heuristic_lander(make('LunarLander-v3'), seed={seed}) on the card: total reward {total:.4f} "
+              f"in {out[seed]['steps']} steps, {seconds:.2f} s", flush=True)
+        check(total > HEURISTIC_LANDING, f"the heuristic lander scored {total} at seed {seed}")
+    return out
+
+
+def run_car_racing_host(steps: int = CAR_HOST_STEPS) -> dict:
+    """``make("CarRacing-v3")``, which runs on the host: ``reset(seed=0)``
+    and ``steps`` numpy actions, each observation (96, 96, 3) uint8."""
+    import gymnasium_tpu_torch as gym
+
+    env = gym.make("CarRacing-v3")
+    obs, _ = env.reset(seed=0)
+    start = time.perf_counter()
+    outs = [env.step(a) for a in host_actions(env, steps)]
+    seconds = time.perf_counter() - start
+    env.close()
+    for o in (obs, *(o[0] for o in outs)):
+        check(o.shape == (96, 96, 3) and o.dtype == np.uint8, f"CarRacing-v3: obs {o.shape} {o.dtype}")
+    return {"steps": steps, "ms_a_step": seconds * 1e3 / steps, "rewards": [o[1] for o in outs][:5]}
+
+
+def compare_terrain_at_n1(dev) -> dict:
+    """The terrain kernel against its twin at N=1, normal and hardcore (bit
+    for bit, every obstacle kind in the draws), and its CUDA-events time a
+    call in each mode."""
+    from gymnasium_tpu_torch.ops import walker_terrain as wt
+
+    out = compare_terrain_with_twin(1, dev)
+    u, d = terrain_draws(1, dev)
+    for mode, draws in (("normal", None), ("hardcore", d)):
+        out[f"{mode}_events_ms"] = cuda_ms(lambda: wt.walker_terrain(u, draws), 50, 5)
+    return out
 
 
 def run_device_spaces(dev, n: int = NUM_ENVS) -> dict:
@@ -3017,6 +3193,50 @@ def smoke(xml_path: str) -> int:
         "envs": {env_id: {k: v for k, v in r.items() if not k.startswith("_")} for env_id, r in host.items()},
         "builds_at_n1": host_small,
     }}), flush=True)
+    # -- the Box2D host env classes: LunarLander and BipedalWalker on the card,
+    # CarRacing on the host ---------------------------------------------------
+    box2d, box2d_counts = {}, {}
+    for label in BOX2D_PATHS:
+        box2d[label], box2d_counts[label] = counted(f"make({label!r})", lambda: run_box2d_env(dev, label))
+        print(f"make({label!r}) on the card: {box2d[label]['ms_a_step']:.4f} ms a step (host clock, "
+              f"{BOX2D_STEPS} steps), reset {box2d[label]['reset_ms']:.2f} ms", flush=True)
+    car_host, car_host_counts = counted('make("CarRacing-v3")', run_car_racing_host)
+    check(not any(car_host_counts.values()), f'make("CarRacing-v3") launched {car_host_counts}; it runs on the host')
+    # a reset is one launch of the path's build (the walker's after one
+    # terrain launch), a step one launch of the build
+    for label, counts in box2d_counts.items():
+        walker_path = box2d_kind(BOX2D_PATHS[label][0]) == "walker"
+        build_name = walker.build_name if walker_path else planar.build_name
+        reset_want = {build_name: 1, **({"walker_terrain": 1} if walker_path else {})}
+        want = {"cartpole_rollout_fused": 0, **gen_zero, **reset_want, build_name: 1 + BOX2D_STEPS}
+        check(counts == want, f"make({label!r}) path launches {counts}, want {want}")
+        check(box2d[label]["reset_launches"] == reset_want,
+              f"make({label!r}): reset launched {box2d[label]['reset_launches']}, want {reset_want}")
+        check(box2d[label]["step_launches"] == {build_name: BOX2D_STEPS},
+              f"make({label!r}): steps launched {box2d[label]['step_launches']}")
+        box2d[label]["launches"] = {k: v for k, v in counts.items() if v}
+    for label in BOX2D_PATHS:
+        box2d[label]["device_vs_cpu"] = compare_box2d_env_with_cpu(label, box2d[label])
+        print(f"make({label!r}) on the card vs the CPU (the reset, {BOX2D_CHECK_STEPS} steps each from the card's "
+              f"state): {box2d[label]['device_vs_cpu']}", flush=True)
+    landings = run_heuristic_landings()
+    box2d_profiles, box2d_frames = {}, {}
+    for env_id in BOX2D_PROFILED:
+        box2d_profiles[env_id] = profile_host_env_step(dev, env_id, "step_kernel")
+        print(f"make({env_id!r}) step under torch.profiler: {json.dumps(box2d_profiles[env_id])}", flush=True)
+    for env_id, shape in BOX2D_FRAMES.items():
+        box2d_frames[env_id] = render_host_frame(env_id, shape)
+    terrain_n1 = compare_terrain_at_n1(dev)
+    print(f"rgb_array frames: {json.dumps(box2d_frames)}; walker_terrain kernel vs twin at N=1: {terrain_n1}",
+          flush=True)
+    next(k for k in kernels if k["name"] == "walker_terrain")["n1"] = terrain_n1
+    print(json.dumps({"box2d_host_envs": {
+        "card": card_line(), "steps": BOX2D_STEPS,
+        "envs": {label: {k: v for k, v in r.items() if not k.startswith("_")} for label, r in box2d.items()},
+        "carracing": car_host, "heuristic_landings": landings, "profiles": box2d_profiles, "frames": box2d_frames,
+        "walker_terrain_n1": terrain_n1,
+    }}), flush=True)
+    lap("the Box2D host envs")
     for entry in kernels:
         if entry["name"] == "articulated_step[half_cheetah]":
             build_name = steps["half_cheetah"].build_name
@@ -3032,7 +3252,8 @@ def smoke(xml_path: str) -> int:
     registry_paths = {**{f"make_vec({env_id!r})": registry_counts[env_id] for env_id in REGISTRY_IDS},
                       'make("phys2d/CartPole-v1")': single_cartpole_counts,
                       **{f"FunctionalTorchEnv({env_id})": single_counts[env_id] for env_id in SINGLE_IDS},
-                      **{f"make({env_id!r})": host_counts[env_id] for env_id in HOST_IDS}}
+                      **{f"make({env_id!r})": host_counts[env_id] for env_id in HOST_IDS},
+                      **{f"make({label!r})": box2d_counts[label] for label in BOX2D_PATHS}}
     for entry in kernels:
         build_name = kernel_build.get(entry["name"])
         by_path = {path: counts[build_name] for path, counts in registry_paths.items() if counts.get(build_name)}

@@ -17,7 +17,18 @@ plain twins.
 The state is a dict of ``bodies`` (N, 5, 6) ``[x, y, angle, vx, vy, omega]``
 of hull, thigh1, shank1, thigh2, shank2, ``terrain`` (N, 200), ``cimp``
 (N, 19, 2), ``prev_shaping``, ``r`` (N,) in float32 and ``done`` (N,) bool.
-The host ``BipedalWalker`` class and its rendering are not ported.
+
+:class:`BipedalWalker` is the host env class behind ``make(id)``, with the
+JAX class's numpy API, draws and state keys (no batch axis). Its physics runs
+on the env's device, CUDA unless the caller passes ``device="cpu"``. A reset
+uploads its draws as one row, makes the heightfield in one launch of the
+terrain kernel and the settle tick in one launch of the walker build, and
+reads the observation and the heightfield back in one copy. A step is one
+launch of the walker build and one packed row read back. Its observation
+takes the legs' contact flags from the solver, as the JAX host class does;
+the functional's come from the foot height. The JAX host reset clears only
+the settle tick's reward and keeps its termination; the functional clears
+both.
 """
 
 from __future__ import annotations
@@ -29,16 +40,20 @@ from typing import Any
 import numpy as np
 import torch
 
-from gymnasium_tpu_torch import spaces
+from gymnasium_tpu_torch import logger, spaces
+from gymnasium_tpu_torch.core import Env
 from gymnasium_tpu_torch.error import Error
 from gymnasium_tpu_torch.functional import FuncEnv, tree_map
 from gymnasium_tpu_torch.ops.planar_codegen import Heightfield
 from gymnasium_tpu_torch.ops.planar_step import FusedPlanarStep
 from gymnasium_tpu_torch.ops.walker_terrain import walker_terrain
 from gymnasium_tpu_torch.physics.planar import BodySpec, ContactSpec, JointSpec, PlanarWorld
+from gymnasium_tpu_torch.utils.device import resolve_device, upload_row
 from gymnasium_tpu_torch.utils.draws import uniform_map
+from gymnasium_tpu_torch.utils.ezpickle import EzPickle
 
 __all__ = [
+    "BipedalWalker",
     "BipedalWalkerFunctional",
     "BipedalWalkerHardcore",
     "build_world",
@@ -47,8 +62,10 @@ __all__ = [
     "initial_bodies",
     "lidar_scan",
     "observe_state",
+    "solver_legs",
     "walker_solver",
     "walker_step",
+    "walker_tick",
 ]
 
 FPS = 50
@@ -318,14 +335,10 @@ def observe_state(state: dict, leg1=None, leg2=None) -> torch.Tensor:
     return torch.cat([head, lidar], dim=-1)
 
 
-def walker_step(state: dict, action: torch.Tensor) -> dict:
-    """One env tick: motors from the action, the four solver ticks in one
-    call of :func:`walker_solver`, then reward and termination.
-
-    The JAX ``walker_step`` also builds the whole observation and reads only
-    its first entry, the hull angle, for the shaping; here the angle is read
-    directly, with the same result, and no lidar runs.
-    """
+def walker_tick(state: dict, action: torch.Tensor) -> tuple[dict, torch.Tensor]:
+    """:func:`walker_step`, and the solver's contact flags (N, 19) of its last
+    tick, from which the host class reads the legs' contacts as the JAX host
+    class does."""
     bodies, terrain = state["bodies"], state["terrain"]
     a = torch.clamp(action.to(torch.float32), -1.0, 1.0)
     motor_speed = torch.sign(a) * _constant((SPEED_HIP, SPEED_KNEE, SPEED_HIP, SPEED_KNEE), a.device)
@@ -333,8 +346,6 @@ def walker_step(state: dict, action: torch.Tensor) -> dict:
     bodies, _, cimp, flags = walker_solver()(
         bodies, None, terrain, None, state["cimp"], motor_speed, motor_torque
     )
-    # the hull's probes end an episode; the leg flags of the reference's
-    # lower-leg contact listener are the observation's, from the foot height
     hull_contact = flags[:, 8] | flags[:, 9] | flags[:, 10]
     hull = bodies[:, 0, :]
     hull_x = hull[:, 0] - _HULL_COM[0]
@@ -351,7 +362,157 @@ def walker_step(state: dict, action: torch.Tensor) -> dict:
         "done": crashed | finished,
         "r": torch.where(crashed, -100.0, reward),
         "cimp": cimp,
-    }
+    }, flags
+
+
+def walker_step(state: dict, action: torch.Tensor) -> dict:
+    """One env tick: motors from the action, the four solver ticks in one
+    call of :func:`walker_solver`, then reward and termination. The hull's
+    probes end an episode; the functional's leg flags are the observation's,
+    from the foot height.
+
+    The JAX ``walker_step`` also builds the whole observation and reads only
+    its first entry, the hull angle, for the shaping; here the angle is read
+    directly, with the same result, and no lidar runs.
+    """
+    return walker_tick(state, action)[0]
+
+
+def solver_legs(flags: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The legs' ground contacts of the solver's flags: any probe of a shank,
+    foot or knee end, as the reference's lower-leg contact listener."""
+    return flags[:, 0] | flags[:, 1] | flags[:, 4] | flags[:, 5], flags[:, 2] | flags[:, 3] | flags[:, 6] | flags[:, 7]
+
+
+class BipedalWalker(Env[np.ndarray, np.ndarray], EzPickle):
+    """Teach a 2D biped to walk to the end of the terrain.
+
+    ``device`` is where the physics runs: ``None`` means CUDA, and without a
+    card that raises (:func:`~gymnasium_tpu_torch.utils.device.resolve_device`);
+    ``"cpu"`` runs the plain twins. ``state`` holds the JAX class's keys and
+    shapes as float32 and bool tensors on that device.
+    """
+
+    metadata = {"render_modes": ["human", "rgb_array"], "render_fps": FPS}
+
+    def __init__(self, render_mode: str | None = None, hardcore: bool = False,
+                 device: str | torch.device | None = None):
+        EzPickle.__init__(self, render_mode, hardcore, device=device)
+        self.device = resolve_device(device)
+        self.hardcore = hardcore
+        self.render_mode = render_mode
+        self._display = None
+        self.action_space = spaces.Box(
+            np.array([-1, -1, -1, -1]).astype(np.float32),
+            np.array([1, 1, 1, 1]).astype(np.float32),
+        )
+        self.observation_space = spaces.Box(_OBS_LOW, _OBS_HIGH)
+
+        self.state: dict | None = None
+        self._terrain: np.ndarray | None = None  # the heightfield on the host, for rendering
+
+    def _tick(self, action: torch.Tensor) -> torch.Tensor:
+        """One step of ``state`` (one launch of the walker build), and the
+        new observation (1, 24) with the solver's leg flags."""
+        new, flags = walker_tick({k: v[None] for k, v in self.state.items()}, action)
+        self.state = {k: v[0] for k, v in new.items()}
+        return observe_state(new, *solver_legs(flags))
+
+    def reset(self, *, seed: int | None = None, options: dict[str, Any] | None = None):
+        super().reset(seed=seed)
+        u = self.np_random.uniform(-1.0, 1.0, size=(TERRAIN_LENGTH,))
+        obstacle_draws = self.np_random.uniform(0.0, 1.0, size=(TERRAIN_LENGTH,))
+        # initial horizontal kick (reference applies uniform(-5, 5) N force),
+        # as a velocity in float64 like the JAX class's
+        kick = self.np_random.uniform(-INITIAL_RANDOM, INITIAL_RANDOM)
+        row = upload_row(self.device, u, obstacle_draws, kick / _HULL_MASS / FPS)
+        length = TERRAIN_LENGTH
+        terrain = generate_terrain(row[:, :length], row[:, length : 2 * length] if self.hardcore else None)
+        bodies = initial_bodies(1, self.device)
+        bodies[:, 0, 3] += row[:, 2 * length]
+        zero = torch.zeros((), dtype=torch.float32, device=self.device)
+        self.state = {
+            "bodies": bodies[0],
+            "terrain": terrain[0],
+            "prev_shaping": zero,
+            "done": zero > 0.0,
+            "r": zero,
+            "cimp": torch.zeros((N_CONTACTS, 2), dtype=torch.float32, device=self.device),
+        }
+        # the reference's reset ends with one zero-action settle tick, whose
+        # post-tick shaping seeds prev_shaping and whose reward is discarded
+        obs = self._tick(torch.zeros((1, 4), dtype=torch.float32, device=self.device))
+        self.state["r"] = torch.zeros_like(self.state["r"])
+        out = torch.cat([obs[0], terrain[0]]).cpu().numpy()
+        self._terrain = out[24:]
+        if self.render_mode == "human":
+            self.render()
+        return out[:24], {}
+
+    def _observe(self) -> np.ndarray:
+        """The observation of ``state`` with the legs' flags from the foot
+        height, as the JAX class's ``_observe``."""
+        return observe_state({k: v[None] for k, v in self.state.items()})[0].cpu().numpy()
+
+    def step(self, action: np.ndarray):
+        assert self.state is not None, "You forgot to call reset()"
+        obs = self._tick(upload_row(self.device, action))
+        out = torch.cat([obs[0], self.state["r"][None], self.state["done"][None].to(torch.float32)]).cpu().numpy()
+        reward = float(out[24])
+        terminated = bool(out[25])
+        if self.render_mode == "human":
+            self.render()
+        return out[:24], reward, terminated, False, {}
+
+    def render(self):
+        if self.render_mode is None:
+            logger.warn("You are calling render method without specifying any render mode.")
+            return None
+        frame = _render_walker(self.state["bodies"].cpu().numpy(), self._terrain)
+        if self.render_mode == "human":
+            if self._display is None:
+                from gymnasium_tpu_torch.utils.human_display import HumanDisplay
+
+                self._display = HumanDisplay(VIEWPORT_W, VIEWPORT_H, FPS, "BipedalWalker")
+            self._display.show(frame)
+            return None
+        return frame
+
+    def close(self):
+        if self._display is not None:
+            self._display.close()
+            self._display = None
+
+
+def _render_walker(bodies: np.ndarray, terrain: np.ndarray, width=VIEWPORT_W, height=VIEWPORT_H):
+    """Rasterize the terrain and the walker's five bodies (5, 6), the camera
+    following the hull."""
+    from gymnasium_tpu_torch.utils.raster import Canvas
+
+    canvas = Canvas(width, height, (215, 215, 255))
+    scroll = bodies[0, 0] - VIEWPORT_W / SCALE / 5
+
+    xs = np.arange(TERRAIN_LENGTH) * TERRAIN_STEP
+    pts = [((x - scroll) * SCALE, height - y * SCALE) for x, y in zip(xs, terrain)]
+    canvas.polygon(pts + [(width, height), (0, height)], (102, 153, 76))
+
+    for i, (w, h, color) in enumerate(
+        [
+            (64 / SCALE, 17 / SCALE, (127, 51, 229)),
+            (LEG_W, LEG_H, (178, 101, 152)),
+            (0.8 * LEG_W, LEG_H, (178, 101, 152)),
+            (LEG_W, LEG_H, (153, 76, 127)),
+            (0.8 * LEG_W, LEG_H, (153, 76, 127)),
+        ]
+    ):
+        x, y, a = bodies[i, 0], bodies[i, 1], bodies[i, 2]
+        c, s = math.cos(a), math.sin(a)
+        corners = []
+        for bx, by in [(-w / 2, -h / 2), (w / 2, -h / 2), (w / 2, h / 2), (-w / 2, h / 2)]:
+            rx, ry = bx * c - by * s, bx * s + by * c
+            corners.append(((x + rx - scroll) * SCALE, height - (y + ry) * SCALE))
+        canvas.polygon(corners, color)
+    return canvas.rgb_array()
 
 
 class BipedalWalkerFunctional(FuncEnv):

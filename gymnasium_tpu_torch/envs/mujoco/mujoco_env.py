@@ -44,7 +44,7 @@ from gymnasium_tpu_torch.physics.articulated import (
     init_qpos,
     make_dynamics,
 )
-from gymnasium_tpu_torch.utils.device import resolve_device
+from gymnasium_tpu_torch.utils.device import resolve_device, upload_row
 
 __all__ = [
     "MODEL_DIR",
@@ -343,8 +343,7 @@ class MujocoEnv(Env[np.ndarray, np.ndarray]):
         if ctrl.shape != (self.model.nu,):
             raise ValueError(f"Action dimension mismatch. Expected {(self.model.nu,)}, found {ctrl.shape}")
         nq, nv = self.model.nq, self.model.nv
-        row = np.concatenate([self.qpos, self.qvel, ctrl.astype(np.float64)]).astype(np.float32)
-        row = torch.from_numpy(row[None]).to(self.device)
+        row = upload_row(self.device, self.qpos, self.qvel, ctrl)
         q, qd = self._advance(row[:, :nq], row[:, nq : nq + nv], row[:, nq + nv :])
         state = torch.cat([q, qd], dim=1).cpu().numpy()[0].astype(np.float64)
         # the mirrors stay float64 like MuJoCo's MjData
@@ -359,8 +358,7 @@ class MujocoEnv(Env[np.ndarray, np.ndarray]):
         """The current state as ``(1, nq)``, ``(1, nv)`` float32 tensors on
         the env's device, uploaded once a state."""
         if self._state_key != self._key():
-            row = np.concatenate([np.asarray(self.qpos, np.float64), np.asarray(self.qvel, np.float64)])
-            row = torch.from_numpy(row.astype(np.float32)[None]).to(self.device)
+            row = upload_row(self.device, self.qpos, self.qvel)
             self._state_key = self._key()
             self._state_values = {"state": (row[:, : self.model.nq], row[:, self.model.nq :])}
         return self._state_values["state"]

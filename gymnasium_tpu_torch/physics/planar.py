@@ -19,7 +19,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-__all__ = ["BodySpec", "JointSpec", "ContactSpec", "PlanarWorld", "world_step"]
+__all__ = ["BodySpec", "JointSpec", "ContactSpec", "PlanarWorld", "joint_angles", "world_step"]
 
 
 class BodySpec(NamedTuple):
@@ -68,6 +68,18 @@ class PlanarWorld(NamedTuple):
     # bounded sub-pulls; the walker's world uses 0.2, so its 0.53 m
     # creation-pose hip gap closes over several iterations).
     joint_correction_clamp: float = 0.0
+
+
+def joint_angles(state: torch.Tensor, world: PlanarWorld) -> tuple[torch.Tensor, torch.Tensor]:
+    """Joint angles and speeds ``(..., J)`` of body rows ``state`` (..., B, 6):
+    ``angle_b - angle_a - ref_angle`` and ``omega_b - omega_a``, as the JAX
+    ``joint_angles``. The reference angles are float32 on the state's device."""
+    a = torch.as_tensor(np.asarray(world.joints.body_a), dtype=torch.long, device=state.device)
+    b = torch.as_tensor(np.asarray(world.joints.body_b), dtype=torch.long, device=state.device)
+    ref = torch.as_tensor(np.asarray(world.joints.ref_angle), dtype=state.dtype, device=state.device)
+    angle = state[..., 2]
+    omega = state[..., 5]
+    return angle[..., b] - angle[..., a] - ref, omega[..., b] - omega[..., a]
 
 
 def world_step(

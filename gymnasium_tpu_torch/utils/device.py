@@ -2,9 +2,10 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "upload_row"]
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -23,3 +24,10 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} was requested but CUDA is not available")
     return device
+
+
+def upload_row(device: torch.device, *parts) -> torch.Tensor:
+    """Host values ``parts`` (numbers and arrays, flattened in order) as one
+    ``(1, n)`` float32 row on ``device``: one copy from the host."""
+    row = np.concatenate([np.asarray(p, dtype=np.float64).ravel() for p in parts]).astype(np.float32)
+    return torch.from_numpy(row[None]).to(device)

@@ -275,6 +275,41 @@ def test_make_of_a_host_only_id_raises(env_id):
             gym.make(env_id)
 
 
+BOX2D_IDS = ("LunarLander-v3", "LunarLanderContinuous-v3", "BipedalWalker-v3", "BipedalWalkerHardcore-v3",
+             "CarRacing-v3")
+
+
+def _wrapper_names(env) -> list[str]:
+    names = []
+    while hasattr(env, "env"):
+        names.append(type(env).__name__)
+        env = env.env
+    return names + [type(env).__name__]
+
+
+@pytest.mark.parametrize("env_id", BOX2D_IDS)
+def test_make_of_a_box2d_id_matches_jax(env_id):
+    """``make`` of each Box2D id builds the port's host class with JAX's
+    wrappers, spaces and step limit; the reset and one step agree with
+    JAX's (the planar ids within 1e-5 + 1e-5 |JAX| per element, CarRacing
+    bit for bit) and the generators stay in step."""
+    kwargs = {} if env_id == "CarRacing-v3" else CPU
+    port, jax_env = gym.make(env_id, **kwargs), jgym.make(env_id)
+    assert _wrapper_names(port) == _wrapper_names(jax_env)
+    assert port.spec.max_episode_steps == jax_env.spec.max_episode_steps
+    assert_same_space(port.action_space, jax_env.action_space)
+    assert_same_space(port.observation_space, jax_env.observation_space)
+    action = jax_env.action_space.sample()
+    for got, want in ((port.reset(seed=0)[0], jax_env.reset(seed=0)[0]),
+                      (port.step(action)[0], jax_env.step(action)[0])):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        if env_id == "CarRacing-v3":
+            np.testing.assert_array_equal(got, want)
+        else:
+            assert (np.abs(got - want) <= 1e-5 + 1e-5 * np.abs(want)).all()
+    assert port.unwrapped.np_random.bit_generator.state == jax_env.unwrapped.np_random.bit_generator.state
+
+
 @pytest.mark.parametrize("env_id", sorted(id_ for id_, s in registry.items() if callable(s.entry_point)))
 def test_retired_ids_raise_as_jax_does(env_id):
     with pytest.raises(ImportError) as got:

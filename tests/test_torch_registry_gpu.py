@@ -87,3 +87,31 @@ def test_make_of_a_mujoco_id_steps_on_the_card_one_launch_a_step(cuda):
         np.testing.assert_allclose(got[0], want[0], rtol=1e-4, atol=1e-4)
         assert got[2] == want[2]
     assert dict(art.launches) == {"articulated_ant_fs5": len(actions)}
+
+
+@pytest.mark.parametrize("env_id", ["LunarLander-v3", "BipedalWalker-v3"])
+def test_make_of_a_box2d_id_steps_on_the_card_as_on_the_cpu(cuda, env_id):
+    """Five steps of the host class on the card, each from the card's state
+    copied to the CPU env: one launch of the env's planar build a step, and
+    the outputs within 1e-4 + 1e-4 |cpu| of the CPU's."""
+    from gymnasium_tpu_torch.ops import planar_step as pl
+    from gymnasium_tpu_torch.ops import walker_terrain as wt
+
+    env, cpu = gym.make(env_id), gym.make(env_id, device="cpu")
+    assert env.unwrapped.device.type == "cuda"
+    obs, _ = env.reset(seed=0)
+    want, _ = cpu.reset(seed=0)
+    assert (np.abs(obs - want) <= 1e-4 + 1e-4 * np.abs(want)).all()
+    actions = np.random.default_rng(0).uniform(-1, 1, (5, 4)).astype(np.float32)
+    pl.launches.clear()
+    wt.launches = 0
+    for action in actions:
+        action = int(action[0] > 0) * 2 if env_id.startswith("Lunar") else action
+        cpu.unwrapped.state = {k: v.cpu() for k, v in env.unwrapped.state.items()}
+        cpu.unwrapped.np_random.bit_generator.state = env.unwrapped.np_random.bit_generator.state
+        got, want = env.step(action), cpu.step(action)
+        assert got[0].dtype == np.float32 and isinstance(got[1], float)
+        for a, b in ((got[0], want[0]), (got[1], want[1])):
+            assert (np.abs(np.asarray(a) - b) <= 1e-4 + 1e-4 * np.abs(b)).all()
+        assert got[2] == want[2]
+    assert sum(pl.launches.values()) == len(actions) and len(pl.launches) == 1 and wt.launches == 0

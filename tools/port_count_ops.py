@@ -10,6 +10,11 @@ launch and its twin's operations are not counted, as on the card::
 
     python3 tools/port_count_ops.py bipedal_walker bipedal_walker_hardcore lunar_lander
 
+A registered id (``LunarLander-v3``, ``BipedalWalker-v3``, ...) counts the
+host env class that ``make(id, device="cpu")`` builds instead: one env,
+numpy actions, the ops of each ``step`` through the wrappers. Its upload and
+read-back are no-ops on the CPU; on the card each is one more copy.
+
 ``--envs`` and ``--steps`` set the batch (default 64) and the counted steps
 (default 10, after 2 uncounted ones). The counts predict the kernels a step
 on the card; they take no time on any device.
@@ -91,7 +96,38 @@ def kernels_counted_once(counter: Counter, launches: collections.Counter):
         bipedal_walker.walker_terrain = terrain_call
 
 
+def count_host(env_id: str, steps: int) -> dict:
+    """The ops and launches a step of ``make(env_id, device="cpu")``, after a
+    reset and 2 uncounted steps."""
+    import numpy as np
+
+    import gymnasium_tpu_torch as gym
+
+    counter, launches = Counter(), collections.Counter()
+    with kernels_counted_once(counter, launches):
+        env = gym.make(env_id, device="cpu")
+        env.reset(seed=0)
+        env.action_space.seed(0)
+        actions = [env.action_space.sample() for _ in range(steps + 2)]
+        for action in actions[:2]:
+            env.step(action)
+        launches.clear()
+        with counter:
+            for action in actions[2:]:
+                env.step(np.asarray(action) if env.action_space.shape else action)
+    return {
+        "env": env_id,
+        "envs": 1,
+        "steps": steps,
+        "aten_ops_a_step": sum(counter.ops.values()) / steps,
+        "kernel_launches_a_step": {k: v / steps for k, v in launches.items()},
+        "top_ops_a_step": {k: v / steps for k, v in counter.ops.most_common(8)},
+    }
+
+
 def count(name: str, envs: int, steps: int) -> dict:
+    if "-v" in name:
+        return count_host(name, steps)
     func, limit = env_factory(name)
     counter, launches = Counter(), collections.Counter()
     with kernels_counted_once(counter, launches):
