@@ -97,6 +97,21 @@ read just after:
   state before each step, five profiled steps of HalfCheetah and Ant, and
   one ``rgb_array`` frame of each; every robot's build is held against its
   twin at N=1, with its CUDA-event time a call there;
+- the classic-control, toy-text and CPD host classes: ``make(id)`` of the
+  15 ids of :data:`HOST_CLASS_IDS`, ``reset(seed=0)``, 200 sampled steps
+  and one ``rgb_array`` frame or ``ansi`` text each, and 600 steps of the
+  numpy ``CartPoleVectorEnv`` at 8 envs, timed and then again under
+  ``torch.profiler``, which must see no kernel and no copy on the card;
+- the utilities over the articulated kernel: ``benchmark_step`` of
+  ``make("CartPole-v1")`` (host) and ``make("HalfCheetah-v5")`` (one launch
+  a step, none at a reset), ``benchmark_compiled_rollout`` of
+  ``make_vec("HalfCheetah-v5", 4096)`` (500 launches) beside the registry
+  phase's rate, ``trace`` around 5 HalfCheetah steps at 4096 envs (the
+  Chrome trace it writes names the kernel), the HalfCheetah PPO state saved
+  after a train step and restored into a fresh ``init_ppo(seed=1)``, whose
+  next step equals the uninterrupted one in every bit (after two steps from
+  the restored state are shown to agree), and ``torch_generator(0,
+  "cuda")`` against ``manual_seed(0)``;
 - the PPO trainer at ``tools/bench_ppo.py``'s widths: CartPole-v1 (4096 envs,
   64 steps a rollout, hidden (128, 128)) and HalfCheetah-v5 (4096 x 64,
   hidden (256, 256), with NormalizeObservation, NormalizeReward and
@@ -123,6 +138,7 @@ prints the card's name and power limit, one ``{"bipedal": {...},
 "wrappers": {...}}`` line, one ``{"carracing": {...}, "swimmer":
 {...}, "mjcf": {...}}`` line, one ``{"classic": {...}}`` line,
 one ``{"ppo": {...}}`` line, one ``{"host_envs": {...}}`` line, one
+``{"host_classes": {...}, "utils": {...}}`` line, one
 ``{"registry": {...}}`` line, one
 ``{"kernels": [...]}`` line, and last the line ``{"ok": true, "device":
 {...}}``. Any failed check
@@ -137,6 +153,7 @@ import concurrent.futures
 import copy
 import functools
 import json
+import math
 import os
 import re
 import shutil
@@ -373,6 +390,37 @@ BOX2D_FRAMES = {"LunarLander-v3": (400, 600, 3), "BipedalWalker-v3": (400, 600, 
 HEURISTIC_SEEDS = (1, 2, 3)
 HEURISTIC_LANDING = 100.0
 CAR_HOST_STEPS = 20
+
+# The host-class phase: make(id) of the classic-control, toy-text and CPD ids,
+# whose classes run on the host in numpy: reset(seed=0), HOST_CLASS_STEPS
+# steps of the action space's seeded samples, one render each (the CPD game
+# renders text). The same work then runs again under torch.profiler, which
+# must see no kernel, no copy and no launch or copy call on the card. The
+# CartPoleVectorEnv runs CARTPOLE_VECTOR_STEPS steps at CARTPOLE_VECTOR_ENVS,
+# past the 500-step truncation of its lanes that survive.
+HOST_CLASS_IDS = ("CartPole-v0", "CartPole-v1", "MountainCar-v0", "MountainCarContinuous-v0", "Pendulum-v1",
+                  "Acrobot-v1", "Blackjack-v1", "FrozenLake-v1", "FrozenLake8x8-v1", "CliffWalking-v1",
+                  "CliffWalkingSlippery-v1", "Taxi-v3", "BlockchainCPD-v0", "BlockchainCPD-v0-Random",
+                  "BlockchainCPD-v0-TFT")
+HOST_CLASS_STEPS = 200
+CARTPOLE_VECTOR_ENVS = 8
+CARTPOLE_VECTOR_STEPS = 600
+CUDA_RUNTIME_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpy", "cudaMemset")  # name prefixes
+
+# The utilities phase (utils/performance.py, utils/checkpoint.py,
+# utils/seeding.py) over the articulated kernel: benchmark_step for
+# BENCHMARK_SECONDS of make("CartPole-v1") (host) and of make("HalfCheetah-v5")
+# (one launch at N=1 a step, none at reset);
+# benchmark_compiled_rollout(make_vec("HalfCheetah-v5", NUM_ENVS)) of
+# COMPILED_ROLLOUT_STEPS x (1 + COMPILED_ROLLOUT_REPEATS) launches, then one
+# more rollout timed as the registry phase times its own; trace around
+# TRACE_ENV_STEPS HalfCheetah steps at NUM_ENVS; the HalfCheetah PPO checkpoint
+# (ppo_case) resumed bit for bit; torch_generator(0, "cuda").
+BENCHMARK_SECONDS = 1.0
+COMPILED_ROLLOUT_STEPS = 100
+COMPILED_ROLLOUT_REPEATS = 4
+TRACE_ENV_STEPS = 5
+GENERATOR_DRAWS = 1 << 16
 
 # The MJCF phase's model, written to a temporary file and compiled through
 # load_model: a planar chain with a slide root, two limited hinges, two
@@ -1866,7 +1914,7 @@ def run_mjcf(dev, path: str, n: int = NUM_ENVS) -> dict:
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     """Equal dtypes, shapes and bytes (so -0.0 differs from 0.0)."""
     return (a.dtype == b.dtype and a.shape == b.shape
-            and torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)))
+            and torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
 
 
 def hand_built(env_id: str):
@@ -2369,6 +2417,345 @@ def compare_terrain_at_n1(dev) -> dict:
     return out
 
 
+def host_class_episode(env, steps: int, render_mode: str) -> dict:
+    """``reset(seed=0)``, ``steps`` samples of the seeded action space (a
+    reset after each episode's end), then one render: every observation
+    inside its space, the frame uint8 and not one colour, or the text not
+    empty. Returns the host-clock ms a step and the render's."""
+    obs, _ = env.reset(seed=0)
+    env.action_space.seed(0)
+    inside, episodes = env.observation_space.contains(obs), 0
+    start = time.perf_counter()
+    for _ in range(steps):
+        obs, reward, terminated, truncated, _ = env.step(env.action_space.sample())
+        inside &= env.observation_space.contains(obs) and isinstance(reward, (float, np.floating))
+        if terminated or truncated:
+            episodes += 1
+            env.reset()
+    seconds = time.perf_counter() - start
+    start = time.perf_counter()
+    frame = env.render()
+    render_ms = (time.perf_counter() - start) * 1e3
+    check(inside, f"{env.spec.id}: an observation outside its space or a reward not a float")
+    if render_mode == "ansi":
+        check(isinstance(frame, str) and frame.strip() != "", f"{env.spec.id}: ansi render {frame!r}")
+        shown = f"{len(frame)} characters"
+    else:
+        check(isinstance(frame, np.ndarray) and frame.dtype == np.uint8 and frame.ndim == 3
+              and np.unique(frame.reshape(-1, 3), axis=0).shape[0] > 1, f"{env.spec.id}: rgb_array frame")
+        shown = list(frame.shape)
+    return {"ms_a_step": seconds * 1e3 / steps, "episodes": episodes, "render": shown, "render_ms": render_ms}
+
+
+def run_cartpole_vector_env(n: int = CARTPOLE_VECTOR_ENVS, steps: int = CARTPOLE_VECTOR_STEPS) -> dict:
+    """``make_vec("CartPole-v1", n, vectorization_mode="vector_entry_point")``,
+    the numpy ``CartPoleVectorEnv``: ``reset(seed=0)`` and ``steps`` sampled
+    steps; float32 (n, 4) observations inside the space, an autoreset step
+    (reward 0, no flag) after every lane's end, no lane past 500 steps."""
+    import gymnasium_tpu_torch as gym
+    from gymnasium_tpu_torch.envs.classic_control import CartPoleVectorEnv
+
+    env = gym.make_vec("CartPole-v1", n, vectorization_mode="vector_entry_point", render_mode="rgb_array")
+    check(isinstance(env, CartPoleVectorEnv), f"make_vec gave {type(env).__name__}")
+    obs, _ = env.reset(seed=0)
+    env.action_space.seed(0)
+    ends, truncations, prev_done = 0, 0, np.zeros(n, bool)
+    start = time.perf_counter()
+    for _ in range(steps):
+        obs, reward, terminated, truncated, _ = env.step(env.action_space.sample())
+        check(obs.dtype == np.float32 and obs.shape == (n, 4), f"CartPoleVectorEnv obs {obs.dtype} {obs.shape}")
+        check(bool((reward[prev_done] == 0).all() and not (terminated | truncated)[prev_done].any()),
+              "CartPoleVectorEnv: an autoreset step with a reward or a flag")
+        prev_done = terminated | truncated
+        ends += int(prev_done.sum())
+        truncations += int(truncated.sum())
+    seconds = time.perf_counter() - start
+    check(int(env.steps.max()) <= 500 and ends > 0, f"CartPoleVectorEnv: steps {env.steps}, {ends} episode ends")
+    frames = env.render()
+    env.close()
+    check(len(frames) == n and all(f.shape == (400, 600, 3) and f.dtype == np.uint8 for f in frames),
+          "CartPoleVectorEnv: its frames")
+    return {"envs": n, "steps": steps, "ms_a_step": seconds * 1e3 / steps, "episode_ends": ends,
+            "truncations": truncations, "frames": [len(frames), *frames[0].shape]}
+
+
+def run_host_classes() -> dict:
+    """The host-class phase (:data:`HOST_CLASS_IDS`): each id through
+    :func:`host_class_episode` with ``make``'s wrappers, and the
+    ``CartPoleVectorEnv``, timed; then all of it again under
+    ``torch.profiler`` with the card's activity recorded, which must hold no
+    device event and no kernel launch or copy call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import gymnasium_tpu_torch as gym
+
+    def every_path(results):
+        for env_id in HOST_CLASS_IDS:
+            mode = "ansi" if env_id.startswith("BlockchainCPD") else "rgb_array"
+            env = gym.make(env_id, render_mode=mode)
+            check(wrapper_chain(env)[-2] == "PassiveEnvChecker" and not hasattr(env.unwrapped, "device"),
+                  f"{env_id}: make's wrappers {wrapper_chain(env)}")
+            results[env_id] = host_class_episode(env, HOST_CLASS_STEPS, mode)
+            env.close()
+        results["CartPoleVectorEnv"] = run_cartpole_vector_env()
+
+    timed, profiled = {}, {}
+    every_path(timed)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        every_path(profiled)
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    device = [e.name for e in events if e.device_type == cuda]
+    calls = [e.name for e in events if e.name.startswith(CUDA_RUNTIME_CALLS)]
+    aten = sum(e.name.startswith("aten::") for e in events)
+    check(not device and not calls, f"the host classes touched the card: device events {device[:5]}, calls {calls[:5]}")
+    for env_id in HOST_CLASS_IDS:
+        r = timed[env_id]
+        print(f"make({env_id!r}) host class: {r['ms_a_step']:.4f} ms a step (host clock, {HOST_CLASS_STEPS} "
+              f"steps, {r['episodes']} episode ends), render {r['render']} in {r['render_ms']:.2f} ms", flush=True)
+    r = timed["CartPoleVectorEnv"]
+    print(f"CartPoleVectorEnv ({r['envs']} envs): {r['ms_a_step']:.4f} ms a step (host clock, {r['steps']} steps, "
+          f"{r['episode_ends']} lane ends, {r['truncations']} truncations), frames {r['frames']}", flush=True)
+    return {"timed": timed, "profiled_ms_a_step": {k: r["ms_a_step"] for k, r in profiled.items()},
+            "profiler": {"device_events": len(device), "cuda_launch_or_copy_calls": len(calls),
+                         "aten_ops": aten, "events": len(events)}}
+
+
+def run_benchmark_step() -> dict:
+    """``utils.performance.benchmark_step`` for :data:`BENCHMARK_SECONDS` of
+    ``make("CartPole-v1")`` (host) and of ``make("HalfCheetah-v5")`` on the
+    card, whose steps a wrapper counts: the articulated build must launch
+    once a step and never at a reset."""
+    import gymnasium_tpu_torch as gym
+    from gymnasium_tpu_torch.core import Wrapper
+    from gymnasium_tpu_torch.ops import articulated_step as art
+    from gymnasium_tpu_torch.utils.performance import benchmark_step
+
+    class CountSteps(Wrapper):
+        steps = 0
+
+        def step(self, action):
+            self.steps += 1
+            return self.env.step(action)
+
+    cartpole = CountSteps(gym.make("CartPole-v1"))
+    art.launches.clear()
+    cartpole_rate = benchmark_step(cartpole, BENCHMARK_SECONDS, seed=0)
+    check(not art.launches, f"benchmark_step of CartPole-v1 launched {dict(art.launches)}")
+    cheetah = CountSteps(gym.make("HalfCheetah-v5"))
+    build_name = cheetah.unwrapped._step.build_name
+    cheetah_rate = benchmark_step(cheetah, BENCHMARK_SECONDS, seed=0)
+    check(dict(art.launches) == {build_name: cheetah.steps},
+          f"benchmark_step of HalfCheetah-v5: launches {dict(art.launches)} over {cheetah.steps} steps")
+    print(f"benchmark_step ({BENCHMARK_SECONDS} s): CartPole-v1 {cartpole_rate:.1f} steps/s host "
+          f"({cartpole.steps} steps); HalfCheetah-v5 {cheetah_rate:.1f} steps/s on the card "
+          f"({cheetah.steps} steps, {cheetah.steps} launches)", flush=True)
+    return {"cartpole_steps_per_s": cartpole_rate, "cartpole_steps": cartpole.steps,
+            "half_cheetah_steps_per_s": cheetah_rate, "half_cheetah_steps": cheetah.steps,
+            "half_cheetah_launches": cheetah.steps}
+
+
+def launch_us(dev, launches: int = 2000) -> float:
+    """Host-clock microseconds a launch of a one-element ``add_``, over
+    ``launches`` back-to-back launches ended by a synchronisation: the
+    host's price of one eager kernel launch."""
+    x = torch.zeros(1, device=dev)
+    x.add_(1)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(launches):
+        x.add_(1)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - start) * 1e6 / launches
+
+
+def run_compiled_rollout(dev, registry_rate: float, early_launch_us: float, n: int = NUM_ENVS) -> dict:
+    """``benchmark_compiled_rollout(make_vec("HalfCheetah-v5", n))``, beside
+    the registry phase's ``rollout(REGISTRY_ROLLOUT)`` rate of the same env
+    and the host's price of a launch now and before the first profiled
+    phase (``early_launch_us``)."""
+    import gymnasium_tpu_torch as gym
+    from gymnasium_tpu_torch.ops import articulated_step as art
+    from gymnasium_tpu_torch.utils.performance import benchmark_compiled_rollout
+
+    env = gym.make_vec("HalfCheetah-v5", n)
+    check(env.device.type == torch.device(dev).type, f"make_vec on {env.device}")
+    build_name = env.func_env._step.build_name
+    before = art.launches[build_name]
+    out = benchmark_compiled_rollout(env, num_steps=COMPILED_ROLLOUT_STEPS, repeats=COMPILED_ROLLOUT_REPEATS)
+    launched = art.launches[build_name] - before
+    want = COMPILED_ROLLOUT_STEPS * (1 + COMPILED_ROLLOUT_REPEATS)
+    check(launched == want, f"benchmark_compiled_rollout launched {launched}, want {want}")
+    check(set(out) == {"steps_per_second", "first_call_seconds", "steady_state_seconds_per_rollout"}
+          and all(v > 0 and math.isfinite(v) for v in out.values()), f"benchmark_compiled_rollout gave {out}")
+    # one more rollout of the same env, timed as the registry phase times its own
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    env.rollout(COMPILED_ROLLOUT_STEPS)
+    torch.cuda.synchronize()
+    again = n * COMPILED_ROLLOUT_STEPS / (time.perf_counter() - start)
+    now_launch_us = launch_us(dev)
+    print(f"benchmark_compiled_rollout(make_vec('HalfCheetah-v5', {n}), num_steps={COMPILED_ROLLOUT_STEPS}, "
+          f"repeats={COMPILED_ROLLOUT_REPEATS}): {json.dumps(out)}; the registry phase's rollout("
+          f"{REGISTRY_ROLLOUT}) of the same env: {registry_rate:.1f} env-steps/s; one more rollout of this env "
+          f"timed as the registry phase times it: {again:.1f} env-steps/s; host us a launch now "
+          f"{now_launch_us:.2f}, before the first profiled phase {early_launch_us:.2f}; clocks.sm, power.draw "
+          f"{query_gpu('clocks.sm,power.draw')}", flush=True)
+    return {**out, "launches": launched, "registry_rollout_steps_per_second": registry_rate,
+            "one_more_rollout_steps_per_second": again, "launch_us": now_launch_us,
+            "launch_us_before_the_first_profile": early_launch_us}
+
+
+def run_trace(dev, log_root: str, n: int = NUM_ENVS, steps: int = TRACE_ENV_STEPS) -> dict:
+    """``utils.performance.trace`` around ``steps`` steps of
+    ``make_vec("HalfCheetah-v5", n)``, closed by a synchronisation: the
+    Chrome trace written under its directory must hold the articulated
+    kernel ``steps`` times or more. A trace loses the events of its first
+    moments: one opened right before the steps held 4 of their 5 launches in
+    each of five tries. So the trace opens with :data:`TRACE_OPENING_S` of
+    small kernels and a synchronisation before the steps, as
+    :func:`profile_host_env_step` does, and a trace that still holds fewer is
+    taken again, up to five times; ``tries`` counts them."""
+    import gymnasium_tpu_torch as gym
+    from gymnasium_tpu_torch.utils.performance import trace
+
+    env = gym.make_vec("HalfCheetah-v5", n)
+    env.reset(seed=0)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    actions = [env.single_action_space.sample_torch(gen, (n,)) for _ in range(steps)]
+    torch.cuda.synchronize()
+    for tries in range(1, 6):
+        log_dir = os.path.join(log_root, f"trace_{tries}")
+        with trace(log_dir):
+            opened, filler = time.perf_counter(), torch.zeros(1, device=dev)
+            while time.perf_counter() - opened < TRACE_OPENING_S:
+                filler.add_(1)
+            torch.cuda.synchronize()
+            for action in actions:
+                env.step(action)
+            torch.cuda.synchronize()
+        files = [os.path.join(log_dir, f) for f in os.listdir(log_dir) if f.endswith(".pt.trace.json")]
+        check(len(files) == 1, f"trace wrote {files}")
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        named = [e for e in kernels if "ArticulatedStep" in e.get("name", "")]
+        if len(named) >= steps:
+            break
+        print(f"run_trace: try {tries} named the articulated kernel {len(named)} times in {len(kernels)} kernels",
+              flush=True)
+    check(len(named) >= steps, f"the trace named the articulated kernel {len(named)} times, want {steps}")
+    out = {"steps": steps, "tries": tries, "trace_bytes": os.path.getsize(files[0]), "events": len(events),
+           "kernels": len(kernels), "articulated_kernels": len(named), "name": named[0]["name"][:80]}
+    print(f"trace around {steps} HalfCheetah steps at {n} envs: {json.dumps(out)}", flush=True)
+    return out
+
+
+def tree_leaves(x) -> list:
+    """The tensors and generators of a tree of NamedTuples, tuples, lists and dicts."""
+    if isinstance(x, (torch.Tensor, torch.Generator)):
+        return [x]
+    if isinstance(x, dict):
+        return [leaf for v in x.values() for leaf in tree_leaves(v)]
+    if isinstance(x, (tuple, list)):
+        return [leaf for v in x for leaf in tree_leaves(v)]
+    return []
+
+
+def same_ppo_step(label: str, a, ma, b, mb) -> int:
+    """Raises unless two PPO states after a train step and their metrics are
+    equal in every bit: the parameters, every Adam moment and ``step`` with
+    the param groups, every carry leaf with its generator's state, ``obs``,
+    the trainer's generator and ``update_count``. Returns the values compared."""
+    pairs = [(f"parameter {name}", p, q) for (name, p), (_, q)
+             in zip(a.policy.named_parameters(), b.policy.named_parameters())]
+    sa, sb = a.optimizer.state_dict(), b.optimizer.state_dict()
+    check(sa["param_groups"] == sb["param_groups"] and list(sa["state"]) == list(sb["state"]),
+          f"{label}: Adam's param groups or states differ")
+    pairs += [(f"adam {k} {key}", v, sb["state"][k][key]) for k in sa["state"] for key, v in sa["state"][k].items()]
+    carry_a, carry_b = tree_leaves(a.env_carry), tree_leaves(b.env_carry)
+    check(len(carry_a) == len(carry_b), f"{label}: the carries differ in structure")
+    pairs += [(f"carry leaf {i}", x, y) for i, (x, y) in enumerate(zip(carry_a, carry_b))]
+    pairs += [("obs", a.obs, b.obs), ("rng", a.rng, b.rng), ("update_count", a.update_count, b.update_count)]
+    pairs += [(f"metric {k}", ma[k], mb[k]) for k in ma]
+    for name, x, y in pairs:
+        if isinstance(x, torch.Generator):
+            check(x.device == y.device and torch.equal(x.get_state(), y.get_state()), f"{label}: {name} state differs")
+        else:
+            check(same_bits(x.detach(), y.detach()), f"{label}: {name} differs")
+    return len(pairs)
+
+
+def run_checkpoint(dev, tmp: str) -> dict:
+    """The HalfCheetah PPO workload of :func:`ppo_case` at its widths: one
+    train step, ``save_pytree`` of the state, one step (A); then two fresh
+    ``init_ppo(seed=1)`` states restored from the file, one step each (B1,
+    B2). B1 must equal B2 in every bit (the card's train step is
+    deterministic) and A (the resume is exact); each train step launches the
+    articulated kernel once an env step."""
+    from gymnasium_tpu_torch.ops import articulated_step as art
+    from gymnasium_tpu_torch.train.ppo import init_ppo, make_train_step
+    from gymnasium_tpu_torch.utils.checkpoint import restore_pytree, save_pytree
+
+    func_env, config, wrappers = ppo_case("half_cheetah")
+    build_name = func_env._step.build_name
+    state, env_params = init_ppo(func_env, config, seed=0, wrappers=wrappers, device=dev)
+    train_step = make_train_step(func_env, config, env_params, wrappers)
+
+    def step(s):
+        before = art.launches[build_name]
+        s, metrics = train_step(s)
+        torch.cuda.synchronize()
+        launched = art.launches[build_name] - before
+        check(launched == config.rollout_steps, f"a train step launched {launched}, want {config.rollout_steps}")
+        return s, metrics
+
+    state, _ = step(state)
+    start = time.perf_counter()
+    path = save_pytree(os.path.join(tmp, "ppo_half_cheetah"), state)
+    save_s = time.perf_counter() - start
+    file_bytes = os.path.getsize(path)
+    with np.load(path, allow_pickle=False) as data:
+        leaves = len(data.files) - 1
+    a, metrics_a = step(state)
+    restored, restore_s = [], []
+    for _ in range(2):
+        fresh, _ = init_ppo(func_env, config, seed=1, wrappers=wrappers, device=dev)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        r = restore_pytree(path, fresh)
+        torch.cuda.synchronize()
+        restore_s.append(time.perf_counter() - start)
+        check(r.policy is fresh.policy and r.optimizer is fresh.optimizer and r.rng is fresh.rng,
+              "restore_pytree did not load into the template's objects")
+        restored.append(step(r))
+    (b1, metrics_b1), (b2, metrics_b2) = restored
+    deterministic = same_ppo_step("two steps from one restored state", b1, metrics_b1, b2, metrics_b2)
+    compared = same_ppo_step("the resumed step against the uninterrupted one", a, metrics_a, b1, metrics_b1)
+    out = {"envs": config.num_envs, "rollout_steps": config.rollout_steps, "hidden_sizes": list(config.hidden_sizes),
+           "file_bytes": file_bytes, "leaves": leaves, "save_s": save_s, "restore_s": restore_s,
+           "values_compared": compared, "deterministic_values_compared": deterministic,
+           "train_steps": 4, "launches_a_train_step": config.rollout_steps}
+    print(f"checkpoint of the HalfCheetah PPO state ({config.num_envs} x {config.rollout_steps}): "
+          f"{file_bytes} bytes in {leaves} leaves, save {save_s:.4f} s, restore {restore_s[0]:.4f} s and "
+          f"{restore_s[1]:.4f} s; two steps from the restored state equal in {deterministic} values, the resumed "
+          f"step equals the uninterrupted one in {compared} values", flush=True)
+    return out
+
+
+def check_torch_generator(dev) -> dict:
+    """``torch_generator(0, dev)`` draws what ``torch.Generator(dev).manual_seed(0)`` draws."""
+    from gymnasium_tpu_torch.utils.seeding import torch_generator
+
+    ours, theirs = torch_generator(0, dev), torch.Generator(device=dev).manual_seed(0)
+    check(ours.device.type == torch.device(dev).type, f"torch_generator on {ours.device}")
+    for draw in (torch.rand, torch.randn):
+        got = draw(GENERATOR_DRAWS, generator=ours, device=dev)
+        want = draw(GENERATOR_DRAWS, generator=theirs, device=dev)
+        check(same_bits(got, want), f"torch_generator(0) draws differ from manual_seed(0)'s ({draw.__name__})")
+    return {"draws": 2 * GENERATOR_DRAWS, "bit_equal": True, "device": str(ours.device)}
+
+
 def run_device_spaces(dev, n: int = NUM_ENVS) -> dict:
     """``sample_torch`` of ``Tuple(Box, Discrete)``, ``Dict`` and
     ``MultiBinary`` at batch ``n`` on the card: on the device, inside the
@@ -2689,6 +3076,8 @@ def smoke(xml_path: str) -> int:
         sass = dict(zip(libraries, pool.map(sass_instructions, libraries.values())))
     print("SASS instructions a library: " + ", ".join(f"{k} {v}" for k, v in sass.items()), flush=True)
     lap("the SASS counts")
+    early_launch_us = launch_us(dev)
+    print(f"host us a launch of a one-element add_, before any profiled phase: {early_launch_us:.2f}", flush=True)
 
     # -- main path: each path with every launch count at 0 just before --------
     # Counts by kernel: the CartPole rollout, and each generated build by its
@@ -3237,6 +3626,36 @@ def smoke(xml_path: str) -> int:
         "walker_terrain_n1": terrain_n1,
     }}), flush=True)
     lap("the Box2D host envs")
+    # -- the classic-control, toy-text and CPD host classes: host only --------
+    host_classes, host_class_counts = counted("the host classes", run_host_classes)
+    check(not any(host_class_counts.values()), f"the host classes launched {host_class_counts}")
+    lap("the host classes")
+    # -- the utilities over the articulated kernel ------------------------------
+    hc_build = steps["half_cheetah"].build_name
+    bench_step, bench_step_counts = counted("benchmark_step", run_benchmark_step)
+    want = {"cartpole_rollout_fused": 0, **gen_zero, hc_build: bench_step["half_cheetah_launches"]}
+    check(bench_step_counts == want, f"benchmark_step path launches {bench_step_counts}, want {want}")
+    lap("benchmark_step")
+    compiled, compiled_counts = counted(
+        "benchmark_compiled_rollout", lambda: run_compiled_rollout(dev, registry["HalfCheetah-v5"]["env_steps_per_s"], early_launch_us))
+    want = {"cartpole_rollout_fused": 0, **gen_zero,
+            hc_build: COMPILED_ROLLOUT_STEPS * (2 + COMPILED_ROLLOUT_REPEATS)}
+    check(compiled_counts == want, f"benchmark_compiled_rollout path launches {compiled_counts}, want {want}")
+    lap("benchmark_compiled_rollout")
+    scratch = os.path.dirname(xml_path)
+    traced, trace_counts = counted("trace", lambda: run_trace(dev, scratch))
+    want = {"cartpole_rollout_fused": 0, **gen_zero, hc_build: TRACE_ENV_STEPS * traced["tries"]}
+    check(trace_counts == want, f"trace path launches {trace_counts}, want {want}")
+    lap("trace")
+    resumed, resume_counts = counted("checkpoint", lambda: run_checkpoint(dev, scratch))
+    want = {"cartpole_rollout_fused": 0, **gen_zero, hc_build: resumed["train_steps"] * PPO_ROLLOUT}
+    check(resume_counts == want, f"checkpoint path launches {resume_counts}, want {want}")
+    generator = check_torch_generator(dev)
+    print(json.dumps({"host_classes": {"card": card_line(), "steps": HOST_CLASS_STEPS, **host_classes},
+                      "utils": {"card": card_line(), "benchmark_step": bench_step,
+                                "benchmark_compiled_rollout": compiled, "trace": traced,
+                                "checkpoint": resumed, "torch_generator": generator}}), flush=True)
+    lap("the checkpoint and torch_generator")
     for entry in kernels:
         if entry["name"] == "articulated_step[half_cheetah]":
             build_name = steps["half_cheetah"].build_name
@@ -3253,7 +3672,11 @@ def smoke(xml_path: str) -> int:
                       'make("phys2d/CartPole-v1")': single_cartpole_counts,
                       **{f"FunctionalTorchEnv({env_id})": single_counts[env_id] for env_id in SINGLE_IDS},
                       **{f"make({env_id!r})": host_counts[env_id] for env_id in HOST_IDS},
-                      **{f"make({label!r})": box2d_counts[label] for label in BOX2D_PATHS}}
+                      **{f"make({label!r})": box2d_counts[label] for label in BOX2D_PATHS},
+                      "the host classes": host_class_counts,
+                      "benchmark_step(make('HalfCheetah-v5'))": bench_step_counts,
+                      f"benchmark_compiled_rollout(make_vec('HalfCheetah-v5', {NUM_ENVS}))": compiled_counts,
+                      "trace": trace_counts, "checkpoint of the HalfCheetah PPO state": resume_counts}
     for entry in kernels:
         build_name = kernel_build.get(entry["name"])
         by_path = {path: counts[build_name] for path, counts in registry_paths.items() if counts.get(build_name)}

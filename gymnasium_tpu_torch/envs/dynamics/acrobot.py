@@ -1,10 +1,10 @@
 """Acrobot dynamics: RK4 over the two-link underactuated pendulum ODE (own
-copy of the JAX package's ``envs/dynamics/acrobot.py``, without the host-only
-``wrap_exact``).
+copy of the JAX package's ``envs/dynamics/acrobot.py``).
 
 Written once for any array namespace ``xp`` (numpy, torch). Reference
 classic_control/acrobot.py:202-244, the "book" variant of the Sutton
-equations, with the ``wrap``/``bound`` post-steps.
+equations, with the ``wrap``/``bound`` post-steps. The host env class
+passes :func:`wrap_exact`, the reference's scalar loop, for its angles.
 """
 
 from __future__ import annotations
@@ -33,6 +33,17 @@ class AcrobotParams(NamedTuple):
 def wrap(xp, x, low, high):
     """Wrap ``x`` into ``[low, high)`` by the floor remainder."""
     return ((x - low) % (high - low)) + low
+
+
+def wrap_exact(x: float, low: float, high: float) -> float:
+    """Scalar wrap by repeated subtraction: the reference's loop, which the
+    floor remainder can miss by a last bit; the host env's path."""
+    diff = high - low
+    while x > high:
+        x = x - diff
+    while x < low:
+        x = x + diff
+    return x
 
 
 def dsdt(xp, s, torque, p: AcrobotParams):
@@ -74,11 +85,17 @@ def rk4_step(xp, s, torque, p: AcrobotParams):
     return s + dt / 6.0 * (k1 + 2 * k2 + 2 * k3 + k4)
 
 
-def integrate(xp, state, torque, p: AcrobotParams):
-    """One env tick: RK4, then the angles wrapped and the velocities bounded."""
+def integrate(xp, state, torque, p: AcrobotParams, wrap_fn=None):
+    """One env tick: RK4, then the angles wrapped and the velocities bounded.
+
+    ``wrap_fn(x, low, high)`` replaces the floor-remainder wrap (the host
+    env class passes :func:`wrap_exact`).
+    """
     ns = rk4_step(xp, state, torque, p)
-    th1 = wrap(xp, ns[..., 0], -math.pi, math.pi)
-    th2 = wrap(xp, ns[..., 1], -math.pi, math.pi)
+    if wrap_fn is None:
+        wrap_fn = lambda x, low, high: wrap(xp, x, low, high)  # noqa: E731
+    th1 = wrap_fn(ns[..., 0], -math.pi, math.pi)
+    th2 = wrap_fn(ns[..., 1], -math.pi, math.pi)
     v1 = xp.clip(ns[..., 2], -p.max_vel_1, p.max_vel_1)
     v2 = xp.clip(ns[..., 3], -p.max_vel_2, p.max_vel_2)
     return xp.stack((th1, th2, v1, v2), axis=-1)

@@ -10,8 +10,9 @@ Where the JAX package has its ``jax`` mode, the port has
 ``vectorization_mode="torch"``: a :class:`~gymnasium_tpu_torch.vector.TorchVectorEnv`
 over the functional env a spec's ``torch_entry_point`` names, on CUDA unless
 ``vector_kwargs`` asks for the CPU. It is the default wherever a spec has
-one. The host vector envs (``sync``, ``async``) and the host env classes
-that some entry points name are not ported yet: asking for them raises
+one. ``make(id)`` builds the host env class every string ``entry_point``
+names. The host vector envs (``sync``, ``async``) and the native tabular
+``vector_entry_point``s are not ported yet: asking for them raises
 :class:`~gymnasium_tpu_torch.error.Error`.
 """
 
@@ -306,7 +307,7 @@ def load_env_creator(name: str) -> Callable:
 
 def _load_port_entry_point(env_spec: EnvSpec, entry_point: str) -> Callable:
     """:func:`load_env_creator`, except that an entry point into this package
-    which it does not have yet (a host env class) raises :class:`error.Error`
+    which it does not have yet (a host vector env) raises :class:`error.Error`
     naming it."""
     try:
         return load_env_creator(entry_point)
@@ -321,7 +322,7 @@ def _load_port_entry_point(env_spec: EnvSpec, entry_point: str) -> Callable:
             else ""
         )
         raise error.Error(
-            f"{env_spec.id}: the torch port has no `{entry_point}` yet (a host class){hint}"
+            f"{env_spec.id}: the torch port has no `{entry_point}` yet (a host vector env){hint}"
         ) from e
 
 

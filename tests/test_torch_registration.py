@@ -255,24 +255,25 @@ def test_make_vec_equals_a_hand_built_env_bit_for_bit():
     assert torch.equal(made.carry.steps, hand.carry.steps)
 
 
-def _port_lacks(env_spec) -> bool:
-    """The spec's entry point names a class the port does not have."""
-    if not isinstance(env_spec.entry_point, str):
-        return False
-    try:
-        load_env_creator(env_spec.entry_point)
-    except (ModuleNotFoundError, AttributeError):
-        return True
-    return False
+def test_every_string_entry_point_loads():
+    """Every id whose ``entry_point`` is a string names a callable the port
+    has, at JAX's entry point with the package renamed (the adapters' at the
+    port's own module)."""
+    string_ids = sorted(id_ for id_, s in registry.items() if isinstance(s.entry_point, str))
+    assert len(string_ids) == 47
+    for env_id in string_ids:
+        entry_point = registry[env_id].entry_point
+        assert callable(load_env_creator(entry_point)), env_id
+        if not entry_point.startswith(PORT_SINGLE):
+            assert entry_point == jgym.registry[env_id].entry_point.replace("gymnasium_tpu.", "gymnasium_tpu_torch.", 1)
 
 
-@pytest.mark.parametrize("env_id", sorted(id_ for id_, s in registry.items() if _port_lacks(s)))
-def test_make_of_a_host_only_id_raises(env_id):
-    with pytest.raises(error.Error, match="host class"):
-        gym.make(env_id)
-    if registry[env_id].torch_entry_point is not None:
-        with pytest.raises(error.Error, match=f'make_vec\\("{env_id}", vectorization_mode="torch"\\)'):
-            gym.make(env_id)
+@pytest.mark.parametrize("env_id", ["FrozenLake-v1", "FrozenLake8x8-v1", "CliffWalking-v1", "Taxi-v3"])
+def test_make_vec_of_a_native_tabular_vector_entry_point_raises(env_id):
+    assert registry[env_id].vector_entry_point.startswith("gymnasium_tpu_torch.vector.native_tabular:")
+    with pytest.raises(error.Error, match="native_tabular") as raised:
+        gym.make_vec(env_id, 2, vectorization_mode="vector_entry_point")
+    assert f'make_vec("{env_id}", vectorization_mode="torch")' in str(raised.value)
 
 
 BOX2D_IDS = ("LunarLander-v3", "LunarLanderContinuous-v3", "BipedalWalker-v3", "BipedalWalkerHardcore-v3",

@@ -77,3 +77,74 @@ def to_port(obj):
     pickled and loaded with every class of the JAX package read from the
     port, so its generator's state comes along too."""
     return _PortUnpickler(io.BytesIO(pickle.dumps(obj))).load()
+
+
+def assert_identical(got, want, path: str = "x") -> None:
+    """Stricter than :func:`assert_same`, for host values: containers of the
+    same types, numpy arrays of the same dtype, shape and bytes, and
+    scalars of the same type and bits (NaN equals NaN, -0.0 differs from
+    0.0)."""
+    if isinstance(want, dict):
+        assert isinstance(got, dict) and list(got) == list(want), f"{path}: keys {list(got)} vs {list(want)}"
+        for key in want:
+            assert_identical(got[key], want[key], f"{path}[{key!r}]")
+        return
+    if isinstance(want, (tuple, list)):
+        assert type(got) is type(want) and len(got) == len(want), f"{path}: {type(got)} {type(want)}"
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert_identical(a, b, f"{path}[{i}]")
+        return
+    assert type(got) is type(want), f"{path}: {type(got)} vs {type(want)}"
+    if isinstance(want, (np.ndarray, np.generic)):
+        assert got.dtype == want.dtype and got.shape == want.shape, f"{path}: {got.dtype}{got.shape} vs {want.dtype}{want.shape}"
+        assert got.tobytes() == want.tobytes(), f"{path}: {got!r} vs {want!r}"
+    elif isinstance(want, float):
+        assert np.float64(got).tobytes() == np.float64(want).tobytes(), f"{path}: {got!r} vs {want!r}"
+    else:
+        assert got == want, f"{path}: {got!r} vs {want!r}"
+
+
+def wrapper_names(env) -> list[str]:
+    """The class names of ``env``'s wrappers, outermost first, then the env's."""
+    names = []
+    while hasattr(env, "env"):
+        names.append(type(env).__name__)
+        env = env.env
+    return names + [type(env).__name__]
+
+
+def assert_host_env_matches_jax(port, ref, steps: int, seed: int = 0, action_seed: int = 1, render_every: int = 0,
+                                options=None) -> int:
+    """A host env made by the port (``port``) against the JAX package's
+    (``ref``), both through ``make``: the same wrappers, step limit and
+    spaces, then ``reset(seed=seed, options=options)`` and ``steps`` steps
+    of one action stream from ``ref``'s seeded ``action_space.sample()``,
+    with a plain ``reset()`` after each episode's end. Every output (obs,
+    reward, flags, info) is identical, and so is ``unwrapped.np_random``'s
+    state after every reset and step; every ``render_every``-th step both
+    renders are identical. Returns the episodes ended."""
+    assert wrapper_names(port) == wrapper_names(ref)
+    assert port.spec.max_episode_steps == ref.spec.max_episode_steps
+    assert_same_space(port.action_space, ref.action_space)
+    assert_same_space(port.observation_space, ref.observation_space)
+
+    def same_generators(path):
+        got, want = port.unwrapped.np_random.bit_generator.state, ref.unwrapped.np_random.bit_generator.state
+        assert got == want, f"{path}: the generators differ"
+
+    assert_identical(port.reset(seed=seed, options=options), ref.reset(seed=seed, options=options), "reset")
+    same_generators("reset")
+    ref.action_space.seed(action_seed)
+    episodes = 0
+    for k in range(steps):
+        action = ref.action_space.sample()
+        want = ref.step(action)
+        assert_identical(port.step(action), want, f"step {k}")
+        same_generators(f"step {k}")
+        if render_every and k % render_every == 0:
+            assert_identical(port.render(), ref.render(), f"render at step {k}")
+        if want[2] or want[3]:
+            episodes += 1
+            assert_identical(port.reset(), ref.reset(), f"reset after step {k}")
+            same_generators(f"reset after step {k}")
+    return episodes
