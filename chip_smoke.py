@@ -112,6 +112,21 @@ read just after:
   next step equals the uninterrupted one in every bit (after two steps from
   the restored state are shown to agree), and ``torch_generator(0,
   "cuda")`` against ``manual_seed(0)``;
+- the host vector envs over the host classes: ``make_vec("HalfCheetah-v5",
+  8, vectorization_mode="sync")`` for 200 steps and ``make_vec("LunarLander-v3",
+  8, vectorization_mode="sync")`` for 100, each sub-env on the card and one
+  launch of its build a step (the lander's reset one too), numpy batches,
+  then the same steps with ``device="cpu"`` from each sub-env's card state
+  and five steps under ``torch.profiler``; HalfCheetah with
+  ``vectorization_mode="async"`` in 8 spawned workers over shared memory,
+  equal to the sync env in every bit, each worker reporting ``cuda`` and its
+  own 200 launches through ``call``; the same env with the default context
+  (fork), which must raise in the parent within 60 s; the native tabular
+  stepper (``make_vec("FrozenLake-v1" | "Taxi-v3", 4096,
+  vectorization_mode="vector_entry_point")``, built with ``g++``, 512 steps
+  equal to its numpy path's, nothing on the card); and RescaleAction,
+  ClipAction, NormalizeObservation and FrameStackObservation(4) over
+  ``make("HalfCheetah-v5")`` on the card against the CPU for 100 steps;
 - the PPO trainer at ``tools/bench_ppo.py``'s widths: CartPole-v1 (4096 envs,
   64 steps a rollout, hidden (128, 128)) and HalfCheetah-v5 (4096 x 64,
   hidden (256, 256), with NormalizeObservation, NormalizeReward and
@@ -139,7 +154,7 @@ prints the card's name and power limit, one ``{"bipedal": {...},
 {...}, "mjcf": {...}}`` line, one ``{"classic": {...}}`` line,
 one ``{"ppo": {...}}`` line, one ``{"host_envs": {...}}`` line, one
 ``{"host_classes": {...}, "utils": {...}}`` line, one
-``{"registry": {...}}`` line, one
+``{"host_vector": {...}}`` line, one ``{"registry": {...}}`` line, one
 ``{"kernels": [...]}`` line, and last the line ``{"ok": true, "device":
 {...}}``. Any failed check
 raises, so the exit code is 0 only when every phase passed. Without a CUDA
@@ -406,6 +421,35 @@ HOST_CLASS_STEPS = 200
 CARTPOLE_VECTOR_ENVS = 8
 CARTPOLE_VECTOR_STEPS = 600
 CUDA_RUNTIME_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpy", "cudaMemset")  # name prefixes
+
+# The host vector env phases. make_vec(id, VEC_ENVS, vectorization_mode="sync")
+# on the card with fixed numpy actions: HalfCheetah for VEC_STEPS steps (each
+# sub-env step one launch of the robot's build, a reset none), LunarLander for
+# VEC_LANDER_STEPS (a step or an autoreset one launch of the lander's build);
+# then the first VEC_CHECK_STEPS steps and those around each sub-episode's end
+# on the CPU, each sub-env set to its card state before each step, within
+# HOST_CHECK_TOL and BOX2D_TOL; VEC_PROFILED_STEPS more steps
+# under torch.profiler. Then HalfCheetah with vectorization_mode="async" in
+# VEC_ENVS spawned workers over shared memory, equal in every bit to the sync
+# env, each worker reporting its device and launches through call(); and the
+# same env with the default context (fork), which must raise in the parent
+# within VEC_FORK_LIMIT_S. The native tabular stepper: make_vec(id,
+# TABULAR_ENVS, vectorization_mode="vector_entry_point") for TABULAR_IDS,
+# TABULAR_STEPS steps equal to its numpy path's. The host wrappers: RescaleAction,
+# ClipAction, NormalizeObservation and FrameStackObservation(4) over
+# make("HalfCheetah-v5") on the card against the CPU for WRAPPER_HOST_STEPS.
+VEC_ENVS = 8
+VEC_STEPS = 200
+VEC_LANDER_STEPS = 100
+VEC_PROFILED_STEPS = 5
+VEC_CHECK_STEPS = 8
+VEC_ROUND_TRIPS = 50
+VEC_WAIT_S = 120.0
+VEC_FORK_LIMIT_S = 60
+TABULAR_ENVS = 4096
+TABULAR_STEPS = 512
+TABULAR_IDS = ("FrozenLake-v1", "Taxi-v3")
+WRAPPER_HOST_STEPS = 100
 
 # The utilities phase (utils/performance.py, utils/checkpoint.py,
 # utils/seeding.py) over the articulated kernel: benchmark_step for
@@ -1425,7 +1469,7 @@ def replayed_sticky_action(p: float, drawn: collections.deque, dev=None):
     """A StickyAction whose repeat draws the CPU run records into ``drawn``
     (``dev`` None) and the card run on ``dev`` replays: the two generators
     draw different numbers."""
-    from gymnasium_tpu_torch.wrappers import StickyAction
+    from gymnasium_tpu_torch.wrappers.func import StickyAction
 
     class Replayed(StickyAction):
         def draws(self, wstate, n):
@@ -1445,7 +1489,7 @@ def compare_wrappers_with_cpu(dev, n: int = WRAPPER_CHECK_ENVS, steps: int = WRA
     ClipReward;
     Pendulum through RescaleAction, TransformAction, RescaleObservation and
     TimeAwareObservation (normalised)."""
-    from gymnasium_tpu_torch import wrappers as w
+    from gymnasium_tpu_torch.wrappers import func as w
     from gymnasium_tpu_torch.envs.phys2d import MountainCarFunctional, PendulumFunctional
     from gymnasium_tpu_torch.functional import tree_map
 
@@ -2185,65 +2229,74 @@ def compare_host_env_with_cpu(env_id: str, run: dict, checked: int = HOST_CHECK_
 
 def profile_host_env_step(dev, env_id: str, kernel: str, steps: int = PROFILED_ENV_STEPS) -> dict:
     """``torch.profiler`` over ``steps`` host-env steps of ``make(env_id)`` on
-    the card, after a reset and an unprofiled step: kernels, memory copies
-    and stream synchronisations a step, the device's busy time a step and its
-    share of the profiled wall time, and ``kernel``'s device time a step.
-    The first launches of a trace can be lost, as in :func:`device_ms`: a
-    trace that opened with one untimed HalfCheetah step (0.2 ms) held 4 of
-    its 6 launches in every try of a run, where one untimed Ant step (4 ms)
-    lost none. So each trace opens with untimed steps for
-    :data:`TRACE_OPENING_S` and a synchronisation; the timed steps and a
-    closing synchronisation run inside a ``host_env_steps`` range, and a
-    device event counts where it starts inside that range's span on the
-    host's clock, which CUPTI's device times share: every timed step is
-    launched after the range opens and done before it closes. A trace that
-    did not see one launch of ``kernel`` a step is taken again, up to five
-    times."""
-    from torch.profiler import ProfilerActivity, profile, record_function
-
+    the card, after a reset and an unprofiled step (:func:`profile_steps`)."""
     import gymnasium_tpu_torch as gym
 
-    cuda = torch.autograd.DeviceType.CUDA
     env = gym.make(env_id)
     env.reset(seed=0)
     actions = host_actions(env, 2 + steps, seed=1)
     env.step(actions[0])
+    out = profile_steps(env_id, env.step, actions[1:], kernel, 1)
+    env.close()
+    return {"env": env_id, **out}
+
+
+def profile_steps(label: str, step, actions, kernel: str, launches_a_step: int) -> dict:
+    """``torch.profiler`` over ``step(a)`` for each of ``actions[1:]``:
+    kernels, memory copies and stream synchronisations a step, the device's
+    busy time a step and its share of the profiled wall time, and
+    ``kernel``'s device time a step, which must launch ``launches_a_step``
+    times a step. The first launches of a trace can be lost, as in
+    :func:`device_ms`: a trace that opened with one untimed HalfCheetah step
+    (0.2 ms) held 4 of its 6 launches in every try of a run, where one
+    untimed Ant step (4 ms) lost none. So each trace opens with untimed
+    steps of ``actions[0]`` for :data:`TRACE_OPENING_S` and a
+    synchronisation; the timed steps and a closing synchronisation run
+    inside a ``host_env_steps`` range, and a device event counts where it
+    starts inside that range's span on the host's clock, which CUPTI's
+    device times share: every timed step is launched after the range opens
+    and done before it closes. A trace that did not see every launch of
+    ``kernel`` is taken again, up to five times."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    cuda = torch.autograd.DeviceType.CUDA
+    steps = len(actions) - 1
     for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             opened = time.perf_counter()
-            env.step(actions[1])
+            step(actions[0])
             while time.perf_counter() - opened < TRACE_OPENING_S:
-                env.step(actions[1])
+                step(actions[0])
             torch.cuda.synchronize()
             with record_function("host_env_steps"):
                 start = time.perf_counter()
-                for action in actions[2:]:
-                    env.step(action)
+                for action in actions[1:]:
+                    step(action)
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - start) * 1e3 / steps
         events = prof.events()
         host = [e.time_range for e in events if e.name == "host_env_steps" and e.device_type != cuda]
-        check(len(host) == 1, f"{env_id}: {len(host)} host ranges of host_env_steps in a trace")
+        check(len(host) == 1, f"{label}: {len(host)} host ranges of host_env_steps in a trace")
         lo, hi = host[0].start, host[0].end
         everywhere = [e for e in events if e.device_type == cuda and not e.is_user_annotation]
         device = [e for e in everywhere if lo <= e.time_range.start < hi]
         copies = [e for e in device if e.name.startswith(("Memcpy", "Memset"))]
         kernels = [e for e in device if not e.name.startswith(("Memcpy", "Memset"))]
         own = [e for e in kernels if kernel in e.name]
-        if len(own) == steps:
+        if len(own) == steps * launches_a_step:
             break
         starts = [round(e.time_range.start - lo) for e in everywhere if kernel in e.name]
-        print(f"profile_host_env_step: a trace of {env_id} saw {len(own)} of {steps} launches of {kernel} "
-              f"in the range; the trace's start at {starts} us from the range's, which lasts {round(hi - lo)} us",
-              flush=True)
-    check(len(own) == steps, f"{env_id}: the profiler saw {len(own)} of {steps} launches of {kernel}")
-    env.close()
+        print(f"profile_steps: a trace of {label} saw {len(own)} of {steps * launches_a_step} launches of "
+              f"{kernel} in the range; the trace's start at {starts} us from the range's, which lasts "
+              f"{round(hi - lo)} us", flush=True)
+    check(len(own) == steps * launches_a_step,
+          f"{label}: the profiler saw {len(own)} of {steps * launches_a_step} launches of {kernel}")
     syncs = [e for e in events if e.name == "cudaStreamSynchronize" and lo <= e.time_range.start < hi]
     busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3 / steps
     by_name = collections.Counter()
     for e in kernels:
         by_name[e.name[:80]] += e.time_range.elapsed_us()
-    return {"env": env_id, "profiled_steps": steps, "profiled_step_ms": wall_ms,
+    return {"profiled_steps": steps, "profiled_step_ms": wall_ms,
             "kernels_a_step": len(kernels) / steps, "copies_a_step": len(copies) / steps,
             "stream_syncs_a_step": len(syncs) / steps,
             "device_busy_ms_a_step": busy_ms, "device_busy_share": busy_ms / wall_ms,
@@ -2521,6 +2574,410 @@ def run_host_classes() -> dict:
                          "aten_ops": aten, "events": len(events)}}
 
 
+def kernel_launches() -> dict:
+    """The articulated and planar launch counts of the process this runs in."""
+    from gymnasium_tpu_torch.ops import articulated_step as art
+    from gymnasium_tpu_torch.ops import planar_step as pl
+
+    return {k: v for k, v in {**art.launches, **pl.launches}.items() if v}
+
+
+def report_launches(env):
+    """A ``make_vec`` wrapper: the sub-env answers ``call("kernel_launches")``
+    with the counts of the process it steps in (its worker's, under
+    ``async``) and ``get_attr("made_at")`` with the wall-clock time it was
+    made. A module-level function, so that a spawned worker unpickles it
+    from this script."""
+    env.unwrapped.kernel_launches = kernel_launches
+    env.unwrapped.made_at = time.time()
+    return env
+
+
+def identical(a, b) -> bool:
+    """``a`` and ``b`` hold the same values in every bit: containers of the
+    same types and keys, arrays of the same dtype, shape and bytes."""
+    if isinstance(b, dict):
+        return isinstance(a, dict) and list(a) == list(b) and all(identical(a[k], b[k]) for k in b)
+    if isinstance(b, (tuple, list)):
+        return type(a) is type(b) and len(a) == len(b) and all(identical(x, y) for x, y in zip(a, b))
+    if isinstance(b, np.ndarray) and b.dtype == object:
+        return isinstance(a, np.ndarray) and a.shape == b.shape and all(identical(x, y) for x, y in zip(a.flat, b.flat))
+    if isinstance(b, (np.ndarray, np.generic)):
+        return (isinstance(a, (np.ndarray, np.generic)) and a.dtype == b.dtype and a.shape == b.shape
+                and a.tobytes() == b.tobytes())
+    if isinstance(b, float):
+        return type(a) is type(b) and np.float64(a).tobytes() == np.float64(b).tobytes()
+    return type(a) is type(b) and a == b
+
+
+def vector_actions(envs, steps: int, seed: int = 0) -> np.ndarray:
+    """``steps`` batches of actions inside ``envs``' single action space."""
+    space, rng = envs.single_action_space, np.random.default_rng(seed)
+    if hasattr(space, "low"):
+        return rng.uniform(space.low, space.high, (steps, envs.num_envs, *space.shape)).astype(np.float32)
+    return rng.integers(0, space.n, (steps, envs.num_envs))
+
+
+def sub_env_snapshot(env) -> tuple:
+    """What a sub-env steps from: a MuJoCo-class env's ``qpos``/``qvel``, a
+    planar env's state (a step replaces its tensors, so a shallow copy keeps
+    them) and wind indices, and the generator's state."""
+    inner = env.unwrapped
+    rng = inner.np_random.bit_generator.state
+    if hasattr(inner, "get_state"):
+        return ("articulated", inner.get_state(), rng)
+    return ("planar", dict(inner.state), rng, getattr(inner, "wind_idx", None), getattr(inner, "torque_idx", None))
+
+
+def restore_sub_env(env, snapshot: tuple) -> None:
+    """Set a sub-env to a :func:`sub_env_snapshot`, on its own device."""
+    inner = env.unwrapped
+    if snapshot[0] == "articulated":
+        inner.set_state(*snapshot[1])
+    else:
+        inner.state = {k: v.to(inner.device) for k, v in snapshot[1].items()}
+        if snapshot[3] is not None:
+            inner.wind_idx, inner.torque_idx = snapshot[3], snapshot[4]
+    inner.np_random.bit_generator.state = snapshot[2]
+
+
+def run_sync_vector(dev, env_id: str, steps: int) -> dict:
+    """``make_vec(env_id, VEC_ENVS, vectorization_mode="sync")`` with no
+    device, so every sub-env on the card: ``reset(seed=0)``, then ``steps``
+    steps of fixed numpy actions. Each step must launch each sub-env's build
+    once (its step, or its reset after an episode's end) and hand back a
+    numpy batch. Records the host-clock ms a step (the steps alone), the
+    launches at the reset, and for :func:`compare_sync_vector_with_cpu` and
+    :func:`run_async_vector` each sub-env's state before each step and the
+    step's outputs."""
+    import gymnasium_tpu_torch as gym
+    from gymnasium_tpu_torch.vector import SyncVectorEnv
+
+    envs = gym.make_vec(env_id, VEC_ENVS, vectorization_mode="sync", wrappers=(report_launches,))
+    check(isinstance(envs, SyncVectorEnv), f"make_vec({env_id!r}, sync) gave {type(envs).__name__}")
+    devices = {env.unwrapped.device.type for env in envs.envs}
+    check(devices == {torch.device(dev).type}, f"{env_id}: sub-envs on {devices}")
+    actions = vector_actions(envs, steps)
+    space = envs.single_observation_space
+    before = sum(kernel_launches().values())
+    obs, _ = envs.reset(seed=0)
+    reset_launches = sum(kernel_launches().values()) - before
+    snaps, outs, seconds = [], [], 0.0
+    for k, action in enumerate(actions):
+        snaps.append([sub_env_snapshot(env) for env in envs.envs])
+        count = sum(kernel_launches().values())
+        start = time.perf_counter()
+        out = envs.step(action)
+        seconds += time.perf_counter() - start
+        rose = sum(kernel_launches().values()) - count
+        check(rose == VEC_ENVS, f"{env_id} sync step {k}: {rose} launches, want one a sub-env ({VEC_ENVS})")
+        check(isinstance(out[0], np.ndarray) and out[0].shape == (VEC_ENVS, *space.shape)
+              and out[0].dtype == space.dtype and bool(np.isfinite(out[0]).all()),
+              f"{env_id} sync step {k}: obs {type(out[0]).__name__} {getattr(out[0], 'shape', None)}")
+        check(all(isinstance(x, np.ndarray) for x in out[1:4]), f"{env_id} sync step {k}: not numpy")
+        outs.append(out)
+    envs.close()
+    return {"envs": VEC_ENVS, "steps": steps, "ms_a_step": seconds * 1e3 / steps, "reset_launches": reset_launches,
+            "episode_ends": int(sum((o[2] | o[3]).sum() for o in outs)),
+            "_reset": obs, "_snaps": snaps, "_actions": actions, "_outs": outs}
+
+
+def vector_tolerance(env_id: str) -> dict:
+    """(atol, rtol) by output: the lander's of the Box2D host phase, the
+    MuJoCo-class robots' ``HOST_CHECK_TOL * (1 + |cpu|)``."""
+    if env_id.startswith("LunarLander"):
+        return BOX2D_TOL["lander"]
+    return {"obs": (HOST_CHECK_TOL, HOST_CHECK_TOL), "reward": (HOST_CHECK_TOL, HOST_CHECK_TOL)}
+
+
+def compare_sync_vector_with_cpu(env_id: str, run: dict, first: int = VEC_CHECK_STEPS) -> dict:
+    """Steps of :func:`run_sync_vector` on the same vector env made with
+    ``device="cpu"`` (whose twin takes tens of ms a sub-env step): the reset
+    from the same seed, then the ``first`` steps and each step that ended a
+    sub-episode with the autoreset step after it, with each sub-env set to
+    its card state and generator before the step and the vector env to the
+    card's pending autoresets. Raises unless the flags are equal and the
+    observation and reward are within :func:`vector_tolerance` of the CPU's,
+    element by element."""
+    import gymnasium_tpu_torch as gym
+
+    tol = vector_tolerance(env_id)
+    cpu = gym.make_vec(env_id, VEC_ENVS, vectorization_mode="sync", wrappers=(report_launches,), device="cpu")
+    worst = {"obs": 0.0, "reward": 0.0}
+
+    def agree(what: str, got, want, where: str) -> None:
+        atol, rtol = tol[what]
+        err = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+        check(bool((err <= atol + rtol * np.abs(np.asarray(want, np.float64))).all()),
+              f"{env_id} sync {where}: {what} differs from the CPU's by {float(err.max())}")
+        worst[what] = max(worst[what], float(err.max()))
+
+    agree("obs", run["_reset"], cpu.reset(seed=0)[0], "reset")
+    outs = run["_outs"]
+    ends = [k for k, o in enumerate(outs) if (o[2] | o[3]).any()]
+    checked = sorted({*range(first), *ends, *(k + 1 for k in ends)} & set(range(len(outs))))
+    for i in checked:
+        for env, snapshot in zip(cpu.envs, run["_snaps"][i]):
+            restore_sub_env(env, snapshot)
+        cpu._needs_autoreset = outs[i - 1][2] | outs[i - 1][3] if i else np.zeros(VEC_ENVS, bool)
+        card, want = outs[i], cpu.step(run["_actions"][i])
+        agree("obs", card[0], want[0], f"step {i}")
+        agree("reward", card[1], want[1], f"step {i}")
+        check(bool((card[2] == want[2]).all() and (card[3] == want[3]).all()),
+              f"{env_id} sync step {i}: flags {card[2]} {card[3]} on the card, {want[2]} {want[3]} on the CPU")
+        check(list(card[4]) == list(want[4]), f"{env_id} sync step {i}: info keys {list(card[4])} vs {list(want[4])}")
+    cpu.close()
+    return {"max_abs_dev": worst, "checked_steps": checked, "tolerance": tol}
+
+
+def profile_sync_vector(env_id: str, kernel: str, steps: int = VEC_PROFILED_STEPS) -> dict:
+    """:func:`profile_steps` over ``steps`` steps of the sync vector env on
+    the card: each step launches ``kernel`` once a sub-env."""
+    import gymnasium_tpu_torch as gym
+
+    envs = gym.make_vec(env_id, VEC_ENVS, vectorization_mode="sync")
+    envs.reset(seed=0)
+    actions = vector_actions(envs, 2 + steps, seed=1)
+    envs.step(actions[0])
+    out = profile_steps(f"make_vec({env_id!r}, sync)", envs.step, actions[1:], kernel, VEC_ENVS)
+    envs.close()
+    return out
+
+
+def run_async_vector(dev, sync_run: dict, build_name: str) -> dict:
+    """``make_vec("HalfCheetah-v5", VEC_ENVS, vectorization_mode="async")``
+    in spawned workers over shared memory, each sub-env on the card: the
+    reset and steps of :func:`run_sync_vector`'s HalfCheetah run, which must
+    come out equal in every bit. Each worker reports its env's device
+    (``cuda``), the wall-clock time its env was made and its own launches of
+    ``build_name``, one a step; then :data:`VEC_ROUND_TRIPS` calls that
+    touch no card time the pipes alone. Every wait has a timeout and the
+    env is closed with ``terminate=True``."""
+    import importlib.util
+
+    import gymnasium_tpu_torch as gym
+    from gymnasium_tpu_torch.vector import AsyncVectorEnv
+
+    def wait_call(envs, name):
+        envs.call_async(name)
+        return envs.call_wait(timeout=VEC_WAIT_S)
+
+    began_wall, start = time.time(), time.perf_counter()
+    envs = gym.make_vec("HalfCheetah-v5", VEC_ENVS, vectorization_mode="async", wrappers=(report_launches,),
+                        vector_kwargs={"context": "spawn", "shared_memory": True})
+    try:
+        startup_s = time.perf_counter() - start
+        check(isinstance(envs, AsyncVectorEnv) and envs.context == "spawn" and envs.shared_memory,
+              f"make_vec(async) gave {type(envs).__name__}")
+        devices = wait_call(envs, "device")
+        check(all(d.type == "cuda" for d in devices), f"async workers' envs on {devices}")
+        made_at = wait_call(envs, "made_at")
+        envs.reset_async(seed=0)
+        obs, _ = envs.reset_wait(timeout=VEC_WAIT_S)
+        check(identical(obs, sync_run["_reset"]), "async HalfCheetah: the reset differs from the sync env's")
+        seconds = 0.0
+        for k, (action, want) in enumerate(zip(sync_run["_actions"], sync_run["_outs"])):
+            start = time.perf_counter()
+            envs.step_async(action)
+            got = envs.step_wait(timeout=VEC_WAIT_S)
+            seconds += time.perf_counter() - start
+            check(identical(got, want), f"async HalfCheetah step {k}: differs from the sync env's")
+        launches = wait_call(envs, "kernel_launches")
+        steps = len(sync_run["_outs"])
+        # the pipes alone: a call that every worker answers without the card
+        start = time.perf_counter()
+        for _ in range(VEC_ROUND_TRIPS):
+            wait_call(envs, "made_at")
+        round_trip_ms = (time.perf_counter() - start) * 1e3 / VEC_ROUND_TRIPS
+        check(all(w == {build_name: steps} for w in launches),
+              f"async workers' launches {launches}, want {{{build_name!r}: {steps}}} each")
+    finally:
+        envs.close(terminate=True)
+    check(not any(p.is_alive() for p in envs.processes), "async workers still alive after close")
+    return {"envs": VEC_ENVS, "context": "spawn", "shared_memory": True, "steps": steps,
+            "ms_a_step": seconds * 1e3 / steps, "call_round_trip_ms": round_trip_ms, "startup_s": startup_s,
+            "worker_startup_s": [t - began_wall for t in made_at],
+            "worker_devices": [str(d) for d in devices], "worker_launches": launches,
+            "cloudpickle": importlib.util.find_spec("cloudpickle") is not None, "equal_to_sync": True}
+
+
+class AsyncHang(Exception):
+    """The default-context async env neither raised nor finished in time."""
+
+
+def run_async_default_context(limit: int = VEC_FORK_LIMIT_S) -> dict:
+    """``make_vec("HalfCheetah-v5", VEC_ENVS, vectorization_mode="async")``
+    with the default context: forked workers cannot open CUDA in a process
+    whose parent has, so the env must raise in the parent within ``limit``
+    seconds (torch's re-initialisation error from a worker, or a wait's
+    ``multiprocessing.TimeoutError``) and leave no worker behind: a worker
+    that reported its error exits by itself, the others are terminated. An
+    alarm turns a hang into :class:`AsyncHang`, which fails the run."""
+    import multiprocessing
+    import signal
+
+    import gymnasium_tpu_torch as gym
+
+    def on_alarm(signum, frame):
+        raise AsyncHang(f"the default-context async env hung for {limit} s")
+
+    previous = signal.signal(signal.SIGALRM, on_alarm)
+    signal.alarm(limit)
+    envs, raised, start = None, None, time.perf_counter()
+    try:
+        envs = gym.make_vec("HalfCheetah-v5", VEC_ENVS, vectorization_mode="async")
+        envs.reset_async(seed=0)
+        envs.reset_wait(timeout=limit / 2)
+        envs.step_async(np.zeros((VEC_ENVS, 6), np.float32))
+        envs.step_wait(timeout=limit / 2)
+    except AsyncHang:
+        raise
+    except Exception as e:  # noqa: BLE001  (the phase's point is which exception comes)
+        raised = e
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, previous)
+        if envs is not None:
+            envs.close(terminate=True)
+    seconds = time.perf_counter() - start
+    # workers that reported an error exit on their own; wait for them
+    deadline = time.perf_counter() + limit
+    while multiprocessing.active_children() and time.perf_counter() < deadline:
+        time.sleep(0.05)
+    exit_s = time.perf_counter() - start - seconds
+    check(raised is not None, "the default-context async env on the card raised nothing")
+    if isinstance(raised, multiprocessing.TimeoutError):
+        kind = "multiprocessing.TimeoutError"
+    else:
+        check("re-initialize CUDA in forked subprocess" in str(raised),
+              f"the default-context async env raised something else: {raised!r}")
+        kind = "CUDA re-initialisation in a forked worker"
+    check(not multiprocessing.active_children(), f"workers left: {multiprocessing.active_children()}")
+    return {"context": multiprocessing.get_start_method(), "raised": kind, "exception": type(raised).__name__,
+            "message": str(raised)[:200], "seconds": seconds, "workers_exited_after_s": exit_s}
+
+
+def run_native_tabular() -> dict:
+    """The native tabular stepper: built with ``g++`` into the package's
+    ``build/`` (its path and seconds), then for each of :data:`TABULAR_IDS`
+    ``make_vec(id, TABULAR_ENVS, vectorization_mode="vector_entry_point")``
+    native and on its numpy path from one seed: ``TABULAR_STEPS`` equal
+    steps, each path's env-steps/s (host clock), and the native run again
+    under ``torch.profiler``, which must see no device event."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import gymnasium_tpu_torch as gym
+    from gymnasium_tpu_torch.native import tabular_library
+    from gymnasium_tpu_torch.native.build import library_path
+
+    path = library_path("gymtpu_tabular", ["tabular.cpp"])
+    existed = path.exists()
+    tabular_library.cache_clear()
+    start = time.perf_counter()
+    lib = tabular_library()
+    build_s = time.perf_counter() - start
+    check(lib is not None and lib._name == str(path), f"the native tabular stepper did not build at {path}")
+    out = {"library": os.path.relpath(path), "built_here": not existed, "build_s": build_s, "envs": TABULAR_ENVS,
+           "steps": TABULAR_STEPS}
+    print(f"native tabular stepper: {out['library']} {'built' if not existed else 'found'} in {build_s:.2f} s",
+          flush=True)
+
+    def run(env_id, native: bool, actions):
+        env = gym.make_vec(env_id, TABULAR_ENVS, vectorization_mode="vector_entry_point")
+        if not native:
+            env.stepper.lib = None
+        check(env.stepper.is_native == native, f"{env_id}: is_native {env.stepper.is_native}, want {native}")
+        outs = [env.reset(seed=0)]
+        start = time.perf_counter()
+        outs += [env.step(a) for a in actions]
+        return outs, time.perf_counter() - start
+
+    for env_id in TABULAR_IDS:
+        probe = gym.make_vec(env_id, 1, vectorization_mode="vector_entry_point")
+        actions = np.random.default_rng(0).integers(0, probe.single_action_space.n, (TABULAR_STEPS, TABULAR_ENVS))
+        native, native_s = run(env_id, True, actions)
+        plain, plain_s = run(env_id, False, actions)
+        for k, (a, b) in enumerate(zip(native, plain)):
+            check(identical(a, b), f"{env_id}: the native step {k} differs from the numpy path's")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run(env_id, True, actions)
+        device = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        check(not device, f"{env_id}: the native stepper made device events {device[:5]}")
+        out[env_id] = {"is_native": True, "native_env_steps_per_s": TABULAR_ENVS * TABULAR_STEPS / native_s,
+                       "numpy_env_steps_per_s": TABULAR_ENVS * TABULAR_STEPS / plain_s,
+                       "episode_ends": int(sum((o[2] | o[3]).sum() for o in native[1:])),
+                       "device_events": len(device), "equal_to_numpy_path": True}
+        print(f"make_vec({env_id!r}, {TABULAR_ENVS}, vector_entry_point): native "
+              f"{out[env_id]['native_env_steps_per_s']:.0f} env-steps/s, numpy path "
+              f"{out[env_id]['numpy_env_steps_per_s']:.0f} (host clock, {TABULAR_STEPS} steps)", flush=True)
+    return out
+
+
+def host_wrapper_stack(W, env):
+    """The host wrappers of the wrapper phase, over ``env``."""
+    return W.FrameStackObservation(W.NormalizeObservation(W.ClipAction(W.RescaleAction(env, -1.0, 1.0))), 4)
+
+
+def run_host_wrappers(dev, steps: int = WRAPPER_HOST_STEPS) -> dict:
+    """:func:`host_wrapper_stack` over ``make("HalfCheetah-v5")`` on the card
+    and with ``device="cpu"``: one reset and ``steps`` steps of actions
+    beyond the rescaled range, the CPU env set to the card's state before
+    each step. The raw observation, the reward and NormalizeObservation's
+    running moments agree within ``HOST_CHECK_TOL * (1 + |cpu|)``; the
+    newest stacked frame within twice that over the running standard
+    deviation, by which normalising scales a difference; the older frames
+    are the last step's. Then the host-clock ms a step of a fresh wrapped
+    env and of the bare env, each timed alone."""
+    import gymnasium_tpu_torch as gym
+    import gymnasium_tpu_torch.wrappers as W
+
+    card = host_wrapper_stack(W, gym.make("HalfCheetah-v5"))
+    cpu = host_wrapper_stack(W, gym.make("HalfCheetah-v5", device="cpu"))
+    check(card.unwrapped.device.type == torch.device(dev).type, f"wrapped env on {card.unwrapped.device}")
+    actions = np.random.default_rng(0).uniform(-1.5, 1.5, (steps, 6)).astype(np.float32)
+    card_obs, cpu_obs = card.reset(seed=0)[0], cpu.reset(seed=0)[0]
+    check(identical(card_obs, cpu_obs), "wrapped HalfCheetah: the resets differ")
+    worst = {"raw_obs": 0.0, "reward": 0.0, "running_moments": 0.0, "newest_frame": 0.0}
+
+    def agree(what, got, want, bound, where):
+        err = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+        check(bool((err <= bound).all()), f"wrapped HalfCheetah {where}: {what} off by {float(err.max())}")
+        worst[what] = max(worst[what], float(err.max()))
+
+    for k, action in enumerate(actions):
+        cpu.unwrapped.set_state(*card.unwrapped.get_state())
+        got, want = card.step(action), cpu.step(action)
+        raw = cpu.unwrapped._get_obs()
+        agree("raw_obs", card.unwrapped._get_obs(), raw, HOST_CHECK_TOL * (1 + np.abs(raw)), f"step {k}")
+        agree("reward", got[1], want[1], HOST_CHECK_TOL * (1 + abs(want[1])), f"step {k}")
+        rms_card, rms_cpu = card.get_wrapper_attr("obs_rms"), cpu.get_wrapper_attr("obs_rms")
+        for stat in ("mean", "var"):
+            value = getattr(rms_cpu, stat)
+            agree("running_moments", getattr(rms_card, stat), value, HOST_CHECK_TOL * (1 + np.abs(value)),
+                  f"step {k} {stat}")
+        scale = np.sqrt(rms_cpu.var + cpu.get_wrapper_attr("epsilon"))
+        agree("newest_frame", got[0][-1], want[0][-1], 2 * HOST_CHECK_TOL * (1 + np.abs(raw)) / scale, f"step {k}")
+        check(identical(got[0][:-1], card_obs[1:]), f"wrapped HalfCheetah step {k}: the frame stack did not shift")
+        check(got[2:4] == want[2:4], f"wrapped HalfCheetah step {k}: flags {got[2:4]} vs {want[2:4]}")
+        card_obs = got[0]
+    check(card_obs.shape == (4, 17) and card_obs.dtype == np.float64, f"stacked obs {card_obs.shape}")
+    card.close()
+    cpu.close()
+    # timed alone: the CPU twin's threads between the card's steps slow them
+    timed = {}
+    for label, env, batch in (("wrapped", host_wrapper_stack(W, gym.make("HalfCheetah-v5")), actions),
+                              ("bare", gym.make("HalfCheetah-v5"), np.clip(actions, -1.0, 1.0))):
+        env.reset(seed=0)
+        start = time.perf_counter()
+        for action in batch:
+            env.step(action)
+        timed[label] = (time.perf_counter() - start) * 1e3 / steps
+        env.close()
+    return {"wrappers": ["FrameStackObservation(4)", "NormalizeObservation", "ClipAction", "RescaleAction(-1, 1)"],
+            "steps": steps, "ms_a_step": timed["wrapped"], "bare_ms_a_step": timed["bare"],
+            "max_abs_dev": worst, "tolerance": HOST_CHECK_TOL}
+
+
 def run_benchmark_step() -> dict:
     """``utils.performance.benchmark_step`` for :data:`BENCHMARK_SECONDS` of
     ``make("CartPole-v1")`` (host) and of ``make("HalfCheetah-v5")`` on the
@@ -2789,7 +3246,7 @@ def ppo_case(name: str, n: int = NUM_ENVS, rollout: int = PPO_ROLLOUT, compute_d
     """``(func_env, config, wrappers)`` of a PPO workload of ``tools/bench_ppo.py``,
     HalfCheetah with the episode statistics of the multichip dry run added."""
     from gymnasium_tpu_torch.train.ppo import PPOConfig
-    from gymnasium_tpu_torch.wrappers import EpisodeStatistics, NormalizeObservation, NormalizeReward
+    from gymnasium_tpu_torch.wrappers.func import EpisodeStatistics, NormalizeObservation, NormalizeReward
 
     if name == "cartpole":
         from gymnasium_tpu_torch.envs.phys2d.cartpole import CartPoleFunctional
@@ -3656,6 +4113,53 @@ def smoke(xml_path: str) -> int:
                                 "benchmark_compiled_rollout": compiled, "trace": traced,
                                 "checkpoint": resumed, "torch_generator": generator}}), flush=True)
     lap("the checkpoint and torch_generator")
+    # -- the host vector envs, the native tabular stepper, the host wrappers ----
+    vec, vec_counts = {}, {}
+    vec_paths = {"HalfCheetah-v5": (VEC_STEPS, hc_build, "kernel<ArticulatedStep>", 0),
+                 "LunarLander-v3": (VEC_LANDER_STEPS, planar.build_name, "step_kernel", 1)}
+    for env_id, (n_steps, build_name, kernel, reset_launches) in vec_paths.items():
+        vec[env_id], vec_counts[env_id] = counted(f"make_vec({env_id!r}, {VEC_ENVS}, sync)",
+                                                  lambda: run_sync_vector(dev, env_id, n_steps))
+        # a MuJoCo-class reset launches nothing, the lander's one settle tick
+        want = {"cartpole_rollout_fused": 0, **gen_zero, build_name: VEC_ENVS * (reset_launches + n_steps)}
+        check(vec_counts[env_id] == want, f"make_vec({env_id!r}, sync) launches {vec_counts[env_id]}, want {want}")
+        check(vec[env_id]["reset_launches"] == VEC_ENVS * reset_launches,
+              f"make_vec({env_id!r}, sync): the reset launched {vec[env_id]['reset_launches']}")
+        print(f"make_vec({env_id!r}, {VEC_ENVS}, sync) on the card: {vec[env_id]['ms_a_step']:.4f} ms a step "
+              f"(host clock, {n_steps} steps, {vec[env_id]['episode_ends']} sub-episode ends), "
+              f"{VEC_ENVS} launches of {build_name} a step", flush=True)
+        vec[env_id]["device_vs_cpu"] = compare_sync_vector_with_cpu(env_id, vec[env_id])
+        vec[env_id]["profile"] = profile_sync_vector(env_id, kernel)
+        print(f"make_vec({env_id!r}, sync) vs the CPU: {vec[env_id]['device_vs_cpu']}; under torch.profiler: "
+              f"{json.dumps(vec[env_id]['profile'])}", flush=True)
+        lap(f"the sync {env_id} vector env")
+    async_run, async_counts = counted(f"make_vec('HalfCheetah-v5', {VEC_ENVS}, async, spawn)",
+                                      lambda: run_async_vector(dev, vec["HalfCheetah-v5"], hc_build))
+    # the parent only builds its probe env; the workers launch and report their counts
+    check(not any(async_counts.values()), f"the async parent launched {async_counts}")
+    print(f"make_vec('HalfCheetah-v5', {VEC_ENVS}, async, spawn): {async_run['ms_a_step']:.4f} ms a step "
+          f"(host clock), start-up {async_run['startup_s']:.2f} s, workers' envs made after "
+          f"{[round(t, 2) for t in async_run['worker_startup_s']]} s, cloudpickle "
+          f"{'present' if async_run['cloudpickle'] else 'absent'}", flush=True)
+    lap("the async HalfCheetah vector env")
+    async_run["default_context"] = run_async_default_context()
+    print(f"make_vec('HalfCheetah-v5', {VEC_ENVS}, async) with the default context: "
+          f"{json.dumps(async_run['default_context'])}", flush=True)
+    lap("the default-context async env")
+    tabular, tabular_counts = counted("the native tabular stepper", run_native_tabular)
+    check(not any(tabular_counts.values()), f"the native tabular stepper launched {tabular_counts}")
+    lap("the native tabular stepper")
+    wrapped, wrapped_counts = counted("the host wrappers over make('HalfCheetah-v5')", lambda: run_host_wrappers(dev))
+    want = {"cartpole_rollout_fused": 0, **gen_zero, hc_build: 3 * WRAPPER_HOST_STEPS}  # checked, then timed wrapped and bare
+    check(wrapped_counts == want, f"the host wrappers' path launches {wrapped_counts}, want {want}")
+    print(f"host wrappers over make('HalfCheetah-v5'): {wrapped['ms_a_step']:.4f} ms a step against the bare "
+          f"env's {wrapped['bare_ms_a_step']:.4f} (host clock); vs the CPU {wrapped['max_abs_dev']}", flush=True)
+    print(json.dumps({"host_vector": {
+        "card": card_line(),
+        "sync": {env_id: {k: v for k, v in r.items() if not k.startswith("_")} for env_id, r in vec.items()},
+        "async": async_run, "native_tabular": tabular, "host_wrappers": wrapped,
+    }}), flush=True)
+    lap("the host wrappers")
     for entry in kernels:
         if entry["name"] == "articulated_step[half_cheetah]":
             build_name = steps["half_cheetah"].build_name
@@ -3676,7 +4180,11 @@ def smoke(xml_path: str) -> int:
                       "the host classes": host_class_counts,
                       "benchmark_step(make('HalfCheetah-v5'))": bench_step_counts,
                       f"benchmark_compiled_rollout(make_vec('HalfCheetah-v5', {NUM_ENVS}))": compiled_counts,
-                      "trace": trace_counts, "checkpoint of the HalfCheetah PPO state": resume_counts}
+                      "trace": trace_counts, "checkpoint of the HalfCheetah PPO state": resume_counts,
+                      **{f"make_vec({env_id!r}, {VEC_ENVS}, sync)": vec_counts[env_id] for env_id in vec_paths},
+                      f"make_vec('HalfCheetah-v5', {VEC_ENVS}, async) workers (reported by call)":
+                          sum(map(collections.Counter, async_run["worker_launches"]), collections.Counter()),
+                      "host wrappers over make('HalfCheetah-v5')": wrapped_counts}
     for entry in kernels:
         build_name = kernel_build.get(entry["name"])
         by_path = {path: counts[build_name] for path, counts in registry_paths.items() if counts.get(build_name)}

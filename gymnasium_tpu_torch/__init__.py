@@ -50,6 +50,7 @@ __all__ = [
     "pprint_registry",
     "register_envs",
     "VectorizeMode",
+    "experimental",
     "VectorEnv",
     "VectorWrapper",
     "VectorObservationWrapper",
@@ -87,7 +88,7 @@ def __getattr__(name):
         from gymnasium_tpu_torch import vector
 
         return getattr(vector, name)
-    if name in ("envs", "vector", "wrappers", "utils", "functional"):
+    if name in ("envs", "vector", "wrappers", "utils", "functional", "experimental"):
         import importlib
 
         return importlib.import_module(f"gymnasium_tpu_torch.{name}")

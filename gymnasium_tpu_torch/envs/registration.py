@@ -11,9 +11,9 @@ Where the JAX package has its ``jax`` mode, the port has
 over the functional env a spec's ``torch_entry_point`` names, on CUDA unless
 ``vector_kwargs`` asks for the CPU. It is the default wherever a spec has
 one. ``make(id)`` builds the host env class every string ``entry_point``
-names. The host vector envs (``sync``, ``async``) and the native tabular
-``vector_entry_point``s are not ported yet: asking for them raises
-:class:`~gymnasium_tpu_torch.error.Error`.
+names, and the host vector envs (``sync``, ``async``) step such envs one by
+one, with numpy batches: on the card for the MuJoCo-class, LunarLander and
+BipedalWalker ids unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -305,27 +305,6 @@ def load_env_creator(name: str) -> Callable:
     return getattr(mod, attr_name)
 
 
-def _load_port_entry_point(env_spec: EnvSpec, entry_point: str) -> Callable:
-    """:func:`load_env_creator`, except that an entry point into this package
-    which it does not have yet (a host vector env) raises :class:`error.Error`
-    naming it."""
-    try:
-        return load_env_creator(entry_point)
-    except (ModuleNotFoundError, AttributeError) as e:
-        module = entry_point.split(":")[0]
-        missing = isinstance(e, AttributeError) or (e.name is not None and module.startswith(e.name))
-        if not (module.startswith(f"{__package__.split('.')[0]}.") and missing):
-            raise
-        hint = (
-            f'; its functional form runs through make_vec("{env_spec.id}", vectorization_mode="torch")'
-            if env_spec.torch_entry_point is not None
-            else ""
-        )
-        raise error.Error(
-            f"{env_spec.id}: the torch port has no `{entry_point}` yet (a host vector env){hint}"
-        ) from e
-
-
 def _find_spec(env_id: str) -> EnvSpec:
     module, env_name = (None, env_id) if ":" not in env_id else env_id.split(":")
     if module is not None:
@@ -469,7 +448,7 @@ def make(
     elif callable(env_spec.entry_point):
         env_creator = env_spec.entry_point
     else:
-        env_creator = _load_port_entry_point(env_spec, env_spec.entry_point)
+        env_creator = load_env_creator(env_spec.entry_point)
 
     # render-mode fallback (reference registration.py:708-732)
     render_mode = env_spec_kwargs.get("render_mode")
@@ -576,6 +555,27 @@ def make(
     return env
 
 
+class SingleEnvFactory:
+    """``make(env_spec, **kwargs)`` with ``wrappers`` applied: one sub-env of
+    a ``sync`` or ``async`` vector env. An object of a module-level class, so
+    the standard library pickles it for a spawned worker (a closure would
+    need cloudpickle)."""
+
+    def __init__(self, env_spec: EnvSpec, kwargs: dict[str, Any], wrappers: tuple[Callable[[Env], Wrapper], ...]):
+        self.env_spec = env_spec
+        self.kwargs = kwargs
+        self.wrappers = wrappers
+
+    def __call__(self) -> Env:
+        single_kwargs = copy.deepcopy(self.kwargs)
+        if len(self.wrappers) == 0:
+            return make(copy.deepcopy(self.env_spec), **single_kwargs)
+        env = make(copy.deepcopy(self.env_spec), disable_env_checker=True, **single_kwargs)
+        for wrapper in self.wrappers:
+            env = wrapper(env)
+        return env
+
+
 def make_vec(
     id: str | EnvSpec,
     num_envs: int = 1,
@@ -593,7 +593,14 @@ def make_vec(
     the vector env runs on CUDA unless they ask for the CPU. Wrap the result
     in vector wrappers (:class:`~gymnasium_tpu_torch.vector.VectorWrapper`)
     or pass functional wrappers through ``vector_kwargs["wrappers"]``.
+
+    ``sync`` and ``async`` build each sub-env with ``make(id, **kwargs)``
+    (``device="cpu"`` among the kwargs keeps a card env on the CPU) and go
+    through ``vector_kwargs`` to :class:`~gymnasium_tpu_torch.vector.SyncVectorEnv`
+    or :class:`~gymnasium_tpu_torch.vector.AsyncVectorEnv`. Sub-envs on the card
+    in ``async`` mode need ``vector_kwargs={"context": "spawn"}``.
     """
+    from gymnasium_tpu_torch.vector import AsyncVectorEnv, SyncVectorEnv
 
     if isinstance(id, EnvSpec):
         env_spec = id
@@ -643,13 +650,27 @@ def make_vec(
 
     vector_kwargs = dict(vector_kwargs or {})
 
+    create_single_env = SingleEnvFactory(env_spec, env_spec_kwargs, wrappers)
+
     copied_id = copy.deepcopy(env_spec)
 
-    if vectorization_mode in (VectorizeMode.SYNC, VectorizeMode.ASYNC):
-        raise error.Error(
-            f"Cannot create a {vectorization_mode.value} vectorized environment for {env_spec.id}: "
-            "the port has no SyncVectorEnv or AsyncVectorEnv yet (ROADMAP queue 1, item 10); "
-            'use vectorization_mode="torch"'
+    if vectorization_mode == VectorizeMode.SYNC:
+        if env_spec.entry_point is None:
+            raise error.Error(
+                f"Cannot create vectorized environment for {env_spec.id} because it doesn't have an entry point defined."
+            )
+        env = SyncVectorEnv(
+            env_fns=(create_single_env for _ in range(num_envs)),
+            **vector_kwargs,
+        )
+    elif vectorization_mode == VectorizeMode.ASYNC:
+        if env_spec.entry_point is None:
+            raise error.Error(
+                f"Cannot create vectorized environment for {env_spec.id} because it doesn't have an entry point defined."
+            )
+        env = AsyncVectorEnv(
+            env_fns=[create_single_env for _ in range(num_envs)],
+            **vector_kwargs,
         )
     elif vectorization_mode == VectorizeMode.VECTOR_ENTRY_POINT:
         if len(vector_kwargs) > 0:
@@ -671,7 +692,7 @@ def make_vec(
         elif callable(entry_point):
             env_creator = entry_point
         else:
-            env_creator = _load_port_entry_point(env_spec, entry_point)
+            env_creator = load_env_creator(entry_point)
 
         if env_spec.max_episode_steps is not None and "max_episode_steps" not in env_spec_kwargs:
             env_spec_kwargs["max_episode_steps"] = env_spec.max_episode_steps

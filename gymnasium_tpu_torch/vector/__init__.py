@@ -1,5 +1,7 @@
 """Vector environments of the torch port: the device-resident
-:class:`TorchVectorEnv` and the vector wrapper bases."""
+:class:`TorchVectorEnv`, the host-side :class:`SyncVectorEnv` and
+:class:`AsyncVectorEnv` for wrapping arbitrary Python envs, and the vector
+wrapper bases."""
 
 from gymnasium_tpu_torch.vector.torch_vector_env import TorchVectorEnv
 from gymnasium_tpu_torch.vector.vector_env import (
@@ -19,11 +21,22 @@ __all__ = [
     "VectorRewardWrapper",
     "AutoresetMode",
     "TorchVectorEnv",
+    "SyncVectorEnv",
+    "AsyncVectorEnv",
     "utils",
 ]
 
 
 def __getattr__(name):
+    # the host implementations import lazily (multiprocessing)
+    if name == "SyncVectorEnv":
+        from gymnasium_tpu_torch.vector.sync_vector_env import SyncVectorEnv
+
+        return SyncVectorEnv
+    if name == "AsyncVectorEnv":
+        from gymnasium_tpu_torch.vector.async_vector_env import AsyncVectorEnv
+
+        return AsyncVectorEnv
     if name == "utils":
         import gymnasium_tpu_torch.vector.utils as utils
 

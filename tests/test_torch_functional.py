@@ -167,3 +167,13 @@ def test_toy_env_branches_match_jax(time_limit, autoreset):
         carry, ts = step(carry, torch.from_numpy(actions[s]))
         _assert_step_equal(carry, ts, jcarry, jts, obs_atol=0)
         np.testing.assert_array_equal(carry.state.numpy(), np.asarray(jcarry.state))
+
+
+def test_experimental_functional_is_the_functional_module():
+    import gymnasium_tpu_torch as gym_torch
+    import gymnasium_tpu_torch.experimental.functional as experimental_functional
+    from gymnasium_tpu_torch import functional
+
+    assert gym_torch.experimental.functional.FuncEnv is functional.FuncEnv
+    assert experimental_functional.__all__ == functional.__all__
+    assert all(getattr(experimental_functional, name) is getattr(functional, name) for name in functional.__all__)

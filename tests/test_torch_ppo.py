@@ -23,7 +23,7 @@ from gymnasium_tpu_torch.envs.phys2d.cartpole import CartPoleFunctional
 from gymnasium_tpu_torch.functional import make_autoreset_step, vectorize_func_env
 from gymnasium_tpu_torch.train import ppo
 from gymnasium_tpu_torch.train.policy import ActorCritic, ppo_params_from_jax
-from gymnasium_tpu_torch.wrappers import NormalizeObservation, NormalizeReward
+from gymnasium_tpu_torch.wrappers.func import NormalizeObservation, NormalizeReward
 from tests.test_torch_policy import BF16_TOL
 
 OBS_ATOL = 2e-5  # CartPole obs of the two frameworks (tests/test_torch_vector_env.py)

@@ -21,7 +21,7 @@ from gymnasium_tpu.wrappers import func as jfw
 from gymnasium_tpu_torch.envs.mujoco.half_cheetah import HalfCheetahFunctional
 from gymnasium_tpu_torch.train import ppo
 from gymnasium_tpu_torch.train.policy import wrapper_states_from_jax
-from gymnasium_tpu_torch.wrappers import EpisodeStatistics, NormalizeObservation, NormalizeReward
+from gymnasium_tpu_torch.wrappers.func import EpisodeStatistics, NormalizeObservation, NormalizeReward
 from tests.test_torch_ppo import assert_params_close, jax_keys, port_state_from_jax
 
 N, T, NU = 8, 8, 6

@@ -10,7 +10,7 @@ import torch
 
 from gymnasium_tpu_torch.envs.phys2d.cartpole import CartPoleFunctional
 from gymnasium_tpu_torch.train import ppo
-from gymnasium_tpu_torch.wrappers import NormalizeObservation, NormalizeReward
+from gymnasium_tpu_torch.wrappers.func import NormalizeObservation, NormalizeReward
 
 
 @pytest.fixture(autouse=True)

@@ -163,12 +163,6 @@ def test_make_vec_modes(mode):
     env.close()
 
 
-@pytest.mark.parametrize("mode", ["sync", "async"])
-def test_make_vec_host_modes_raise_until_ported(mode):
-    with pytest.raises(error.Error, match="queue 1, item 10"):
-        gym.make_vec("CartPole-v1", num_envs=2, vectorization_mode=mode)
-
-
 def test_make_vec_invalid_mode():
     with pytest.raises(error.Error):
         gym.make_vec("CartPole-v1", num_envs=2, vectorization_mode="bogus")
@@ -266,14 +260,6 @@ def test_every_string_entry_point_loads():
         assert callable(load_env_creator(entry_point)), env_id
         if not entry_point.startswith(PORT_SINGLE):
             assert entry_point == jgym.registry[env_id].entry_point.replace("gymnasium_tpu.", "gymnasium_tpu_torch.", 1)
-
-
-@pytest.mark.parametrize("env_id", ["FrozenLake-v1", "FrozenLake8x8-v1", "CliffWalking-v1", "Taxi-v3"])
-def test_make_vec_of_a_native_tabular_vector_entry_point_raises(env_id):
-    assert registry[env_id].vector_entry_point.startswith("gymnasium_tpu_torch.vector.native_tabular:")
-    with pytest.raises(error.Error, match="native_tabular") as raised:
-        gym.make_vec(env_id, 2, vectorization_mode="vector_entry_point")
-    assert f'make_vec("{env_id}", vectorization_mode="torch")' in str(raised.value)
 
 
 BOX2D_IDS = ("LunarLander-v3", "LunarLanderContinuous-v3", "BipedalWalker-v3", "BipedalWalkerHardcore-v3",

@@ -14,7 +14,7 @@ from gymnasium_tpu.vector.jax_vector_env import JaxVectorEnv
 from gymnasium_tpu_torch.envs.phys2d.cartpole import CartPoleFunctional
 from gymnasium_tpu_torch.spaces import Box, MultiDiscrete
 from gymnasium_tpu_torch.vector import AutoresetMode, TorchVectorEnv
-from gymnasium_tpu_torch.wrappers import NormalizeObservation
+from gymnasium_tpu_torch.wrappers.func import NormalizeObservation
 
 OBS_ATOL = 2e-5  # tests/ops/test_pallas_rollout.py:61
 N = 32

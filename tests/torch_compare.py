@@ -83,7 +83,7 @@ def assert_identical(got, want, path: str = "x") -> None:
     """Stricter than :func:`assert_same`, for host values: containers of the
     same types, numpy arrays of the same dtype, shape and bytes, and
     scalars of the same type and bits (NaN equals NaN, -0.0 differs from
-    0.0)."""
+    0.0). Object arrays compare element by element."""
     if isinstance(want, dict):
         assert isinstance(got, dict) and list(got) == list(want), f"{path}: keys {list(got)} vs {list(want)}"
         for key in want:
@@ -95,7 +95,12 @@ def assert_identical(got, want, path: str = "x") -> None:
             assert_identical(a, b, f"{path}[{i}]")
         return
     assert type(got) is type(want), f"{path}: {type(got)} vs {type(want)}"
-    if isinstance(want, (np.ndarray, np.generic)):
+    if isinstance(want, np.ndarray) and want.dtype == object:
+        # a vector env's ``final_obs`` and the like: compare what each holds
+        assert got.dtype == want.dtype and got.shape == want.shape, f"{path}: {got.dtype}{got.shape} vs {want.shape}"
+        for index in np.ndindex(want.shape):
+            assert_identical(got[index], want[index], f"{path}[{index}]")
+    elif isinstance(want, (np.ndarray, np.generic)):
         assert got.dtype == want.dtype and got.shape == want.shape, f"{path}: {got.dtype}{got.shape} vs {want.dtype}{want.shape}"
         assert got.tobytes() == want.tobytes(), f"{path}: {got!r} vs {want!r}"
     elif isinstance(want, float):
