@@ -127,6 +127,22 @@ read just after:
   equal to its numpy path's, nothing on the card); and RescaleAction,
   ClipAction, NormalizeObservation and FrameStackObservation(4) over
   ``make("HalfCheetah-v5")`` on the card against the CPU for 100 steps;
+- the vector wrappers a PPO user runs over the articulated kernel:
+  RecordEpisodeStatistics, ClipAction, NormalizeObservation, NormalizeReward
+  and DictInfoToList over ``make_vec("HalfCheetah-v5", 4096)`` with a step
+  limit of 50, a reset and 60 steps of actions in [-2, 2] (one launch a
+  step; every action reaching the env in [-1, 1]; numpy float32
+  observations; one 50-step episode for each env), the chain's first 8
+  steps on the card against the CPU from the same reset draws and actions,
+  20 timed steps under each prefix of the chain; then RecordEpisodeStatistics and
+  DictInfoToList over ``make_vec("CartPole-v1", 4096)`` for 100 steps, the
+  episode entries exactly the envs that ended;
+- the rendering: ``make("phys2d/CartPole-v1", render_mode="rgb_array")`` on
+  the card (the render hook's frames against the CPU hook's), make's
+  RenderCollection fallback for ``make("HalfCheetah-v5",
+  render_mode="rgb_array_list")`` over 10 steps, ObstructView over
+  AddWhiteNoise, and RecordVideo of one 20-step HalfCheetah episode (an
+  ``.mp4`` where moviepy or OpenCV imports, else an ``.npz`` frame dump);
 - the PPO trainer at ``tools/bench_ppo.py``'s widths: CartPole-v1 (4096 envs,
   64 steps a rollout, hidden (128, 128)) and HalfCheetah-v5 (4096 x 64,
   hidden (256, 256), with NormalizeObservation, NormalizeReward and
@@ -154,7 +170,8 @@ prints the card's name and power limit, one ``{"bipedal": {...},
 {...}, "mjcf": {...}}`` line, one ``{"classic": {...}}`` line,
 one ``{"ppo": {...}}`` line, one ``{"host_envs": {...}}`` line, one
 ``{"host_classes": {...}, "utils": {...}}`` line, one
-``{"host_vector": {...}}`` line, one ``{"registry": {...}}`` line, one
+``{"host_vector": {...}}`` line, one ``{"vector_wrappers": {...},
+"rendering": {...}}`` line, one ``{"registry": {...}}`` line, one
 ``{"kernels": [...]}`` line, and last the line ``{"ok": true, "device":
 {...}}``. Any failed check
 raises, so the exit code is 0 only when every phase passed. Without a CUDA
@@ -450,6 +467,29 @@ TABULAR_ENVS = 4096
 TABULAR_STEPS = 512
 TABULAR_IDS = ("FrozenLake-v1", "Taxi-v3")
 WRAPPER_HOST_STEPS = 100
+
+# The vector wrappers' phase: the chain a PPO user runs (vector_wrapper_chain)
+# over make_vec("HalfCheetah-v5", NUM_ENVS) on the card, with a step limit of
+# VW_LIMIT, VW_STEPS steps of actions in [-VW_ACTION_BOUND, VW_ACTION_BOUND]
+# (so every env ends one episode), the first VW_CHECK_STEPS against the CPU;
+# then make_vec("CartPole-v1", NUM_ENVS) under RecordEpisodeStatistics and
+# DictInfoToList for VW_CARTPOLE_STEPS, and VW_LAYER_STEPS timed steps under
+# each prefix of the chain. The rendering phase: make's
+# RenderCollection fallback over make("HalfCheetah-v5") for RENDER_STEPS
+# steps, AddWhiteNoise and ObstructView, and one RecordVideo episode of
+# RECORD_STEPS steps.
+VW_LAYERS = ("RecordEpisodeStatistics", "ClipAction", "NormalizeObservation", "NormalizeReward", "DictInfoToList")
+VW_LIMIT = 50
+VW_STEPS = 60
+VW_ACTION_BOUND = 2.0
+VW_CHECK_STEPS = 8
+VW_LAYER_STEPS = 20
+VW_CARTPOLE_STEPS = 100
+RENDER_STEPS = 10
+RECORD_STEPS = 20
+NOISE_SHARE = 0.1
+OBSTRUCTED_SHARE = 0.05
+OBSTRUCTION_WIDTH = 8
 
 # The utilities phase (utils/performance.py, utils/checkpoint.py,
 # utils/seeding.py) over the articulated kernel: benchmark_step for
@@ -1657,13 +1697,15 @@ def with_draws(func, source):
     return env
 
 
-def cpu_and_card_traces(dev, func, n: int, actions, limit: int | None, extra=lambda env: ()):
+def cpu_and_card_traces(dev, func, n: int, actions, limit: int | None, extra=lambda env: (), wrap=None):
     """``len(actions)`` steps of ``func`` at ``n`` envs under ``TorchVectorEnv``
     (step limit ``limit``) on the CPU with its draws recorded, then on
     ``dev`` with the same draws and actions. Returns both traces, on the
     CPU: the reset's ``(obs, state, *extra(env))``, then each step's
     ``(obs, reward, terminated, truncated, steps, state, *extra(env))``.
-    Raises if the card took fewer draws than the CPU."""
+    With ``wrap``, the resets and steps go through ``wrap(env)`` (vector
+    wrappers), whose outputs the trace holds; ``extra`` still reads the
+    ``TorchVectorEnv``. Raises if the card took fewer draws than the CPU."""
     from gymnasium_tpu_torch.functional import tree_map
     from gymnasium_tpu_torch.vector import TorchVectorEnv
 
@@ -1678,10 +1720,11 @@ def cpu_and_card_traces(dev, func, n: int, actions, limit: int | None, extra=lam
 
     def run(source, device):
         env = TorchVectorEnv(with_draws(func, source), n, max_episode_steps=limit, device=device)
-        obs, _ = env.reset(seed=0)
+        outer = wrap(env) if wrap else env
+        obs, _ = outer.reset(seed=0)
         trace = [(obs, env.carry.state, *extra(env))]
         for action in actions:
-            obs, reward, term, trunc, _ = env.step(action.to(device))
+            obs, reward, term, trunc, _ = outer.step(action.to(device))
             trace.append((obs, reward, term, trunc, env.carry.steps, env.carry.state, *extra(env)))
         return tree_map(lambda x: x.cpu() if isinstance(x, torch.Tensor) else x, trace)
 
@@ -2978,6 +3021,267 @@ def run_host_wrappers(dev, steps: int = WRAPPER_HOST_STEPS) -> dict:
             "max_abs_dev": worst, "tolerance": HOST_CHECK_TOL}
 
 
+def vector_wrapper_chain(V, env, depth: int = len(VW_LAYERS)):
+    """``env`` under the first ``depth`` wrappers of ``VW_LAYERS`` (the
+    vector wrappers a PPO user runs, innermost first) from ``V``, the vector
+    wrapper package."""
+    for name in VW_LAYERS[:depth]:
+        env = getattr(V, name)(env)
+    return env
+
+
+def time_chain_layers(n: int = NUM_ENVS, steps: int = VW_LAYER_STEPS) -> dict:
+    """Host-clock ms a step of ``make_vec("HalfCheetah-v5", n)`` under each
+    prefix of :func:`vector_wrapper_chain` (the bare env, then one wrapper
+    more each time), ``steps`` steps of :func:`wide_actions` each after a
+    reset, ending in a synchronize: what each wrapper adds to a step."""
+    import gymnasium_tpu_torch as gym
+    import gymnasium_tpu_torch.wrappers.vector as V
+
+    actions = wide_actions(n, steps, seed=2)
+    out = {}
+    for depth in range(len(VW_LAYERS) + 1):
+        env = vector_wrapper_chain(V, gym.make_vec("HalfCheetah-v5", n, vector_kwargs={"max_episode_steps": VW_LIMIT}),
+                                   depth)
+        env.reset(seed=0)
+        batch = actions if depth > 1 else np.clip(actions, -1.0, 1.0)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for action in batch:
+            env.step(action)
+        torch.cuda.synchronize()
+        out["bare" if depth == 0 else f"+{VW_LAYERS[depth - 1]}"] = (time.perf_counter() - start) * 1e3 / steps
+    return out
+
+
+def wide_actions(n: int, steps: int, seed: int = 0) -> np.ndarray:
+    """``steps`` batches of HalfCheetah actions in [-VW_ACTION_BOUND,
+    VW_ACTION_BOUND], past the action space's [-1, 1]."""
+    rng = np.random.default_rng(seed)
+    return rng.uniform(-VW_ACTION_BOUND, VW_ACTION_BOUND, (steps, n, 6)).astype(np.float32)
+
+
+def run_vector_wrappers(dev, build_name: str, n: int = NUM_ENVS, steps: int = VW_STEPS) -> dict:
+    """:func:`vector_wrapper_chain` over ``make_vec("HalfCheetah-v5", n)`` on
+    the card (step limit ``VW_LIMIT``): a reset and ``steps`` steps of
+    :func:`wide_actions`. Each step launches ``build_name`` once; every
+    action that reaches the env lies in [-1, 1]; the observations are numpy
+    float32 and finite, the rewards numpy and the flags tensors on the card
+    (JAX's kinds over its device env); every env reports one episode, of
+    ``VW_LIMIT`` steps. Records the host-clock ms a step."""
+    import gymnasium_tpu_torch as gym
+    import gymnasium_tpu_torch.wrappers.vector as V
+    from gymnasium_tpu_torch.ops import articulated_step as art
+    from gymnasium_tpu_torch.vector import TorchVectorEnv
+
+    base = gym.make_vec("HalfCheetah-v5", n, vector_kwargs={"max_episode_steps": VW_LIMIT})
+    check(isinstance(base, TorchVectorEnv) and base.device.type == torch.device(dev).type,
+          f"make_vec('HalfCheetah-v5') gave {type(base).__name__}")
+    reached, env_step = [], base.step
+
+    def step(actions):
+        reached.append(actions)
+        return env_step(actions)
+
+    base.step = step
+    env = vector_wrapper_chain(V, base)
+    check(isinstance(env.single_observation_space, type(base.single_observation_space)), "chain observation space")
+    actions = wide_actions(n, steps)
+    obs, infos = env.reset(seed=0)
+    check(isinstance(obs, np.ndarray) and obs.dtype == np.float32 and obs.shape == (n, 17), f"reset obs {type(obs)}")
+    check(isinstance(infos, list) and len(infos) == n, "reset infos are not a list a env")
+    before = art.launches.get(build_name, 0)
+    episodes, seconds = np.zeros(n, np.int64), 0.0
+    for k, action in enumerate(actions):
+        start = time.perf_counter()
+        obs, reward, term, trunc, infos = env.step(action)
+        seconds += time.perf_counter() - start
+        check(isinstance(obs, np.ndarray) and obs.dtype == np.float32 and obs.shape == (n, 17)
+              and bool(np.isfinite(obs).all()), f"chain step {k}: obs {type(obs).__name__} {getattr(obs, 'dtype', None)}")
+        check(isinstance(reward, np.ndarray) and reward.shape == (n,) and bool(np.isfinite(reward).all()),
+              f"chain step {k}: reward {type(reward).__name__}")
+        check(all(isinstance(f, torch.Tensor) and f.device.type == torch.device(dev).type for f in (term, trunc)),
+              f"chain step {k}: flags {type(term).__name__} on {getattr(term, 'device', None)}")
+        check(isinstance(infos, list) and len(infos) == n, f"chain step {k}: infos")
+        for i, info in enumerate(infos):
+            if "episode" in info:
+                episodes[i] += 1
+                check(int(info["episode"]["l"]) == VW_LIMIT, f"chain step {k}: env {i} ended at {info['episode']['l']}")
+    launched = art.launches.get(build_name, 0) - before
+    check(launched == steps, f"the chain's {steps} steps launched {build_name} {launched} times")
+    check(len(reached) == steps, f"{len(reached)} steps reached the env")
+    for k, a in enumerate(reached):
+        a = a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+        check(a.shape == (n, 6) and bool(((a >= -1.0) & (a <= 1.0)).all()), f"chain step {k}: an action outside [-1, 1]")
+    check(bool((episodes == 1).all()), f"episodes by env: {np.bincount(episodes)} (want one each)")
+    stats = env.env.env.env.env
+    check(type(stats).__name__ == "RecordEpisodeStatistics" and stats.episode_count == n, "episode count")
+    return {"env": "make_vec('HalfCheetah-v5', %d)" % n, "step_limit": VW_LIMIT, "steps": steps,
+            "wrappers": list(VW_LAYERS),
+            "launches_in_the_steps": launched, "episodes": int(episodes.sum()),
+            "ms_a_step": seconds * 1e3 / steps, "env_steps_per_s": n * steps / seconds}
+
+
+def compare_vector_wrappers_with_cpu(dev, n: int = NUM_ENVS, steps: int = VW_CHECK_STEPS) -> dict:
+    """The first ``steps`` steps of :func:`run_vector_wrappers`' chain on the
+    card and on the CPU, from the same reset draws and actions
+    (:func:`cpu_and_card_traces`). Raw observations (the env's own) and
+    states within ``HOST_CHECK_TOL * (1 + |cpu|)``, the normalised rewards
+    too; the normalised observations within twice that over the standard
+    deviation of the raw observations so far, by which normalising scales a
+    difference; the flags equal."""
+    import gymnasium_tpu_torch.wrappers.vector as V
+    from gymnasium_tpu_torch.functional import tree_map
+
+    func = registered_func("HalfCheetah-v5")
+    actions = torch.from_numpy(wide_actions(n, steps, seed=1))
+    cpu, card = cpu_and_card_traces(dev, func, n, actions, VW_LIMIT, extra=lambda env: (env._last_obs,),
+                                    wrap=lambda env: vector_wrapper_chain(V, env))
+    worst = {"raw_obs": [], "state": [], "reward": [], "normalised_obs": []}
+    raw = [cpu[0][2]]
+    for k in range(steps + 1):
+        got, want = card[k], cpu[k]
+        where = "reset" if k == 0 else f"step {k - 1}"
+        agree_within(f"chain {where} raw obs", HOST_CHECK_TOL, worst["raw_obs"])(got[-1], want[-1])
+        tree_map(agree_within(f"chain {where} state", HOST_CHECK_TOL, worst["state"]), got[-2], want[-2])
+        if k:
+            raw.append(want[-1])
+            agree_within(f"chain {where} reward", HOST_CHECK_TOL, worst["reward"])(
+                torch.as_tensor(got[1]), torch.as_tensor(want[1]))
+            check(torch.equal(got[2], want[2]) and torch.equal(got[3], want[3]), f"chain {where}: flags differ")
+        seen = torch.cat(raw).double()
+        bound = 2 * HOST_CHECK_TOL * (1 + want[-1].double().abs()) / torch.sqrt(seen.var(0, unbiased=False) + 1e-8)
+        err = (torch.as_tensor(got[0]).double() - torch.as_tensor(want[0]).double()).abs()
+        check(bool((err <= bound).all()), f"chain {where}: normalised obs differ by {float(err.max())}")
+        worst["normalised_obs"].append(float(err.max()))
+    return {"envs": n, "steps": steps, "tolerance": HOST_CHECK_TOL,
+            "max_abs_dev": {k: max(v) for k, v in worst.items()}}
+
+
+def run_cartpole_episode_stats(n: int = NUM_ENVS, steps: int = VW_CARTPOLE_STEPS) -> dict:
+    """``make_vec("CartPole-v1", n)`` on the card under RecordEpisodeStatistics
+    and DictInfoToList: ``steps`` steps of sampled actions; each step's
+    ``episode`` entries belong to exactly the envs whose episode ended, with
+    a length of at least 8 steps and a return equal to it (CartPole pays 1 a
+    step)."""
+    import gymnasium_tpu_torch as gym
+    import gymnasium_tpu_torch.wrappers.vector as V
+
+    env = V.DictInfoToList(V.RecordEpisodeStatistics(gym.make_vec("CartPole-v1", n)))
+    env.reset(seed=0)
+    env.action_space.seed(0)
+    ended, seconds = 0, 0.0
+    for k in range(steps):
+        action = env.action_space.sample()
+        start = time.perf_counter()
+        _, _, term, trunc, infos = env.step(action)
+        seconds += time.perf_counter() - start
+        done = (term | trunc).cpu().numpy()
+        have = np.array(["episode" in info for info in infos])
+        check(bool((have == done).all()), f"CartPole step {k}: episode entries {have.sum()} for {done.sum()} ends")
+        for i in np.flatnonzero(done):
+            episode = infos[i]["episode"]
+            check(episode["l"] >= 8 and float(episode["r"]) == float(episode["l"]),
+                  f"CartPole step {k}: env {i} episode {episode}")
+        ended += int(done.sum())
+    check(ended > n, f"CartPole: {ended} episodes ended in {steps} steps")
+    return {"envs": n, "steps": steps, "episodes": ended, "ms_a_step": seconds * 1e3 / steps}
+
+
+def changed_share(a: np.ndarray, b: np.ndarray) -> float:
+    """The share of pixels where frames ``a`` and ``b`` differ."""
+    return float((a != b).any(-1).mean())
+
+
+def run_rendering(dev, folder: str) -> dict:
+    """The render hooks and the rendering wrappers on the card.
+
+    ``make("phys2d/CartPole-v1", render_mode="rgb_array")``: a (400, 600, 3)
+    uint8 frame after the reset and each of 3 steps, equal to the hook's
+    frame of the same state moved to the CPU. ``make("HalfCheetah-v5",
+    render_mode="rgb_array_list")``: make's RenderCollection fallback, one
+    frame for the reset and one a step over ``RENDER_STEPS`` steps.
+    ObstructView over AddWhiteNoise over ``make("HalfCheetah-v5",
+    render_mode="rgb_array")``: each frame differs from the env's own on a
+    share of its pixels near what the two wrappers draw. RecordVideo of one
+    ``RECORD_STEPS``-step episode into ``folder``: an ``.mp4`` where moviepy
+    or OpenCV imports, else the ``.npz`` frame dump of JAX's fallback,
+    whose frames are the episode's."""
+    import gymnasium_tpu_torch as gym
+    import gymnasium_tpu_torch.wrappers as W
+
+    out = {}
+    env = gym.make("phys2d/CartPole-v1", render_mode="rgb_array")
+    inner = env.unwrapped
+    check(inner.device.type == torch.device(dev).type, f"phys2d/CartPole-v1 on {inner.device}")
+    env.reset(seed=0)
+    for k in range(4):
+        frame = inner.render()
+        _, want = inner.func_env.render_image(inner.state.cpu(), inner.func_env.render_init(), inner.params)
+        check(isinstance(frame, np.ndarray) and frame.shape == (400, 600, 3) and frame.dtype == np.uint8,
+              f"phys2d/CartPole-v1 frame {getattr(frame, 'shape', None)}")
+        check(np.array_equal(frame, want), f"phys2d/CartPole-v1 frame after {k} steps differs from the CPU hook's")
+        if k < 3:
+            env.step(k % 2)
+    env.close()
+    out["phys2d_cartpole"] = {"frame": [400, 600, 3], "frames_checked": 4}
+
+    env = gym.make("HalfCheetah-v5", render_mode="rgb_array_list")
+    check(type(env).__name__ == "RenderCollection" and env.render_mode == "rgb_array_list",
+          f"make('HalfCheetah-v5', 'rgb_array_list') gave {type(env).__name__}")
+    check(env.unwrapped.device.type == torch.device(dev).type, f"HalfCheetah on {env.unwrapped.device}")
+    actions = np.random.default_rng(0).uniform(-1.0, 1.0, (RECORD_STEPS, 6)).astype(np.float32)
+    env.reset(seed=0)
+    start = time.perf_counter()
+    for action in actions[:RENDER_STEPS]:
+        env.step(action)
+    collect_ms = (time.perf_counter() - start) * 1e3 / RENDER_STEPS
+    frames = env.render()
+    check(len(frames) == 1 + RENDER_STEPS and all(
+        f.shape == (480, 480, 3) and f.dtype == np.uint8 for f in frames), f"RenderCollection gave {len(frames)} frames")
+    check(env.render() == [], "RenderCollection kept frames after they were popped")
+    env.close()
+    out["render_collection"] = {"frames": len(frames), "ms_a_step": collect_ms}
+
+    env = W.ObstructView(W.AddWhiteNoise(gym.make("HalfCheetah-v5", render_mode="rgb_array"), NOISE_SHARE),
+                         OBSTRUCTED_SHARE, OBSTRUCTION_WIDTH)
+    env.reset(seed=0)
+    shares = []
+    for action in actions[:RENDER_STEPS]:
+        env.step(action)
+        noisy, clean = env.render(), env.unwrapped.render()
+        check(noisy.shape == clean.shape == (480, 480, 3) and noisy.dtype == np.uint8, "noisy frame shape")
+        shares.append(changed_share(noisy, clean))
+    env.close()
+    # a noise pixel equals the frame's with probability about 1/255; obstructions overlap
+    check(all(0.5 * NOISE_SHARE < share < NOISE_SHARE + 1.5 * OBSTRUCTED_SHARE for share in shares),
+          f"noisy frames differ from the env's on {shares}")
+    out["noise_and_obstruction"] = {"changed_share": [min(shares), max(shares)],
+                                    "noise": NOISE_SHARE, "obstructed": OBSTRUCTED_SHARE}
+
+    env = W.RecordVideo(gym.make("HalfCheetah-v5", render_mode="rgb_array", max_episode_steps=RECORD_STEPS),
+                        folder, episode_trigger=lambda episode: episode == 0, name_prefix="half_cheetah")
+    encoder = env._encoder
+    env.reset(seed=0)
+    for k, action in enumerate(actions):
+        *_, trunc, _ = env.step(action)
+        check(trunc == (k == RECORD_STEPS - 1), f"RecordVideo step {k}: truncated {trunc}")
+    env.close()
+    written = sorted(os.listdir(folder))
+    suffix = ".npz" if encoder == "npz" else ".mp4"
+    check(written == [f"half_cheetah-episode-0{suffix}"], f"RecordVideo ({encoder}) wrote {written}")
+    path = os.path.join(folder, written[0])
+    if encoder == "npz":
+        dump = np.load(path)
+        check(dump["frames"].shape == (1 + RECORD_STEPS, 480, 480, 3) and int(dump["fps"]) == env.frames_per_sec,
+              f"RecordVideo's frame dump holds {dump['frames'].shape}")
+    else:
+        check(os.path.getsize(path) > 0, f"RecordVideo's {path} is empty")
+    out["record_video"] = {"encoder": encoder, "file": written[0], "bytes": os.path.getsize(path),
+                           "frames": 1 + RECORD_STEPS}
+    return out
+
+
 def run_benchmark_step() -> dict:
     """``utils.performance.benchmark_step`` for :data:`BENCHMARK_SECONDS` of
     ``make("CartPole-v1")`` (host) and of ``make("HalfCheetah-v5")`` on the
@@ -4160,6 +4464,37 @@ def smoke(xml_path: str) -> int:
         "async": async_run, "native_tabular": tabular, "host_wrappers": wrapped,
     }}), flush=True)
     lap("the host wrappers")
+    # -- the vector wrappers over the articulated kernel, and the rendering ----
+    vector_wrappers, vw_counts = counted(f"the vector wrappers over make_vec('HalfCheetah-v5', {NUM_ENVS})",
+                                         lambda: run_vector_wrappers(dev, hc_build))
+    want = {"cartpole_rollout_fused": 0, **gen_zero, hc_build: VW_STEPS}
+    check(vw_counts == want, f"the vector wrappers' path launches {vw_counts}, want {want}")
+    layers, layer_counts = counted("each prefix of the vector wrappers' chain", time_chain_layers)
+    want = {"cartpole_rollout_fused": 0, **gen_zero, hc_build: (1 + len(VW_LAYERS)) * VW_LAYER_STEPS}
+    check(layer_counts == want, f"the chain prefixes launched {layer_counts}, want {want}")
+    vector_wrappers["ms_a_step_by_prefix"] = layers
+    print(f"vector wrappers over make_vec('HalfCheetah-v5', {NUM_ENVS}): {vector_wrappers['ms_a_step']:.4f} ms a "
+          f"step ({VW_STEPS} steps, {vector_wrappers['episodes']} episodes of {VW_LIMIT} steps); under each prefix "
+          f"of the chain ({VW_LAYER_STEPS} steps each, the bare env first): {json.dumps(layers)} "
+          f"(host clock; {card_line()})", flush=True)
+    vector_wrappers["device_vs_cpu"] = compare_vector_wrappers_with_cpu(dev)
+    print(f"the vector wrappers' chain on the card vs the CPU: {vector_wrappers['device_vs_cpu']}", flush=True)
+    cartpole_stats, cartpole_stats_counts = counted(f"RecordEpisodeStatistics over make_vec('CartPole-v1', {NUM_ENVS})",
+                                                    run_cartpole_episode_stats)
+    check(not any(cartpole_stats_counts.values()), f"the CartPole statistics path launched {cartpole_stats_counts}")
+    print(f"RecordEpisodeStatistics and DictInfoToList over make_vec('CartPole-v1', {NUM_ENVS}): "
+          f"{json.dumps(cartpole_stats)}", flush=True)
+    lap("the vector wrappers")
+    rendering, render_counts = counted("the rendering wrappers",
+                                       lambda: run_rendering(dev, os.path.join(scratch, "videos")))
+    want = {"cartpole_rollout_fused": 0, **gen_zero, hc_build: 2 * RENDER_STEPS + RECORD_STEPS}
+    check(render_counts == want, f"the rendering path launches {render_counts}, want {want}")
+    print(f"rendering: RecordVideo took the {rendering['record_video']['encoder']} branch "
+          f"({rendering['record_video']['file']}, {rendering['record_video']['bytes']} bytes)", flush=True)
+    print(json.dumps({"vector_wrappers": {"card": card_line(), "half_cheetah": vector_wrappers,
+                                          "cartpole_episode_statistics": cartpole_stats},
+                      "rendering": {"card": card_line(), **rendering}}), flush=True)
+    lap("the rendering wrappers")
     for entry in kernels:
         if entry["name"] == "articulated_step[half_cheetah]":
             build_name = steps["half_cheetah"].build_name
@@ -4184,7 +4519,10 @@ def smoke(xml_path: str) -> int:
                       **{f"make_vec({env_id!r}, {VEC_ENVS}, sync)": vec_counts[env_id] for env_id in vec_paths},
                       f"make_vec('HalfCheetah-v5', {VEC_ENVS}, async) workers (reported by call)":
                           sum(map(collections.Counter, async_run["worker_launches"]), collections.Counter()),
-                      "host wrappers over make('HalfCheetah-v5')": wrapped_counts}
+                      "host wrappers over make('HalfCheetah-v5')": wrapped_counts,
+                      f"vector wrappers over make_vec('HalfCheetah-v5', {NUM_ENVS})": vw_counts,
+                      "each prefix of the vector wrappers' chain": layer_counts,
+                      "the rendering wrappers over make('HalfCheetah-v5')": render_counts}
     for entry in kernels:
         build_name = kernel_build.get(entry["name"])
         by_path = {path: counts[build_name] for path, counts in registry_paths.items() if counts.get(build_name)}

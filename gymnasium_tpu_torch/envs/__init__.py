@@ -7,10 +7,11 @@ which ``make_vec(id)`` runs as a
 :class:`~gymnasium_tpu_torch.vector.TorchVectorEnv`; the ``phys2d/*`` and
 ``tabular/*`` entry points are the single-env adapters of
 :mod:`gymnasium_tpu_torch.envs.functional_torch_env`. The other entry points
-name host env classes: the MuJoCo ``*Env`` and the ``box2d`` classes exist,
-while the ``classic_control`` and ``toy_text`` classes and the host vector
-envs do not yet: ``make`` of such an id raises
-:class:`~gymnasium_tpu_torch.error.Error` naming the missing class.
+name host env classes: the MuJoCo ``*Env``, the ``box2d``, ``classic_control``,
+``toy_text`` and CPD classes, and ``CartPoleVectorEnv`` and the native
+tabular stepper behind ``vector_entry_point``. ``make_vec(id, n, "sync" |
+"async")`` steps ``make(id)``'s envs in :class:`~gymnasium_tpu_torch.vector.SyncVectorEnv`
+or :class:`~gymnasium_tpu_torch.vector.AsyncVectorEnv`.
 """
 
 from gymnasium_tpu_torch.envs.registration import (

@@ -15,7 +15,7 @@ exclusive ``cumsum`` of the in-view mask and a scatter into the
 ``centers`` (N, 300, 2), ``betas`` (N, 300), ``visited`` (N, 300) bool,
 ``hull`` (N, 6) ``[x, y, angle, vx, vy, omega]``, ``steer_angle`` (N, 2),
 ``wheel_omega`` (N, 4), ``r`` (N,) and ``done`` (N,) bool, float32 but for
-the bools. The host ``CarRacing`` class and its rendering are not ported.
+the bools. The host ``CarRacing`` class is ``envs/box2d/car_racing.py``.
 """
 
 from __future__ import annotations

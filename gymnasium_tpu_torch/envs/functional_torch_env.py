@@ -167,7 +167,7 @@ class FunctionalTorchVectorEnv(TorchVectorEnv):
 
 # --- registration factories ----------------------------------------------
 
-_METADATA = {"render_modes": [], "render_fps": 50, "torch": True}
+_METADATA = {"render_modes": ["rgb_array"], "render_fps": 50, "torch": True}
 
 
 def _torch_env_factory(func_env_cls):

@@ -3,7 +3,10 @@
 Counterpart of ``CartPoleFunctional`` in the JAX package's
 ``envs/phys2d/cartpole.py``, over the port's own copy of the shared dynamics.
 State is the raw ``[x, x', θ, θ']`` tensor with a leading env axis; reset
-draws come from the ``torch.Generator`` passed in, on its device.
+draws come from the ``torch.Generator`` passed in, on its device. The render
+hooks draw one state on the host, and :class:`CartPoleTorchEnv` and
+:class:`CartPoleTorchVectorEnv` are the named adapters of JAX's
+``CartPoleJaxEnv`` and ``CartPoleJaxVectorEnv``.
 """
 
 from __future__ import annotations
@@ -16,8 +19,9 @@ import torch
 from gymnasium_tpu_torch import spaces
 from gymnasium_tpu_torch.envs.dynamics.cartpole import CartPoleParams, integrate, is_terminated
 from gymnasium_tpu_torch.functional import FuncEnv
+from gymnasium_tpu_torch.utils.device import to_host
 
-__all__ = ["CartPoleFunctional", "CartPoleParams"]
+__all__ = ["CartPoleFunctional", "CartPoleParams", "CartPoleTorchEnv", "CartPoleTorchVectorEnv"]
 
 
 def reset_values(u: torch.Tensor, params: CartPoleParams) -> torch.Tensor:
@@ -65,3 +69,56 @@ class CartPoleFunctional(FuncEnv):
 
     def terminal(self, state, rng, params: CartPoleParams | None = None):
         return is_terminated(torch, state, params or CartPoleParams())
+
+    # -- host-side rendering ----------------------------------------------
+
+    def render_init(self, screen_width: int = 600, screen_height: int = 400):
+        return (screen_width, screen_height)
+
+    def render_image(self, state, render_state, params: CartPoleParams | None = None):
+        from gymnasium_tpu_torch.envs.classic_control.cartpole import _render_cartpole
+
+        width, height = render_state
+        return render_state, _render_cartpole(to_host(state), params or CartPoleParams(), width, height)
+
+    def render_close(self, render_state) -> None:
+        pass
+
+
+from gymnasium_tpu_torch.envs.functional_torch_env import FunctionalTorchEnv  # noqa: E402
+from gymnasium_tpu_torch.vector.torch_vector_env import TorchVectorEnv  # noqa: E402
+
+
+class CartPoleTorchEnv(FunctionalTorchEnv):
+    """Stateful CartPole on ``device`` (JAX's ``CartPoleJaxEnv``)."""
+
+    metadata = {"render_modes": ["rgb_array"], "render_fps": 50, "torch": True}
+
+    def __init__(self, render_mode: str | None = None, device: str | torch.device | None = None, **kwargs: Any):
+        super().__init__(
+            CartPoleFunctional(kwargs or None),
+            metadata=self.metadata,
+            render_mode=render_mode,
+            device=device,
+        )
+
+
+class CartPoleTorchVectorEnv(TorchVectorEnv):
+    """Vectorized CartPole on ``device`` (JAX's ``CartPoleJaxVectorEnv``)."""
+
+    metadata = {"render_modes": ["rgb_array"], "render_fps": 50, "torch": True}
+
+    def __init__(
+        self,
+        num_envs: int,
+        render_mode: str | None = None,
+        max_episode_steps: int = 200,
+        device: str | torch.device | None = None,
+        **kwargs: Any,
+    ):
+        super().__init__(
+            CartPoleFunctional(kwargs or None),
+            num_envs=num_envs,
+            max_episode_steps=max_episode_steps,
+            device=device,
+        )

@@ -546,11 +546,14 @@ def make(
             )
         env = load_env_creator(wrapper_spec.entry_point)(env=env, **wrapper_spec.kwargs)
 
-    if apply_human_rendering or apply_render_collection:
-        raise error.Error(
-            f"{env_spec.id}: the HumanRendering and RenderCollection wrappers are not ported yet; "
-            f"ask for one of the env's own render modes"
-        )
+    if apply_human_rendering:
+        from gymnasium_tpu_torch.wrappers.rendering import HumanRendering
+
+        env = HumanRendering(env)
+    elif apply_render_collection:
+        from gymnasium_tpu_torch.wrappers.rendering import RenderCollection
+
+        env = RenderCollection(env)
 
     return env
 

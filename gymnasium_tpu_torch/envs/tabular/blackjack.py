@@ -6,7 +6,9 @@ raw sums and ace flags of both hands. JAX plays the dealer out with a
 ``lax.while_loop``; a loop whose condition the host reads would wait for the
 card once per draw, so here the dealer runs :data:`DEALER_DRAWS` masked
 draws on every lane: a lane whose hand reached 17 keeps it. The step draws
-all of those cards up front, used or not.
+all of those cards up front, used or not. The render hooks draw one state
+on the host, and :class:`BlackJackTorchEnv` is the named adapter of JAX's
+``BlackJackJaxEnv``.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ import numpy as np
 import torch
 
 from gymnasium_tpu_torch import spaces
-from gymnasium_tpu_torch.functional import FuncEnv
+from gymnasium_tpu_torch.functional import FuncEnv, tree_map
+from gymnasium_tpu_torch.utils.device import to_host
 
 __all__ = ["DEALER_DRAWS", "DECK", "BlackjackFunctional"]
 
@@ -146,3 +149,56 @@ class BlackjackFunctional(FuncEnv):
 
     def terminal(self, state, rng, params: Any = None):
         return state["done"]
+
+    # -- host-side rgb rendering (reference tabular/blackjack.py draws card
+    # sprites via pygame; this raster schematic shows the same state) -------
+
+    def render_init(self, width: int = 240, height: int = 160, **kwargs: Any):
+        return {"width": width, "height": height}
+
+    def render_image(self, state, render_state, params: Any = None):
+        from gymnasium_tpu_torch.utils.raster import Canvas
+
+        W, H = render_state["width"], render_state["height"]
+        canvas = Canvas(W, H, (20, 90, 50))  # table felt
+        state = tree_map(lambda leaf: torch.from_numpy(to_host(leaf)), state)
+        best, usable = _best(state["p_sum"], state["p_ace"])
+        player = int(best)
+        dealer = int(state["d_show"])
+        ace = bool(usable)
+        done = bool(state["done"])
+
+        def bar(x, value, vmax, color):
+            h = max(int((H - 40) * min(value, vmax) / vmax), 2)
+            canvas.polygon(
+                [(x, H - 20 - h), (x + 50, H - 20 - h), (x + 50, H - 20), (x, H - 20)],
+                color,
+            )
+
+        bar(30, player, 31, (230, 230, 240))  # player hand value
+        bar(110, dealer, 11, (240, 200, 90))  # dealer showing card
+        if ace:
+            canvas.circle((190, 40), 14, (220, 80, 80))  # usable-ace marker
+        if done:
+            canvas.hline(H - 10, (250, 250, 250), 4)
+        return render_state, canvas.rgb_array()
+
+    def render_close(self, render_state) -> None:
+        return None
+
+
+from gymnasium_tpu_torch.envs.functional_torch_env import FunctionalTorchEnv  # noqa: E402
+
+
+class BlackJackTorchEnv(FunctionalTorchEnv):
+    """Stateful Blackjack on ``device`` (JAX's ``BlackJackJaxEnv``)."""
+
+    metadata = {"render_modes": ["rgb_array"], "render_fps": 50, "torch": True}
+
+    def __init__(self, render_mode: str | None = None, device: str | torch.device | None = None, **kwargs: Any):
+        super().__init__(
+            BlackjackFunctional(kwargs or None),
+            metadata=self.metadata,
+            render_mode=render_mode,
+            device=device,
+        )

@@ -1,8 +1,8 @@
 """Utility subpackage of the torch port (counterpart of the JAX package's
 ``utils``; parity: reference gymnasium/utils/__init__.py).
 
-The env checkers, ``play``, ``save_video`` and the step-API converters are
-not ported yet; asking for one raises ``AttributeError``.
+The env checkers, ``play`` and the step-API converters are not ported yet;
+asking for one raises ``AttributeError``.
 """
 
 from gymnasium_tpu_torch.utils import seeding
@@ -19,10 +19,12 @@ __all__ = [
 
 
 def __getattr__(name):
-    # The throughput helpers import lazily.
+    # The video and throughput helpers import lazily.
     import importlib
 
     lazy = {
+        "save_video": "save_video",
+        "capped_cubic_video_schedule": "save_video",
         "benchmark_step": "performance",
         "benchmark_init": "performance",
         "benchmark_render": "performance",

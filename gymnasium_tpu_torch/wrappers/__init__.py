@@ -2,11 +2,12 @@
 follows Gymnasium's gymnasium/wrappers/__init__.py).
 
 Each name imports lazily from its module, as in the JAX package: the
-single-env host wrappers of ``common``, ``transform_*`` and ``stateful_*``
-work on any env ``make`` builds. The functional, device-side wrappers of the
-port live only under :mod:`~gymnasium_tpu_torch.wrappers.func`. The
-rendering, Atari and array-conversion wrappers and the ``vector`` submodule
-are not ported yet; their names raise ``AttributeError``.
+single-env host wrappers of ``common``, ``transform_*``, ``stateful_*``,
+``rendering`` and ``atari_preprocessing`` work on any env ``make`` builds,
+and ``vector`` is the vector wrappers' subpackage. The functional,
+device-side wrappers of the port live only under
+:mod:`~gymnasium_tpu_torch.wrappers.func`. The array-conversion wrappers are
+not ported yet; their names raise ``AttributeError``.
 """
 
 from typing import Any
@@ -116,9 +117,7 @@ _renamed_wrapper = {
 
 # modules of the JAX package's catalog the port has not yet (ROADMAP queue 1,
 # item 10)
-_NOT_PORTED = frozenset(
-    ("rendering", "atari_preprocessing", "array_conversion", "jax_to_numpy", "jax_to_torch", "numpy_to_torch")
-)
+_NOT_PORTED = frozenset(("array_conversion", "jax_to_numpy", "jax_to_torch", "numpy_to_torch"))
 
 
 def _not_ported(name: str, module: str) -> AttributeError:
@@ -140,9 +139,7 @@ def __getattr__(name: str) -> Any:
         raise AttributeError(
             f"{name!r} has been renamed with `wrappers.{_renamed_wrapper[name]}`"
         )
-    if name == "vector":
-        raise _not_ported(name, "vector/")
-    if name == "func":
+    if name in ("vector", "func"):
         import importlib
 
         return importlib.import_module(f"gymnasium_tpu_torch.wrappers.{name}")

@@ -34,6 +34,7 @@ import torch
 
 from gymnasium_tpu_torch import spaces
 from gymnasium_tpu_torch.functional import EnvCarry, TimeStep, _lanes, tree_map
+from gymnasium_tpu_torch.utils.device import to_host
 
 __all__ = [
     "FuncWrapper",
@@ -633,25 +634,21 @@ class EpisodeStatistics(FuncWrapper):
         return EpisodeStatsState(ep_ret, ep_len), ts._replace(info=info)
 
 
-def _host(x: Any) -> np.ndarray:
-    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
-
-
 def episode_stats_to_infos(info: dict[str, Any]) -> dict[str, Any]:
     """Convert one step's fixed-shape episode info into the reference's vector
     info format: ``{"episode": {"r", "l"}, "_episode": mask}`` when at least
     one episode finished, else no episode keys. Reads the values back to the
     host.
     """
-    mask = _host(info["_episode"])
+    mask = to_host(info["_episode"])
     passthrough = {
         k: v for k, v in info.items() if k not in ("episode_return", "episode_length", "_episode")
     }
     if not mask.any():
         return passthrough
     passthrough["episode"] = {
-        "r": np.where(mask, _host(info["episode_return"]), 0.0),
-        "l": np.where(mask, _host(info["episode_length"]), 0),
+        "r": np.where(mask, to_host(info["episode_return"]), 0.0),
+        "l": np.where(mask, to_host(info["episode_length"]), 0),
     }
     passthrough["_episode"] = mask
     return passthrough

@@ -118,12 +118,14 @@ def test_discrete_observations_are_np_int64_and_boxes_tensors():
 
 
 def test_render_raises_as_the_functional_has_no_renderer():
+    # without a render mode the adapter draws nothing; FrozenLake's functional
+    # has no render hooks (CartPole's draw frames, tests/test_torch_functional_render.py)
     env = FunctionalTorchEnv(CartPoleFunctional(), device="cpu")
     env.reset(seed=0)
     with pytest.raises(NotImplementedError):
         env.render()
     with pytest.raises(NotImplementedError):
-        FunctionalTorchEnv(CartPoleFunctional(), render_mode="rgb_array", device="cpu")
+        FunctionalTorchEnv(FrozenLakeFunctional(), render_mode="rgb_array", device="cpu")
     env.close()
 
 

@@ -86,7 +86,9 @@ def test_utils_exports_and_lazy_names():
     assert utils.seeding is seeding
     for name in ("benchmark_step", "benchmark_init", "benchmark_render", "benchmark_compiled_rollout"):
         assert getattr(utils, name).__module__ == "gymnasium_tpu_torch.utils.performance"
-    for name in ("check_env", "play", "save_video", "data_equivalence", "step_api_compatibility"):
+    assert utils.capped_cubic_video_schedule.__module__ == "gymnasium_tpu_torch.utils.save_video"
+    assert hasattr(utils, "save_video")
+    for name in ("check_env", "play", "data_equivalence", "step_api_compatibility"):
         assert hasattr(jutils, name)
         with pytest.raises(AttributeError):
             getattr(utils, name)

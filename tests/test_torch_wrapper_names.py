@@ -9,9 +9,8 @@ import gymnasium_tpu.wrappers as jw
 import gymnasium_tpu_torch.wrappers as tw
 from gymnasium_tpu_torch.wrappers import func as tfunc
 
-NOT_PORTED = {"RenderCollection", "RecordVideo", "HumanRendering", "AddWhiteNoise", "ObstructView",
-              "AtariPreprocessing", "ArrayConversion", "JaxToNumpy", "JaxToTorch", "NumpyToTorch", "vector"}
-PORTED = [name for name in jw.__all__ if name not in NOT_PORTED]
+NOT_PORTED = {"ArrayConversion", "JaxToNumpy", "JaxToTorch", "NumpyToTorch"}
+PORTED = [name for name in jw.__all__ if name not in NOT_PORTED and name != "vector"]
 
 FUNCTIONAL = ("TransformObservation", "RescaleObservation", "DelayObservation", "TimeAwareObservation",
               "FrameStackObservation", "NormalizeObservation", "TransformAction", "ClipAction", "RescaleAction",
@@ -20,7 +19,7 @@ FUNCTIONAL = ("TransformObservation", "RescaleObservation", "DelayObservation", 
 
 def test_catalog_lists_jax_names():
     assert tw.__all__ == jw.__all__
-    assert len(PORTED) == 28
+    assert len(PORTED) == 34
 
 
 @pytest.mark.parametrize("name", PORTED)
@@ -59,9 +58,16 @@ def test_renamed_wrapper_raises_jax_message(name):
 
 @pytest.mark.parametrize("name", sorted(NOT_PORTED))
 def test_unported_name_raises_naming_its_module(name):
-    module = "vector/" if name == "vector" else f"{jw._MODULE_BY_ATTR[name]}.py"
+    module = f"{jw._MODULE_BY_ATTR[name]}.py"
     with pytest.raises(AttributeError, match=f"wrappers/{module}.*ROADMAP queue 1, item 10"):
         getattr(tw, name)
+
+
+def test_vector_resolves_to_the_port_subpackage():
+    import gymnasium_tpu_torch.wrappers.vector as tvector
+
+    assert tw.vector is tvector
+    assert tvector.__all__ == jw.vector.__all__
 
 
 def test_host_modules_and_func_do_not_import_each_other():
