@@ -143,6 +143,18 @@ read just after:
   render_mode="rgb_array_list")`` over 10 steps, ObstructView over
   AddWhiteNoise, and RecordVideo of one 20-step HalfCheetah episode (an
   ``.mp4`` where moviepy or OpenCV imports, else an ``.npz`` frame dump);
+- the checkers and conversions (``run_checkers_and_conversion``):
+  ``check_env(make(id).unwrapped, skip_render_check=True)`` on the card for
+  HalfCheetah (articulated), LunarLander (planar) and the functional
+  ``phys2d/CartPole-v1`` (through ``ArrayConversion(env, "torch",
+  "numpy")``); ``check_environments_match`` of HalfCheetah and LunarLander
+  on the card against ``device="cpu"`` over 50 steps; ``NumpyToTorch`` and
+  its vector form onto CUDA; ``ArrayConversion(make_vec("HalfCheetah-v5",
+  4096), "torch", "numpy")`` timed against the bare env; the step-API round
+  trip over ``make_vec("HalfCheetah-v5", 64)``; ``play`` of 30 LunarLander
+  frames under ``SDL_VIDEODRIVER=dummy`` (or its ``DependencyNotInstalled``
+  without pygame); the four ``examples/torch_*.py``, each a process of its
+  own at a small size;
 - the PPO trainer at ``tools/bench_ppo.py``'s widths: CartPole-v1 (4096 envs,
   64 steps a rollout, hidden (128, 128)) and HalfCheetah-v5 (4096 x 64,
   hidden (256, 256), with NormalizeObservation, NormalizeReward and
@@ -171,7 +183,8 @@ prints the card's name and power limit, one ``{"bipedal": {...},
 one ``{"ppo": {...}}`` line, one ``{"host_envs": {...}}`` line, one
 ``{"host_classes": {...}, "utils": {...}}`` line, one
 ``{"host_vector": {...}}`` line, one ``{"vector_wrappers": {...},
-"rendering": {...}}`` line, one ``{"registry": {...}}`` line, one
+"rendering": {...}}`` line, one ``{"checkers_and_conversion": {...}}``
+line, one ``{"registry": {...}}`` line, one
 ``{"kernels": [...]}`` line, and last the line ``{"ok": true, "device":
 {...}}``. Any failed check
 raises, so the exit code is 0 only when every phase passed. Without a CUDA
@@ -490,6 +503,37 @@ RECORD_STEPS = 20
 NOISE_SHARE = 0.1
 OBSTRUCTED_SHARE = 0.05
 OBSTRUCTION_WIDTH = 8
+
+# The checkers and conversions phase: check_env (skip_render_check) over
+# make(id).unwrapped for the articulated, planar and functional-torch paths;
+# check_environments_match of make(id) on the card against device="cpu" over
+# CHECKER_MATCH_STEPS steps within CHECKER_MATCH_ATOL; NumpyToTorch onto the
+# card; ArrayConversion(make_vec("HalfCheetah-v5", NUM_ENVS), "torch",
+# "numpy") against the bare env over CONVERSION_STEPS steps each; the
+# step-API round trip over STEP_API_STEPS steps of STEP_API_ENVS envs that
+# truncate every STEP_API_LIMIT steps; PLAY_FRAMES frames of play; the four
+# examples, each a process of its own at EXAMPLE_ARGS.
+CHECKER_IDS = {"HalfCheetah-v5": "articulated", "LunarLander-v3": "planar", "phys2d/CartPole-v1": "functional torch"}
+CHECKER_MATCH_IDS = ("HalfCheetah-v5", "LunarLander-v3")
+CHECKER_MATCH_STEPS = 50
+# a free run from one reset: each step's float32 rounding difference is
+# carried and grown by the later steps; 1e-3 is 5e-5 of HalfCheetah's largest
+# observation over the run (about 19)
+CHECKER_MATCH_ATOL = 1e-3
+NUMPY_TO_TORCH_STEPS = 20
+CONVERSION_STEPS = 20
+STEP_API_ENVS = 64
+STEP_API_STEPS = 8
+STEP_API_LIMIT = 4
+PLAY_FRAMES = 30
+PLAY_KEYS = {"w": 2, "a": 1, "d": 3}
+EXAMPLE_ARGS = {
+    "torch_random_rollout.py": ["--steps", "8"],
+    "torch_device_rollout.py": ["--num-envs", "256", "--steps", "8"],
+    "torch_ppo_cartpole.py": ["--num-envs", "256", "--steps", "8", "--updates", "2"],
+    "torch_ppo_halfcheetah_normalized.py": ["--num-envs", "256", "--steps", "8", "--updates", "2"],
+}
+EXAMPLE_TIMEOUT_S = 300
 
 # The utilities phase (utils/performance.py, utils/checkpoint.py,
 # utils/seeding.py) over the articulated kernel: benchmark_step for
@@ -3282,6 +3326,285 @@ def run_rendering(dev, folder: str) -> dict:
     return out
 
 
+def launch_total(build_name: str) -> int:
+    """The launches of ``build_name``'s articulated or planar kernel so far."""
+    from gymnasium_tpu_torch.ops import articulated_step as art
+    from gymnasium_tpu_torch.ops import planar_step as pl
+
+    return art.launches[build_name] + pl.launches[build_name]
+
+
+def checked_env(dev, env_id: str, build_name: str | None) -> dict:
+    """``check_env(make(env_id, device=dev).unwrapped, skip_render_check=True)``:
+    its seconds, the launches of ``build_name`` it made and the warnings it
+    raised."""
+    import warnings
+
+    import gymnasium_tpu_torch as gym
+    from gymnasium_tpu_torch.utils import check_env
+
+    env = gym.make(env_id, disable_env_checker=True, device=dev).unwrapped
+    check(env.device.type == torch.device(dev).type, f"{env_id} on {env.device}")
+    before = launch_total(build_name) if build_name else 0
+    start = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        check_env(env, skip_render_check=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    env.close()
+    out = {"seconds": seconds, "warnings": [re.sub(r"\x1b\[[0-9;]*m", "", str(w.message)) for w in caught]}
+    if build_name:
+        out["launches"] = launch_total(build_name) - before
+        check(out["launches"] > 0, f"check_env over {env_id} launched no {build_name}")
+    return out
+
+
+def matched_env(dev, env_id: str, steps: int = CHECKER_MATCH_STEPS, atol: float = CHECKER_MATCH_ATOL) -> dict:
+    """``check_environments_match`` of ``make(env_id, device=dev)`` against
+    ``make(env_id, device="cpu")``, observations and rewards within
+    ``atol`` and infos with the same keys (``data_equivalence`` holds an
+    info's float to its bits), after a run of the same seed and action
+    stream that measures the largest deviation of each."""
+    import gymnasium_tpu_torch as gym
+    from gymnasium_tpu_torch.utils import check_environments_match
+
+    card, cpu = gym.make(env_id, device=dev), gym.make(env_id, device="cpu")
+    card_obs, cpu_obs = card.reset(seed=0)[0], cpu.reset(seed=0)[0]
+    worst = {"obs": float(np.abs(card_obs - cpu_obs).max()), "reward": 0.0, "info": 0.0}
+    scale = float(np.abs(cpu_obs).max())
+    card.action_space.seed(0)
+    for _ in range(steps):
+        action = card.action_space.sample()
+        got, want = card.step(action), cpu.step(action)
+        worst["obs"] = max(worst["obs"], float(np.abs(got[0] - want[0]).max()))
+        worst["reward"] = max(worst["reward"], abs(float(got[1]) - float(want[1])))
+        check(got[4].keys() == want[4].keys(), f"{env_id}: info keys {list(got[4])} vs {list(want[4])}")
+        for key, value in want[4].items():
+            worst["info"] = max(worst["info"], float(np.abs(np.asarray(got[4][key], np.float64) - value).max()))
+        scale = max(scale, float(np.abs(want[0]).max()))
+        if got[2:4] != want[2:4]:
+            worst["flags_differ"] = True
+        if want[2] or want[3]:
+            card.reset()
+            cpu.reset()
+    card.close()
+    cpu.close()
+    start = time.perf_counter()
+    check_environments_match(gym.make(env_id, device=dev), gym.make(env_id, device="cpu"), num_steps=steps, seed=0,
+                             atol=atol, info_comparison="keys-equivalence")
+    return {"steps": steps, "atol": atol, "seconds": time.perf_counter() - start, "max_abs_dev": worst,
+            "max_abs_cpu_obs": scale}
+
+
+def run_numpy_to_torch(dev) -> dict:
+    """``NumpyToTorch(make("CartPole-v1"), device=dev)`` and the vector
+    form over ``make_vec("CartPole-v1", VEC_ENVS, "sync")``: tensors on
+    ``dev`` out, actions on ``dev`` in, for ``NUMPY_TO_TORCH_STEPS`` steps
+    each."""
+    import gymnasium_tpu_torch as gym
+    import gymnasium_tpu_torch.wrappers as W
+
+    out = {}
+    for label, env, shape in (
+            ("single", W.NumpyToTorch(gym.make("CartPole-v1"), device=dev), ()),
+            ("vector", W.vector.NumpyToTorch(gym.make_vec("CartPole-v1", VEC_ENVS, vectorization_mode="sync"),
+                                             device=dev), (VEC_ENVS,))):
+        obs, _ = env.reset(seed=0)
+        on_dev = torch.device(dev).type
+        check(isinstance(obs, torch.Tensor) and obs.device.type == on_dev, f"NumpyToTorch {label} reset obs")
+        start = time.perf_counter()
+        for k in range(NUMPY_TO_TORCH_STEPS):
+            action = torch.full(shape, k % 2, dtype=torch.int64, device=dev)
+            obs, reward, terminated, truncated, info = env.step(action)
+            check(obs.device.type == on_dev and bool(torch.isfinite(obs).all()), f"NumpyToTorch {label} step {k}")
+            if label == "vector":
+                check(all(x.device.type == on_dev for x in (reward, terminated, truncated)),
+                      f"NumpyToTorch vector step {k}: flags off the card")
+            elif terminated or truncated:
+                env.reset()
+        out[label] = {"ms_a_step": (time.perf_counter() - start) * 1e3 / NUMPY_TO_TORCH_STEPS,
+                      "obs": f"{obs.dtype} {tuple(obs.shape)} on {obs.device}"}
+        env.close()
+    return out
+
+
+def is_numpy_tree(x) -> bool:
+    if isinstance(x, dict):
+        return all(is_numpy_tree(v) for v in x.values())
+    if isinstance(x, (tuple, list)):
+        return all(is_numpy_tree(v) for v in x)
+    return not isinstance(x, torch.Tensor)
+
+
+def run_array_conversion(dev, build_name: str, n: int = NUM_ENVS, steps: int = CONVERSION_STEPS) -> dict:
+    """``ArrayConversion(make_vec("HalfCheetah-v5", n), "torch", "numpy")``
+    against the bare env, in turns (bare, converted, converted, bare), each
+    a fresh env from one seed: ``steps`` steps on the host clock after two
+    untimed ones, one launch a step, every converted output numpy and equal
+    to the bare env's."""
+    import gymnasium_tpu_torch as gym
+    import gymnasium_tpu_torch.wrappers as W
+
+    actions = np.random.default_rng(0).uniform(-1.0, 1.0, (steps + 2, n, 6)).astype(np.float32)
+    device_actions = torch.from_numpy(actions).to(dev)
+    times, last = {"bare": [], "converted": []}, {}
+    out = {"envs": n, "steps": steps}
+    for label in ("bare", "converted", "converted", "bare"):
+        env = gym.make_vec("HalfCheetah-v5", n, vector_kwargs={"device": dev})
+        check(type(env).__name__ == "TorchVectorEnv", f"make_vec gave {type(env).__name__}")
+        if label == "converted":
+            env = W.vector.ArrayConversion(env, env_xp="torch", target_xp="numpy")
+        env.reset(seed=0)
+        batch = actions if label == "converted" else device_actions
+        for k in range(2):
+            env.step(batch[k])
+        torch.cuda.synchronize()
+        before = launch_total(build_name)
+        start = time.perf_counter()
+        for k in range(2, steps + 2):
+            result = env.step(batch[k])
+        torch.cuda.synchronize()
+        times[label].append((time.perf_counter() - start) * 1e3 / steps)
+        launched = launch_total(build_name) - before
+        check(launched == steps, f"{label} HalfCheetah: {launched} launches in {steps} steps")
+        if label == "converted":
+            check(is_numpy_tree(result) and isinstance(result[0], np.ndarray) and result[0].shape == (n, 17),
+                  f"ArrayConversion handed out {[type(x).__name__ for x in result]}")
+            out["outputs"] = [f"{type(x).__name__}{getattr(x, 'shape', '')}" for x in result]
+            last[label] = result[0]
+        else:
+            last[label] = result[0].cpu().numpy()
+        env.close()
+    check(np.array_equal(last["converted"], last["bare"]), "ArrayConversion's last observation differs from the bare env's")
+    for label, runs in times.items():
+        out[f"{label}_ms_a_step"] = sum(runs) / len(runs)
+        out[f"{label}_ms_a_step_runs"] = runs
+    out["launches_a_step"] = 1
+    return out
+
+
+def run_step_api_round_trip(dev, n: int = STEP_API_ENVS, steps: int = STEP_API_STEPS) -> dict:
+    """``convert_to_done_step_api`` then ``convert_to_terminated_truncated_step_api``
+    over ``steps`` steps of ``make_vec("HalfCheetah-v5", n)`` truncating every
+    ``STEP_API_LIMIT`` steps: the round trip gives back each step's flags."""
+    import gymnasium_tpu_torch as gym
+    from gymnasium_tpu_torch.utils import convert_to_done_step_api, convert_to_terminated_truncated_step_api
+
+    env = gym.make_vec("HalfCheetah-v5", n, vector_kwargs={"max_episode_steps": STEP_API_LIMIT, "device": dev})
+    env.reset(seed=0)
+    truncations = 0
+    for k in range(steps):
+        step = env.step(torch.zeros(n, 6, device=dev))
+        terminated, truncated = step[2].cpu().numpy(), step[3].cpu().numpy()
+        done_step = convert_to_done_step_api(step, is_vector_env=True)
+        check(np.array_equal(done_step[2], terminated | truncated), f"step {k}: done")
+        _, _, term, trunc, _ = convert_to_terminated_truncated_step_api(done_step, is_vector_env=True)
+        check(np.array_equal(term, terminated) and np.array_equal(trunc, truncated & ~terminated),
+              f"step {k}: the round trip changed the flags")
+        truncations += int(truncated.sum())
+    env.close()
+    check(truncations > 0, f"no truncation in {steps} steps")
+    return {"envs": n, "steps": steps, "truncations": truncations}
+
+
+def run_play(dev, build_name: str, frames: int = PLAY_FRAMES) -> dict:
+    """``play`` over ``make("LunarLander-v3", render_mode="rgb_array", device=dev)``
+    under ``SDL_VIDEODRIVER=dummy`` for ``frames`` steps, ended by a callback
+    that posts ``pygame.QUIT``; without pygame, ``play`` must raise
+    ``DependencyNotInstalled``."""
+    import gymnasium_tpu_torch as gym
+    from gymnasium_tpu_torch.error import DependencyNotInstalled
+    from gymnasium_tpu_torch.utils import play
+
+    env = gym.make("LunarLander-v3", render_mode="rgb_array", device=dev)
+    try:
+        import pygame
+    except ImportError:
+        try:
+            play(env, keys_to_action=PLAY_KEYS)
+        except DependencyNotInstalled as e:
+            env.close()
+            return {"branch": "pygame absent: DependencyNotInstalled", "message": str(e)}
+        check(False, "play ran without pygame")
+    previous = os.environ.get("SDL_VIDEODRIVER")
+    os.environ["SDL_VIDEODRIVER"] = "dummy"
+    seen = []
+
+    def callback(obs_t, obs_tp1, action, rew, terminated, truncated, info):
+        seen.append(action)
+        if len(seen) == frames:
+            pygame.event.post(pygame.event.Event(pygame.QUIT))
+
+    before = launch_total(build_name)
+    start = time.perf_counter()
+    try:
+        play(env, fps=1000, callback=callback, keys_to_action=PLAY_KEYS, seed=0)
+    finally:
+        if previous is None:
+            os.environ.pop("SDL_VIDEODRIVER", None)
+        else:
+            os.environ["SDL_VIDEODRIVER"] = previous
+    seconds = time.perf_counter() - start
+    launches = launch_total(build_name) - before
+    env.close()
+    check(len(seen) == frames, f"play took {len(seen)} steps, want {frames}")
+    # each step one launch, each of play's two seeded resets one settle tick
+    check(launches >= frames, f"play launched {launches} planar kernels over {frames} steps")
+    return {"branch": f"pygame {pygame.version.ver}, SDL_VIDEODRIVER=dummy", "frames": len(seen),
+            "launches": launches, "seconds": seconds}
+
+
+def run_examples(dev, timeout: int = EXAMPLE_TIMEOUT_S) -> dict:
+    """Each of the four examples as a process of its own on ``dev``, all at
+    once, at ``EXAMPLE_ARGS``: each must exit 0."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": root}
+    start = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable, os.path.join(root, "examples", name), "--device", str(dev), *args],
+                                    cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for name, args in EXAMPLE_ARGS.items()}
+    out = {}
+    for name, proc in procs.items():
+        try:
+            text, _ = proc.communicate(timeout=max(1.0, timeout - (time.perf_counter() - start)))
+        except subprocess.TimeoutExpired:
+            for other in procs.values():
+                other.kill()
+                other.wait()
+            check(False, f"example {name} did not end within {timeout} s")
+        out[name] = {"rc": proc.returncode, "last_line": text.strip().splitlines()[-1] if text.strip() else ""}
+        check(proc.returncode == 0, f"example {name} exited {proc.returncode}: {text[-2000:]}")
+    out["seconds_all"] = time.perf_counter() - start
+    return out
+
+
+def run_checkers_and_conversion(dev, hc_build: str, lander_build: str) -> dict:
+    """The env checkers, the array conversions, the step-API converters,
+    ``play`` and the four examples on the card; each part's launches of
+    HalfCheetah's and LunarLander's kernels under ``launches_by_part``."""
+    builds = {"articulated": hc_build, "planar": lander_build, "functional torch": None}
+    parts = {
+        **{f"check_env({env_id})": functools.partial(checked_env, dev, env_id, builds[path])
+           for env_id, path in CHECKER_IDS.items()},
+        **{f"check_environments_match({env_id})": functools.partial(matched_env, dev, env_id)
+           for env_id in CHECKER_MATCH_IDS},
+        "NumpyToTorch": functools.partial(run_numpy_to_torch, dev),
+        "ArrayConversion": functools.partial(run_array_conversion, dev, hc_build),
+        "step-API round trip": functools.partial(run_step_api_round_trip, dev),
+        "play": functools.partial(run_play, dev, lander_build),
+        "examples": functools.partial(run_examples, dev),
+    }
+    out = {"launches_by_part": {}}
+    for label, part in parts.items():
+        before = {name: launch_total(name) for name in (hc_build, lander_build)}
+        out[label] = part()
+        out["launches_by_part"][label] = {name: launch_total(name) - before[name] for name in before}
+    for env_id, path in CHECKER_IDS.items():
+        out[f"check_env({env_id})"]["path"] = path
+    return out
+
+
 def run_benchmark_step() -> dict:
     """``utils.performance.benchmark_step`` for :data:`BENCHMARK_SECONDS` of
     ``make("CartPole-v1")`` (host) and of ``make("HalfCheetah-v5")`` on the
@@ -4495,6 +4818,33 @@ def smoke(xml_path: str) -> int:
                                           "cartpole_episode_statistics": cartpole_stats},
                       "rendering": {"card": card_line(), **rendering}}), flush=True)
     lap("the rendering wrappers")
+    checkers, checker_counts = counted("the checkers and conversions",
+                                       lambda: run_checkers_and_conversion(dev, hc_build, planar.build_name))
+    for build_name in (hc_build, planar.build_name):
+        by_part = sum(part[build_name] for part in checkers["launches_by_part"].values())
+        check(checker_counts[build_name] == by_part > 0,
+              f"the checkers' path launched {checker_counts[build_name]} of {build_name}, its parts {by_part}")
+    check(not any(v for k, v in checker_counts.items() if k not in (hc_build, planar.build_name)),
+          f"the checkers' path launched {checker_counts}")
+    for env_id in CHECKER_IDS:
+        result = checkers[f"check_env({env_id})"]
+        print(f"check_env(make({env_id!r}).unwrapped) on the card ({result['path']}): passed in "
+              f"{result['seconds']:.3f} s, {result.get('launches', 0)} kernel launches, "
+              f"{len(result['warnings'])} warnings", flush=True)
+    for env_id in CHECKER_MATCH_IDS:
+        result = checkers[f"check_environments_match({env_id})"]
+        print(f"check_environments_match({env_id}: card vs CPU, {result['steps']} steps, atol {result['atol']}): "
+              f"passed; largest deviation {json.dumps(result['max_abs_dev'])}", flush=True)
+    conversion = checkers["ArrayConversion"]
+    print(f"ArrayConversion(make_vec('HalfCheetah-v5', {conversion['envs']}), 'torch', 'numpy'): "
+          f"{conversion['converted_ms_a_step']:.4f} ms a step against the bare env's "
+          f"{conversion['bare_ms_a_step']:.4f} (host clock, {conversion['steps']} steps a run, two runs each "
+          f"in turns), {conversion['launches_a_step']} launch a step, outputs {conversion['outputs']}", flush=True)
+    print(f"play took the branch: {checkers['play']['branch']}", flush=True)
+    print("examples: " + ", ".join(f"{name} rc {r['rc']}" for name, r in checkers["examples"].items()
+                                   if name != "seconds_all"), flush=True)
+    print(json.dumps({"checkers_and_conversion": {"card": card_line(), **checkers}}), flush=True)
+    lap("the checkers and conversions")
     for entry in kernels:
         if entry["name"] == "articulated_step[half_cheetah]":
             build_name = steps["half_cheetah"].build_name
@@ -4522,7 +4872,8 @@ def smoke(xml_path: str) -> int:
                       "host wrappers over make('HalfCheetah-v5')": wrapped_counts,
                       f"vector wrappers over make_vec('HalfCheetah-v5', {NUM_ENVS})": vw_counts,
                       "each prefix of the vector wrappers' chain": layer_counts,
-                      "the rendering wrappers over make('HalfCheetah-v5')": render_counts}
+                      "the rendering wrappers over make('HalfCheetah-v5')": render_counts,
+                      "the checkers and conversions": checker_counts}
     for entry in kernels:
         build_name = kernel_build.get(entry["name"])
         by_path = {path: counts[build_name] for path, counts in registry_paths.items() if counts.get(build_name)}

@@ -147,7 +147,9 @@ class AsyncVectorEnv(VectorEnv):
         """Instantiate one throwaway env for metadata + spaces; in
         ``observation_mode='different'`` sample every env's space."""
         probe = self.env_fns[0]()
-        self.metadata = probe.metadata
+        # a copy: the probe's metadata is its class's dict, which the
+        # autoreset mode written below must not reach
+        self.metadata = deepcopy(probe.metadata)
         self.metadata["autoreset_mode"] = self.autoreset_mode
         self.render_mode = probe.render_mode
 

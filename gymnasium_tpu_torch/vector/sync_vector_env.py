@@ -85,7 +85,9 @@ class SyncVectorEnv(VectorEnv):
 
         self.envs = [env_fn() for env_fn in env_fns]
         self.num_envs = len(self.envs)
-        self.metadata = self.envs[0].metadata
+        # a copy: the sub-env's metadata is its class's dict, which the
+        # autoreset mode written below must not reach
+        self.metadata = deepcopy(self.envs[0].metadata)
         self.metadata["autoreset_mode"] = self.autoreset_mode
         self.render_mode = self.envs[0].render_mode
 

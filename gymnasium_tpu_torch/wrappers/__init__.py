@@ -6,8 +6,9 @@ single-env host wrappers of ``common``, ``transform_*``, ``stateful_*``,
 ``rendering`` and ``atari_preprocessing`` work on any env ``make`` builds,
 and ``vector`` is the vector wrappers' subpackage. The functional,
 device-side wrappers of the port live only under
-:mod:`~gymnasium_tpu_torch.wrappers.func`. The array-conversion wrappers are
-not ported yet; their names raise ``AttributeError``.
+:mod:`~gymnasium_tpu_torch.wrappers.func`. The array-conversion wrappers
+convert between numpy and torch; ``JaxToNumpy`` and ``JaxToTorch`` resolve
+and raise ``DependencyNotInstalled`` when called (the port has no JAX).
 """
 
 from typing import Any
@@ -115,24 +116,10 @@ _renamed_wrapper = {
 }
 
 
-# modules of the JAX package's catalog the port has not yet (ROADMAP queue 1,
-# item 10)
-_NOT_PORTED = frozenset(("array_conversion", "jax_to_numpy", "jax_to_torch", "numpy_to_torch"))
-
-
-def _not_ported(name: str, module: str) -> AttributeError:
-    return AttributeError(
-        f"`wrappers.{name}` is not ported yet: the port has no `wrappers/{module}` module "
-        "(ROADMAP queue 1, item 10)"
-    )
-
-
 def __getattr__(name: str) -> Any:
     if name in _MODULE_BY_ATTR:
         import importlib
 
-        if _MODULE_BY_ATTR[name] in _NOT_PORTED:
-            raise _not_ported(name, f"{_MODULE_BY_ATTR[name]}.py")
         module = importlib.import_module(f"gymnasium_tpu_torch.wrappers.{_MODULE_BY_ATTR[name]}")
         return getattr(module, name)
     if name in _renamed_wrapper:

@@ -3,8 +3,8 @@ which follows Gymnasium's gymnasium/wrappers/vector/).
 
 Each name imports lazily from its module. The wrappers are JAX's numpy code;
 where JAX lets numpy read a device array, the port reads a tensor back with
-:func:`~gymnasium_tpu_torch.utils.device.to_host`. The array-conversion
-names are not ported yet and raise ``AttributeError``.
+:func:`~gymnasium_tpu_torch.utils.device.to_host`. ``JaxToNumpy`` and
+``JaxToTorch`` resolve and raise ``DependencyNotInstalled`` when called.
 """
 
 from typing import Any
@@ -71,20 +71,11 @@ _MODULE_BY_ATTR = {
     "NumpyToTorch": "array_conversion",
 }
 
-# modules of the JAX package's catalog the port has not yet (ROADMAP queue 1,
-# item 10)
-_NOT_PORTED = frozenset(("array_conversion",))
-
 
 def __getattr__(name: str) -> Any:
     if name in _MODULE_BY_ATTR:
         import importlib
 
-        if _MODULE_BY_ATTR[name] in _NOT_PORTED:
-            raise AttributeError(
-                f"`wrappers.vector.{name}` is not ported yet: the port has no "
-                f"`wrappers/vector/{_MODULE_BY_ATTR[name]}.py` module (ROADMAP queue 1, item 10)"
-            )
         module = importlib.import_module(f"gymnasium_tpu_torch.wrappers.vector.{_MODULE_BY_ATTR[name]}")
         return getattr(module, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

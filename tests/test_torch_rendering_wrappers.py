@@ -24,9 +24,11 @@ import gymnasium_tpu as jgym
 import gymnasium_tpu.wrappers as jw
 import gymnasium_tpu_torch as gym
 import gymnasium_tpu_torch.wrappers as tw
+from gymnasium_tpu.envs.classic_control.cartpole import CartPoleEnv as JCartPoleEnv
 from gymnasium_tpu.envs.phys2d.cartpole import CartPoleJaxEnv
 from gymnasium_tpu.envs.registration import EnvSpec as JEnvSpec
 from gymnasium_tpu.utils.save_video import save_video as jsave_video
+from gymnasium_tpu.vector import AutoresetMode as JAutoresetMode
 from gymnasium_tpu_torch.envs.phys2d.cartpole import CartPoleTorchEnv
 from gymnasium_tpu_torch.envs.registration import EnvSpec
 from gymnasium_tpu_torch.utils.save_video import save_video
@@ -50,8 +52,23 @@ def plain(metadata: dict) -> dict:
     return {k: getattr(v, "value", v) for k, v in metadata.items()}
 
 
+@pytest.fixture
+def declared_cartpole_metadata(monkeypatch):
+    """JAX's ``CartPoleEnv.metadata`` as its class declares it, for the test.
+
+    The JAX package's ``SyncVectorEnv`` and ``AsyncVectorEnv`` write their
+    autoreset mode into their first sub-env's ``metadata``, which is the
+    env class's own dict: after another file on the same worker has built
+    one over CartPole in another mode, JAX's single envs report that mode.
+    The port's vector envs copy the dict instead
+    (``tests/test_torch_sync_vector_env.py::test_vector_env_leaves_the_class_metadata_alone``).
+    """
+    monkeypatch.setitem(JCartPoleEnv.metadata, "autoreset_mode", JAutoresetMode.NEXT_STEP)
+    monkeypatch.setitem(JCartPoleEnv.metadata, "render_modes", ["human", "rgb_array"])
+
+
 @pytest.mark.parametrize("name", sorted(FRAME_CASES))
-def test_frame_wrapper_equals_jax(name):
+def test_frame_wrapper_equals_jax(name, declared_cartpole_metadata):
     wrap = FRAME_CASES[name]
     port = wrap(tw, gym.make("CartPole-v1", render_mode="rgb_array"))
     ref = wrap(jw, jgym.make("CartPole-v1", render_mode="rgb_array"))

@@ -82,6 +82,22 @@ def test_autoreset_mode_equals_jax(mode):
     ref.close()
 
 
+@pytest.mark.parametrize("mode", ["sync", "async"])
+def test_vector_env_leaves_the_class_metadata_alone(mode):
+    """A vector env writes its autoreset mode into its own copy of the first
+    sub-env's metadata, never into the env class's dict, so a later
+    ``make`` of that id reports the mode its class declares."""
+    from gymnasium_tpu_torch.envs.classic_control.cartpole import CartPoleEnv
+
+    declared = {"render_modes": ["human", "rgb_array"], "render_fps": 50, "autoreset_mode": AutoresetMode.NEXT_STEP}
+    assert CartPoleEnv.metadata == declared
+    env = gym.make_vec("CartPole-v1", 2, vectorization_mode=mode, vector_kwargs={"autoreset_mode": "Disabled"})
+    assert env.metadata["autoreset_mode"] is AutoresetMode.DISABLED
+    env.close()
+    assert CartPoleEnv.metadata == declared
+    assert gym.make("CartPole-v1").metadata == declared
+
+
 def test_disabled_mode_refuses_a_step_after_a_done():
     env = gym.make_vec("CartPole-v1", 2, vectorization_mode="sync", vector_kwargs={"autoreset_mode": "Disabled"})
     env.reset(seed=0)

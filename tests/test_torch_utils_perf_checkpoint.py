@@ -88,10 +88,15 @@ def test_utils_exports_and_lazy_names():
         assert getattr(utils, name).__module__ == "gymnasium_tpu_torch.utils.performance"
     assert utils.capped_cubic_video_schedule.__module__ == "gymnasium_tpu_torch.utils.save_video"
     assert hasattr(utils, "save_video")
-    for name in ("check_env", "play", "data_equivalence", "step_api_compatibility"):
+    modules = {"check_env": "env_checker", "check_environments_match": "env_match",
+               "data_equivalence": "data_equivalence", "play": "play", "PlayPlot": "play", "PlayableGame": "play",
+               "step_api_compatibility": "step_api_compatibility",
+               "convert_to_terminated_truncated_step_api": "step_api_compatibility",
+               "convert_to_done_step_api": "step_api_compatibility"}
+    for name, module in modules.items():
         assert hasattr(jutils, name)
-        with pytest.raises(AttributeError):
-            getattr(utils, name)
+        assert callable(getattr(utils, name)) and getattr(utils, name).__name__ == name
+        assert getattr(utils, name).__module__ == f"gymnasium_tpu_torch.utils.{module}"
 
 
 # --- performance -------------------------------------------------------------------

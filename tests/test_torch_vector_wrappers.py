@@ -38,7 +38,6 @@ from tests.torch_compare import assert_identical, assert_same_space
 
 N = 4
 TOL = 1e-6
-CONVERSION = ("ArrayConversion", "JaxToNumpy", "JaxToTorch", "NumpyToTorch")
 
 # name -> (env id, envs, steps, wrap(V, env) with V the package's vector wrappers)
 SYNC_CASES = {
@@ -294,17 +293,11 @@ def test_unchanged_space_over_a_torch_vector_env_raises_type_error_as_jax(name):
         wrap(JV, Replay(Tap(env))).observations(jnp.zeros((N, 3), jnp.float32))
 
 
-@pytest.mark.parametrize("name", [name for name in JV.__all__ if name not in CONVERSION])
+@pytest.mark.parametrize("name", JV.__all__)
 def test_vector_name_comes_from_the_module_of_the_same_name(name):
     got, want = getattr(TV, name), getattr(JV, name)
     assert got.__module__ == want.__module__.replace("gymnasium_tpu.", "gymnasium_tpu_torch.", 1)
     assert got.__name__ == want.__name__
-
-
-@pytest.mark.parametrize("name", CONVERSION)
-def test_vector_conversion_names_raise_naming_their_module(name):
-    with pytest.raises(AttributeError, match="wrappers/vector/array_conversion.py.*ROADMAP queue 1, item 10"):
-        getattr(TV, name)
 
 
 def test_vector_catalog_lists_jax_names():

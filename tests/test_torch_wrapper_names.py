@@ -1,7 +1,8 @@
 """The port's wrapper catalog resolves each name as the JAX package's does:
 the same ``__all__``, each name from the module of the same name (the host
-wrappers, not the functional ones), the functional wrappers only under
-``wrappers.func``, and the same messages for renamed and missing names."""
+wrappers, not the functional ones; the array conversions too), the
+functional wrappers only under ``wrappers.func``, and the same messages for
+renamed and missing names."""
 
 import pytest
 
@@ -9,8 +10,7 @@ import gymnasium_tpu.wrappers as jw
 import gymnasium_tpu_torch.wrappers as tw
 from gymnasium_tpu_torch.wrappers import func as tfunc
 
-NOT_PORTED = {"ArrayConversion", "JaxToNumpy", "JaxToTorch", "NumpyToTorch"}
-PORTED = [name for name in jw.__all__ if name not in NOT_PORTED and name != "vector"]
+PORTED = [name for name in jw.__all__ if name != "vector"]
 
 FUNCTIONAL = ("TransformObservation", "RescaleObservation", "DelayObservation", "TimeAwareObservation",
               "FrameStackObservation", "NormalizeObservation", "TransformAction", "ClipAction", "RescaleAction",
@@ -19,7 +19,7 @@ FUNCTIONAL = ("TransformObservation", "RescaleObservation", "DelayObservation", 
 
 def test_catalog_lists_jax_names():
     assert tw.__all__ == jw.__all__
-    assert len(PORTED) == 34
+    assert len(PORTED) == 38
 
 
 @pytest.mark.parametrize("name", PORTED)
@@ -54,13 +54,6 @@ def test_renamed_wrapper_raises_jax_message(name):
     with pytest.raises(AttributeError) as got:
         getattr(tw, name)
     assert str(got.value) == str(want.value)
-
-
-@pytest.mark.parametrize("name", sorted(NOT_PORTED))
-def test_unported_name_raises_naming_its_module(name):
-    module = f"{jw._MODULE_BY_ATTR[name]}.py"
-    with pytest.raises(AttributeError, match=f"wrappers/{module}.*ROADMAP queue 1, item 10"):
-        getattr(tw, name)
 
 
 def test_vector_resolves_to_the_port_subpackage():
