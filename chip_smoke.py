@@ -155,6 +155,15 @@ read just after:
   frames under ``SDL_VIDEODRIVER=dummy`` (or its ``DependencyNotInstalled``
   without pygame); the four ``examples/torch_*.py``, each a process of its
   own at a small size;
+- the sharded paths (``gymnasium_tpu_torch/parallel/``) in a spawned process
+  that is one NCCL rank on the card (``run_parallel``): HalfCheetah at 4096
+  x 100 (limit 50) and LunarLander at 4096 x 20 through
+  ``TorchVectorEnv(sharding=NamedSharding(make_mesh(), ("dp",)))``, each
+  equal in every bit to the unsharded env, with ``gather_trajectory``; a
+  HalfCheetah PPO step at 4096 x 64 over ``shard_ppo_state`` against the
+  unsharded step; ``scaling_report``; ``dryrun_multichip(1)``; then
+  ``examples/torch_sharded_rollout.py --device cuda``. With two or more
+  cards, one rank a card (up to 4) runs the two trajectories again;
 - the PPO trainer at ``tools/bench_ppo.py``'s widths: CartPole-v1 (4096 envs,
   64 steps a rollout, hidden (128, 128)) and HalfCheetah-v5 (4096 x 64,
   hidden (256, 256), with NormalizeObservation, NormalizeReward and
@@ -184,7 +193,7 @@ one ``{"ppo": {...}}`` line, one ``{"host_envs": {...}}`` line, one
 ``{"host_classes": {...}, "utils": {...}}`` line, one
 ``{"host_vector": {...}}`` line, one ``{"vector_wrappers": {...},
 "rendering": {...}}`` line, one ``{"checkers_and_conversion": {...}}``
-line, one ``{"registry": {...}}`` line, one
+line, one ``{"parallel": {...}}`` line, one ``{"registry": {...}}`` line, one
 ``{"kernels": [...]}`` line, and last the line ``{"ok": true, "device":
 {...}}``. Any failed check
 raises, so the exit code is 0 only when every phase passed. Without a CUDA
@@ -534,6 +543,17 @@ EXAMPLE_ARGS = {
     "torch_ppo_halfcheetah_normalized.py": ["--num-envs", "256", "--steps", "8", "--updates", "2"],
 }
 EXAMPLE_TIMEOUT_S = 300
+
+# The sharded paths (gymnasium_tpu_torch/parallel/): one NCCL rank on one
+# card, in a spawned process under a deadline; one rank a card, up to 4,
+# where the machine has more.
+PARALLEL_CHEETAH_STEPS = 100
+PARALLEL_CHEETAH_LIMIT = 50  # every lane truncates and resets once
+PARALLEL_LANDER_STEPS = 20
+PARALLEL_PPO_TOL = 1e-6  # of the parameters' largest magnitude
+PARALLEL_SCALING_STEPS = 8
+PARALLEL_MAX_RANKS = 4
+PARALLEL_TIMEOUT_S = 420
 
 # The utilities phase (utils/performance.py, utils/checkpoint.py,
 # utils/seeding.py) over the articulated kernel: benchmark_step for
@@ -4088,6 +4108,177 @@ def ranged(func, hook: str, label: str):
     setattr(env, hook, call)
     return env
 
+def sharded_and_plain(dev, func, limit: int, steps: int, mesh) -> dict:
+    """``rollout(steps)`` of ``func`` at 4096 envs from seed 0, sharded over
+    ``mesh``'s dp axis and on this card alone, each after an untimed
+    one-step rollout; raises unless this rank's rows of every trajectory
+    leaf and of the final state are the same bits, and the gathered
+    trajectory the whole one. Returns the seconds of both and the launches
+    of the sharded run."""
+    from gymnasium_tpu_torch.parallel.mesh import NamedSharding, gather_trajectory, local
+    from gymnasium_tpu_torch.vector.torch_vector_env import TorchVectorEnv
+
+    kw = dict(max_episode_steps=limit, seed=0, device=dev)
+    plain = TorchVectorEnv(func, NUM_ENVS, **kw)
+    plain.reset()
+    plain.rollout(1)  # untimed: the first call of each path sets up its caches
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    plain.reset()
+    plain_carry, plain_traj = plain.rollout(steps)
+    torch.cuda.synchronize()
+    plain_seconds = time.perf_counter() - start
+    sharded = TorchVectorEnv(func, NUM_ENVS, sharding=NamedSharding(mesh, ("dp",)), **kw)
+    sharded.reset()
+    sharded.rollout(1)
+    before = dict(kernel_launches())
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    sharded.reset()
+    carry, traj = sharded.rollout(steps)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = {k: v - before.get(k, 0) for k, v in kernel_launches().items() if v - before.get(k, 0)}
+    shard = sharded._shard_of(carry)
+    rows = lambda x, dim=0: shard.take(x, dim)  # noqa: E731
+    compared = 0
+    for key in ("obs", "reward", "terminated", "truncated"):
+        check(same_bits(local(getattr(traj, key)), rows(getattr(plain_traj, key), 1)), f"sharded {key} differs")
+        compared += 1
+    for got, want in zip(tree_leaves(local(carry.state)), tree_leaves(plain_carry.state)):
+        check(same_bits(got, rows(want)), "a sharded state leaf differs")
+        compared += 1
+    gathered = gather_trajectory(traj, mesh)
+    for key in ("obs", "reward"):
+        check(same_bits(local(getattr(gathered, key)), getattr(plain_traj, key)), f"gathered {key} differs")
+    resets = int((plain_traj.terminated | plain_traj.truncated).sum())
+    return {"envs": NUM_ENVS, "steps": steps, "seconds": seconds, "unsharded_seconds": plain_seconds,
+            "launches": launches, "leaves_in_bits": compared,
+            "episode_ends": resets, "gathered_in_bits": True, "local_shape": list(local(traj.obs).shape)}
+
+
+def kernel_launches() -> dict:
+    """Launches so far of every generated articulated and planar build."""
+    from gymnasium_tpu_torch.ops import articulated_step as art
+    from gymnasium_tpu_torch.ops import planar_step as pl
+
+    return {**art.launches, **pl.launches}
+
+
+def sharded_ppo_step(dev, mesh) -> dict:
+    """One HalfCheetah PPO step at ``tools/bench_ppo.py``'s widths (three
+    wrappers) over ``shard_ppo_state``'s state, against the same step
+    unsharded from the same seed: parameters within ``PARALLEL_PPO_TOL`` of
+    their largest magnitude."""
+    from gymnasium_tpu_torch.parallel.mesh import shard_ppo_state
+    from gymnasium_tpu_torch.train.ppo import init_ppo, make_train_step
+
+    func_env, config, wrappers = ppo_case("half_cheetah")
+    plain, env_params = init_ppo(func_env, config, seed=0, wrappers=wrappers, device=dev)
+    step = make_train_step(func_env, config, env_params, wrappers)
+    plain, plain_metrics = step(plain)
+    state, _ = init_ppo(func_env, config, seed=0, wrappers=wrappers, device=dev)
+    state = shard_ppo_state(state, mesh)
+    before = dict(kernel_launches())
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    state, metrics = step(state)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = {k: v - before.get(k, 0) for k, v in kernel_launches().items() if v - before.get(k, 0)}
+    worst, bits = 0.0, True
+    for (name, p), (_, q) in zip(state.policy.named_parameters(), plain.policy.named_parameters()):
+        err = float((p - q).detach().abs().max())
+        check(err <= PARALLEL_PPO_TOL * float(q.detach().abs().max()), f"sharded PPO parameter {name} differs by {err}")
+        worst, bits = max(worst, err), bits and same_bits(p.detach(), q.detach())
+    check(all(bool(torch.isfinite(v)) for v in metrics.values()), f"sharded PPO metrics {metrics}")
+    return {"envs": config.num_envs, "rollout": config.rollout_steps, "hidden": list(config.hidden_sizes),
+            "seconds": seconds, "launches": launches, "max_abs_param_diff": worst, "params_in_bits": bits,
+            "loss": float(metrics["loss"]), "loss_unsharded": float(plain_metrics["loss"])}
+
+
+def parallel_rank(rank: int, world: int, full: bool) -> dict:
+    """The sharded paths on this rank of an NCCL group, one card a rank. With
+    ``full``, the whole one-rank phase; else the HalfCheetah and LunarLander
+    trajectories alone. Returns each part's result and seconds."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    from gymnasium_tpu_torch.entry import dryrun_multichip
+    from gymnasium_tpu_torch.envs.box2d.lunar_lander import LunarLanderFunctional
+    from gymnasium_tpu_torch.envs.mujoco.half_cheetah import HalfCheetahFunctional
+    from gymnasium_tpu_torch.parallel.mesh import NamedSharding, make_mesh, scaling_report
+    from gymnasium_tpu_torch.vector.torch_vector_env import TorchVectorEnv
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {"rank": rank, "world": world, "backend": dist.get_backend(), "card": torch.cuda.get_device_name(dev)}
+    start = time.perf_counter()
+    mesh = make_mesh()
+    out["mesh"] = {"shape": dict(zip(mesh.mesh_dim_names, list(mesh.mesh.shape))), "seconds": time.perf_counter() - start}
+    out["half_cheetah"] = sharded_and_plain(dev, HalfCheetahFunctional(), PARALLEL_CHEETAH_LIMIT,
+                                            PARALLEL_CHEETAH_STEPS, mesh)
+    out["lunar_lander"] = sharded_and_plain(dev, LunarLanderFunctional(), PLANAR_TIME_LIMIT, PARALLEL_LANDER_STEPS, mesh)
+    if not full:
+        return out
+    out["ppo_half_cheetah"] = sharded_ppo_step(dev, mesh)
+    env = TorchVectorEnv(HalfCheetahFunctional(), NUM_ENVS, max_episode_steps=ART_TIME_LIMIT, seed=0, device=dev,
+                         sharding=NamedSharding(mesh, ("dp",)))
+    env.reset()
+    carry = env.carry
+    before = dict(kernel_launches())
+    start = time.perf_counter()
+    out["scaling_report"] = scaling_report(lambda c: env.rollout(PARALLEL_SCALING_STEPS, carry=c), (carry,), mesh,
+                                           iters=5)
+    out["scaling_report"]["seconds"] = time.perf_counter() - start
+    out["scaling_report"]["launches"] = {k: v - before.get(k, 0) for k, v in kernel_launches().items()
+                                         if v - before.get(k, 0)}
+    env.carry = carry
+    text = io.StringIO()
+    before = dict(kernel_launches())
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        dryrun_multichip(world)
+    out["dryrun"] = {"lines": text.getvalue().splitlines(), "seconds": time.perf_counter() - start,
+                     "launches": {k: v - before.get(k, 0) for k, v in kernel_launches().items() if v - before.get(k, 0)}}
+    check(len(out["dryrun"]["lines"]) == 3 and all(line.endswith("ok") for line in out["dryrun"]["lines"]),
+          f"dryrun_multichip({world}): {out['dryrun']['lines']}")
+    return out
+
+
+def run_parallel(dev) -> dict:
+    """The sharded paths on one NCCL rank in a spawned process (no process
+    group outlives it), then ``examples/torch_sharded_rollout.py --device
+    cuda``; with two or more cards, one rank a card (up to 4) for the sharded
+    trajectories. Returns each part's result, seconds and launches."""
+    import torch.distributed as dist
+
+    from gymnasium_tpu_torch.parallel import launch
+
+    out = {"torch": torch.__version__, "nccl_available": dist.is_nccl_available(), "cards": torch.cuda.device_count()}
+    start = time.perf_counter()
+    (out["one_rank"],) = launch.run_ranks(parallel_rank, 1, True, device="cuda", timeout=PARALLEL_TIMEOUT_S)
+    out["one_rank"]["seconds"] = time.perf_counter() - start
+    root = os.path.dirname(os.path.abspath(__file__))
+    start = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(root, "examples", "torch_sharded_rollout.py"), "--device",
+                           "cuda", "--ranks", "1"], cwd=root, env={**os.environ, "PYTHONPATH": root},
+                          capture_output=True, text=True, timeout=EXAMPLE_TIMEOUT_S)
+    check(proc.returncode == 0, f"torch_sharded_rollout.py --device cuda exited {proc.returncode}: {proc.stderr[-2000:]}")
+    out["example"] = {"rc": proc.returncode, "lines": proc.stdout.strip().splitlines()[-2:],
+                      "seconds": time.perf_counter() - start}
+    ranks = min(torch.cuda.device_count(), PARALLEL_MAX_RANKS)
+    if ranks >= 2:
+        start = time.perf_counter()
+        out["multi_rank"] = launch.run_ranks(parallel_rank, ranks, False, device="cuda", timeout=PARALLEL_TIMEOUT_S)
+        out["multi_rank_seconds"] = time.perf_counter() - start
+    else:
+        out["multi_rank"] = (f"not run: {torch.cuda.device_count()} card; the 2- and 4-rank paths are held by the "
+                             "CPU tests over gloo (tests/test_torch_parallel*.py)")
+    return out
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4845,6 +5036,43 @@ def smoke(xml_path: str) -> int:
                                    if name != "seconds_all"), flush=True)
     print(json.dumps({"checkers_and_conversion": {"card": card_line(), **checkers}}), flush=True)
     lap("the checkers and conversions")
+    parallel = run_parallel(dev)
+    one = parallel["one_rank"]
+    reacher_build = steps["reacher"].build_name
+    # an env step one articulated launch, the lander's two (the transition, the
+    # reset tick drawn for every lane) after one at reset; scaling_report: a
+    # warm and 5 timed rollouts sharded, the same on the whole batch alone
+    parallel_want = {
+        "half_cheetah": {hc_build: PARALLEL_CHEETAH_STEPS},
+        "lunar_lander": {planar.build_name: 1 + 2 * PARALLEL_LANDER_STEPS},
+        "ppo_half_cheetah": {hc_build: PPO_ROLLOUT},
+        "scaling_report": {hc_build: 2 * 6 * PARALLEL_SCALING_STEPS},
+        "dryrun": {hc_build: 2, reacher_build: 1},
+    }
+    for part, want in parallel_want.items():
+        check(one[part]["launches"] == want, f"parallel {part} launches {one[part]['launches']}, want {want}")
+    parallel_launches = collections.Counter()
+    for part in parallel_want:
+        parallel_launches.update(one[part]["launches"])
+    for rank in parallel["multi_rank"] if isinstance(parallel["multi_rank"], list) else ():
+        for part in ("half_cheetah", "lunar_lander"):
+            parallel_launches.update(rank[part]["launches"])
+    parallel["launches"] = dict(parallel_launches)
+    print(f"parallel: torch {parallel['torch']}, NCCL available {parallel['nccl_available']}, one NCCL rank in "
+          f"{one['seconds']:.1f} s: HalfCheetah {NUM_ENVS} x {PARALLEL_CHEETAH_STEPS} sharded in "
+          f"{one['half_cheetah']['seconds']:.2f} s (unsharded {one['half_cheetah']['unsharded_seconds']:.2f} s) and "
+          f"LunarLander {NUM_ENVS} x {PARALLEL_LANDER_STEPS} in {one['lunar_lander']['seconds']:.2f} s (unsharded "
+          f"{one['lunar_lander']['unsharded_seconds']:.2f} s), each equal to the unsharded env in every bit; PPO step "
+          f"{one['ppo_half_cheetah']['seconds']:.2f} s (largest parameter difference "
+          f"{one['ppo_half_cheetah']['max_abs_param_diff']:.3e}, in bits: {one['ppo_half_cheetah']['params_in_bits']}); "
+          f"scaling_report {json.dumps({k: v for k, v in one['scaling_report'].items() if k != 'launches'})}; "
+          f"example {parallel['example']['seconds']:.1f} s; multi-rank: "
+          f"{parallel['multi_rank'] if isinstance(parallel['multi_rank'], str) else len(parallel['multi_rank'])}; "
+          f"launches {parallel['launches']}", flush=True)
+    for line in one["dryrun"]["lines"]:
+        print(line, flush=True)
+    print(json.dumps({"parallel": {"card": card_line(), **parallel}}), flush=True)
+    lap("the sharded paths")
     for entry in kernels:
         if entry["name"] == "articulated_step[half_cheetah]":
             build_name = steps["half_cheetah"].build_name
@@ -4873,7 +5101,8 @@ def smoke(xml_path: str) -> int:
                       f"vector wrappers over make_vec('HalfCheetah-v5', {NUM_ENVS})": vw_counts,
                       "each prefix of the vector wrappers' chain": layer_counts,
                       "the rendering wrappers over make('HalfCheetah-v5')": render_counts,
-                      "the checkers and conversions": checker_counts}
+                      "the checkers and conversions": checker_counts,
+                      "the sharded paths (parallel/, NCCL)": parallel["launches"]}
     for entry in kernels:
         build_name = kernel_build.get(entry["name"])
         by_path = {path: counts[build_name] for path, counts in registry_paths.items() if counts.get(build_name)}

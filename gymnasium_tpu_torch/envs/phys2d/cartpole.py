@@ -52,9 +52,16 @@ class CartPoleFunctional(FuncEnv):
     def initial(self, rng: torch.Generator, params: CartPoleParams | None = None):
         return self.initial_batched(rng, 1, params)[0]
 
-    def initial_batched(self, rng: torch.Generator, n: int, params: CartPoleParams | None = None):
-        u = torch.rand((n, 4), generator=rng, device=rng.device)
+    def reset_values(self, u: torch.Tensor, params: CartPoleParams | None = None) -> torch.Tensor:
+        """The reset state of draws ``u ~ U[0, 1)`` (N, 4)."""
         return reset_values(u, params or CartPoleParams())
+
+    def reset_draws(self, rng: torch.Generator, n: int) -> tuple:
+        """The draws of ``n`` resets: U[0, 1) (n, 4)."""
+        return (torch.rand((n, 4), generator=rng, device=rng.device),)
+
+    def initial_batched(self, rng: torch.Generator, n: int, params: CartPoleParams | None = None):
+        return self.reset_values(*self.reset_draws(rng, n), params)
 
     def transition(self, state, action, rng, params: CartPoleParams | None = None):
         params = params or CartPoleParams()

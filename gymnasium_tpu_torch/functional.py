@@ -138,21 +138,50 @@ class FuncEnv:
         raise NotImplementedError
 
 
-def vectorize_func_env(func_env: FuncEnv, num_envs: int) -> FuncEnv:
+def vectorize_func_env(func_env: FuncEnv, num_envs: int, sharding: Any = None) -> FuncEnv:
     """Return a FuncEnv whose ``initial`` draws a batch of ``num_envs`` states.
 
     The other hooks are batch-first already and are kept as they are. An env
     that provides ``initial_batched(rng, n, params)`` draws the batch in one
     call; otherwise ``initial`` is called once per env and stacked.
+
+    ``sharding`` (a :class:`~gymnasium_tpu_torch.parallel.mesh.NamedSharding`
+    over the env axis, or None) makes the hooks work on this rank's rows of
+    the ``num_envs`` batch, as the JAX function forwards it to the batched
+    kernel factories for ``shard_map``: ``initial`` returns those rows, and
+    ``reset_draws`` and ``transition_draws`` draw for the whole batch and
+    keep them, so each rank's rows are the unsharded batch's rows. An env
+    without ``reset_draws`` and ``initial_batched`` draws its whole batch
+    and keeps the rows; a ``transition`` without ``transition_draws`` must
+    draw nothing. The kernels need no factory: each launches on whatever
+    batch it is given.
     """
     batched = copy.copy(func_env)
     initial_batched = getattr(func_env, "initial_batched", None)
+    n = num_envs
+    if sharding is not None:
+        from gymnasium_tpu_torch.parallel.mesh import shard_for
+
+        shard = shard_for(sharding)
+        for hook in ("reset_draws", "transition_draws"):
+            draws = getattr(func_env, hook, None)
+            if draws is not None:
+                setattr(batched, hook, lambda rng, k, draws=draws: tree_map(
+                    lambda d: None if d is None else shard.take(d), draws(rng, k * shard.count)))
+        if initial_batched is not None and hasattr(func_env, "reset_draws"):
+            # bound to the copy, whose reset_draws keeps this rank's rows
+            initial_batched, n = batched.initial_batched, shard.local_count(num_envs)
+        else:
+            whole = vectorize_func_env(func_env, num_envs)
+            batched.initial = lambda rng, params=None: tree_map(shard.take, whole.initial(rng, params))
+            batched.num_envs = num_envs
+            return batched
     if initial_batched is not None:
-        batched.initial = lambda rng, params=None: initial_batched(rng, num_envs, params)
+        batched.initial = lambda rng, params=None: initial_batched(rng, n, params)
     else:
         batched.initial = lambda rng, params=None: tree_map(
             lambda *leaves: torch.stack(leaves),
-            *[func_env.initial(rng, params) for _ in range(num_envs)],
+            *[func_env.initial(rng, params) for _ in range(n)],
         )
     batched.num_envs = num_envs
     return batched

@@ -14,6 +14,14 @@ Policy matmuls run in ``compute_dtype`` (bf16 by default) with float32 heads
 (:class:`~gymnasium_tpu_torch.train.policy.MLP`). The trainer draws its
 action noise and minibatch permutations from its own ``torch.Generator``;
 the env carry keeps its own generator for the reset draws.
+
+A state placed by :func:`~gymnasium_tpu_torch.parallel.mesh.shard_ppo_state`
+trains data-parallel: every rank runs the rollout and GAE on its rows of the
+env batch (its rows of the whole batch's action noise), and the advantage
+normalisation, the gradient (averaged before the global-norm clip), the
+loss and the metrics are reduced over the env axes, so every rank applies
+the same update. The time permutations come from the replicated generator,
+as in JAX, and no trajectory is gathered.
 """
 
 from __future__ import annotations
@@ -33,11 +41,13 @@ from gymnasium_tpu_torch.functional import (
     make_initial_carry,
     vectorize_func_env,
 )
+from gymnasium_tpu_torch.parallel.shard import active as active_shard
 from gymnasium_tpu_torch.train.policy import ActorCritic
 from gymnasium_tpu_torch.utils.device import resolve_device
 from gymnasium_tpu_torch.utils.draws import gumbel
 from gymnasium_tpu_torch.wrappers.func import (
     WrappedEnvCarry,
+    batch_moments,
     wrap_autoreset_step,
     wrap_initial,
     wrapped_spaces,
@@ -213,23 +223,47 @@ def _clip_by_global_norm(params, max_norm: float) -> None:
         g.copy_(torch.where(keep, g, g / norm * max_norm))
 
 
+def _average_gradients(params, shard) -> None:
+    """Every gradient replaced by its mean over the env axes' ranks: one
+    all-reduce of all of them, flattened."""
+    grads = [p.grad for p in params]
+    flat = shard.all_reduce(torch.cat([g.reshape(-1) for g in grads])) / shard.count
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset : offset + g.numel()].view_as(g))
+        offset += g.numel()
+
+
+def _normalized(adv: torch.Tensor) -> torch.Tensor:
+    """``(adv - mean) / (std + 1e-8)`` over every element, the population
+    std the root of the variance as ``jnp.std`` takes it; on a sharded
+    state, the whole batch's (:func:`~gymnasium_tpu_torch.wrappers.func.batch_moments`)."""
+    mean, var, _ = batch_moments(adv.reshape(-1))
+    return (adv - mean) / (torch.sqrt(var) + 1e-8)
+
+
 def _rollout(state: PPOState, env_step, num_steps: int, continuous: bool, noise=None):
     """``num_steps`` env steps under the policy, from ``state``'s carry and
     obs. The action noise comes from ``noise[t]`` when given, else from the
-    trainer's generator. The value is not computed here: one pass over the
+    trainer's generator (inside a sharded step, this rank's rows of either). The value is not computed here: one pass over the
     whole trajectory follows. Returns ``(env_carry, last_obs, traj)``, the
     trajectory a dict of time-major tensors."""
     policy, rng = state.policy, state.rng
     env_carry, obs = state.env_carry, state.obs
+    shard = active_shard()
     traj = {"obs": [], "action": [], "logp": [], "reward": [], "done": []}
     for t in range(num_steps):
         logits = policy.pi(obs)
+        # on a shard, this rank's rows of the whole batch's noise
+        shape = logits.shape if shard is None else (logits.shape[0] * shard.count, *logits.shape[1:])
         if noise is not None:
             draw = noise[t]
         elif continuous:
-            draw = torch.randn(logits.shape, generator=rng, device=logits.device)
+            draw = torch.randn(shape, generator=rng, device=logits.device)
         else:
-            draw = gumbel(rng, logits.shape, logits.device)
+            draw = gumbel(rng, shape, logits.device)
+        if shard is not None and draw.shape[0] != logits.shape[0]:
+            draw = shard.take(draw)
         action, logp = _sample_action(logits, policy.log_std, draw, continuous)
         env_carry, ts = env_step(env_carry, action)
         for key, value in (
@@ -281,14 +315,18 @@ def make_train_step(
     batched = vectorize_func_env(func_env, config.num_envs)
     if env_params is None:
         env_params = func_env.get_default_params()
-    env_step = make_autoreset_step(batched, env_params, time_limit=config.max_episode_steps, autoreset=True)
-    if wrappers:
-        env_step = wrap_autoreset_step(env_step, wrappers)
+
+    def make_env_step(batched):
+        step = make_autoreset_step(batched, env_params, time_limit=config.max_episode_steps, autoreset=True)
+        return wrap_autoreset_step(step, wrappers) if wrappers else step
+
+    env_step = make_env_step(batched)
+    sharded_steps: dict = {}  # a shard's env step, over its rows
     t_len = config.rollout_steps
     mb_steps = t_len // config.num_minibatches
     assert mb_steps > 0, "rollout_steps must be >= num_minibatches (minibatches are time slices)"
 
-    def update(state: PPOState, batch, draws: PPODraws | None):
+    def update(state: PPOState, batch, draws: PPODraws | None, shard):
         """``update_epochs`` epochs; each permutes the time axis and takes
         ``num_minibatches`` contiguous time slices of all envs, shaped
         ``(mb_steps, N, ...)``, as the JAX trainer does to keep the env axis
@@ -307,30 +345,64 @@ def make_train_step(
                 optimizer.zero_grad()
                 loss = _loss(policy, mb, config)
                 loss.backward()
+                if shard is not None:
+                    _average_gradients(params, shard)
                 _clip_by_global_norm(params, config.max_grad_norm)
                 optimizer.step()
                 losses.append(loss.detach())
         return torch.stack(losses).mean()
 
     def train_step(state: PPOState, draws: PPODraws | None = None):
-        with torch.no_grad():
-            with torch.profiler.record_function("ppo.rollout"):
-                env_carry, last_obs, traj = _rollout(
-                    state, env_step, t_len, continuous, None if draws is None else draws.actions
-                )
-            with torch.profiler.record_function("ppo.advantages"):
-                values, adv, returns = _advantages(state.policy, traj, last_obs, config)
-                # jnp.std is the population std
-                adv_n = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+        # the state's carry says whether it is sharded: one type check of a leaf
+        steps = (state.env_carry.env if wrappers else state.env_carry).steps
+        shard = None
+        if type(steps) is not torch.Tensor:
+            from gymnasium_tpu_torch.parallel.mesh import on_shard, shard_of
+
+            shard = shard_of(steps)
+        step = env_step
+        if shard is not None:
+            step = sharded_steps.get(shard)
+            if step is None:
+                step = sharded_steps[shard] = make_env_step(
+                    vectorize_func_env(func_env, config.num_envs, sharding=shard))
+
+        def collect(env_carry, obs):
+            """The rollout and GAE from ``(env_carry, obs)``."""
+            with torch.no_grad():
+                with torch.profiler.record_function("ppo.rollout"):
+                    env_carry, last_obs, traj = _rollout(
+                        state._replace(env_carry=env_carry, obs=obs), step, t_len, continuous,
+                        None if draws is None else draws.actions,
+                    )
+                with torch.profiler.record_function("ppo.advantages"):
+                    values, adv, returns = _advantages(state.policy, traj, last_obs, config)
+                    adv_n = _normalized(adv)
+            return env_carry, last_obs, (traj, values, adv_n, returns)
+
+        if shard is None:
+            env_carry, last_obs, (traj, values, adv_n, returns) = collect(state.env_carry, state.obs)
+        else:
+            env_carry, last_obs, (traj, values, adv_n, returns) = on_shard(
+                collect, shard, state.env_carry, state.obs, dims=(0, None))
         batch = (traj["obs"], traj["action"], traj["logp"], values, adv_n, returns)
         with torch.profiler.record_function("ppo.update"):
-            loss = update(state, batch, draws)
+            loss = update(state, batch, draws, shard)
         metrics = {
             "loss": loss,
             "reward_per_step": traj["reward"].mean(),
             "episodes_finished": traj["done"].sum(),
             "mean_value": values.mean(),
         }
+        if shard is not None:
+            # means of equal shards average; the episode count adds up
+            summed = shard.all_reduce(torch.stack([metrics[k].to(torch.float32) for k in metrics]))
+            metrics = {
+                "loss": summed[0] / shard.count,
+                "reward_per_step": summed[1] / shard.count,
+                "episodes_finished": summed[2].round().to(metrics["episodes_finished"].dtype),
+                "mean_value": summed[3] / shard.count,
+            }
         new_state = state._replace(env_carry=env_carry, obs=last_obs, update_count=state.update_count + 1)
         return new_state, metrics
 

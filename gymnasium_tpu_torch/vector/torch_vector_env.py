@@ -6,6 +6,14 @@ The whole batch lives on one device; ``step`` is the auto-resetting step of
 functional wrappers (:mod:`gymnasium_tpu_torch.wrappers.func`) folded in when
 one is given, and ``rollout`` runs it in a plain Python loop where the JAX
 class compiles a ``lax.scan``. No step reads a value back to the host.
+
+With ``sharding`` (a :class:`~gymnasium_tpu_torch.parallel.mesh.NamedSharding`
+over the env axis) the carry is placed as the JAX class's ``_place`` places
+it: per-env leaves are DTensors sharded over the mesh, the rest replicate.
+Every rank of the mesh builds the env and calls each method in step; each
+steps its own rows with the same step function, draws its rows of the whole
+batch's draws, and returns DTensors. A sharded carry assigned to an env
+built without ``sharding`` is stepped the same way.
 """
 
 from __future__ import annotations
@@ -24,12 +32,14 @@ from gymnasium_tpu_torch.functional import (
     tree_map,
     vectorize_func_env,
 )
+from gymnasium_tpu_torch.parallel.shard import use as use_shard
 from gymnasium_tpu_torch.utils.device import resolve_device
 from gymnasium_tpu_torch.vector.utils import batch_space
 from gymnasium_tpu_torch.vector.vector_env import AutoresetMode, VectorEnv
 from gymnasium_tpu_torch.wrappers.func import (
     FuncWrapper,
     WrappedEnvCarry,
+    per_env_mask,
     wrap_autoreset_step,
     wrap_initial,
     wrapped_spaces,
@@ -43,7 +53,8 @@ class TorchVectorEnv(VectorEnv):
 
     ``wrappers`` is a stack of functional wrappers, innermost first. With
     one, ``carry`` is a :class:`WrappedEnvCarry` and the wrapper states
-    thread through every step.
+    thread through every step. ``sharding`` places the batch over a mesh
+    (module docstring).
     """
 
     metadata: dict[str, Any] = {"autoreset_mode": AutoresetMode.NEXT_STEP, "torch": True}
@@ -60,8 +71,6 @@ class TorchVectorEnv(VectorEnv):
         sharding: Any = None,
         wrappers: Any = None,
     ):
-        if sharding is not None:
-            raise NotImplementedError("sharding the env batch is not ported yet")
         self.wrappers = tuple(wrappers) if wrappers else ()
         for w in self.wrappers:
             if not isinstance(w, FuncWrapper):
@@ -78,53 +87,76 @@ class TorchVectorEnv(VectorEnv):
         self.autoreset_mode = autoreset_mode
         self.metadata = dict(type(self).metadata)
         self.metadata["autoreset_mode"] = autoreset_mode
+        if sharding is not None:
+            from gymnasium_tpu_torch.parallel.mesh import NamedSharding
+
+            if not isinstance(sharding, NamedSharding):
+                raise ValueError(f"sharding must be a NamedSharding over the env axis, got {type(sharding).__name__}")
+        self.sharding = sharding
 
         self.single_observation_space, self.single_action_space = wrapped_spaces(func_env, self.wrappers)
         self.observation_space = batch_space(self.single_observation_space, num_envs)
         self.action_space = batch_space(self.single_action_space, num_envs)
 
         self._batched = vectorize_func_env(func_env, num_envs)
-        self._step_fn = make_autoreset_step(
-            self._batched,
-            self.params,
-            time_limit=self.time_limit,
-            autoreset=autoreset_mode == AutoresetMode.NEXT_STEP,
-        )
-        if self.wrappers:
-            self._step_fn = wrap_autoreset_step(self._step_fn, self.wrappers)
+        self._step_fn = self._make_step(self._batched)
+        self._sharded: dict = {}
         self._seed = seed if seed is not None else 0
         self.carry: EnvCarry | WrappedEnvCarry | None = None
         self._last_obs: torch.Tensor | None = None
+
+    def _make_step(self, batched: FuncEnv):
+        step = make_autoreset_step(
+            batched,
+            self.params,
+            time_limit=self.time_limit,
+            autoreset=self.autoreset_mode == AutoresetMode.NEXT_STEP,
+        )
+        return wrap_autoreset_step(step, self.wrappers) if self.wrappers else step
 
     def _generator(self, seed: int) -> torch.Generator:
         generator = torch.Generator(device=self.device)
         generator.manual_seed(seed)
         return generator
 
-    def _initial(self, rng: torch.Generator):
+    def _initial(self, rng: torch.Generator, batched: FuncEnv | None = None):
         """Fresh ``(carry, obs)`` drawn from ``rng``, the wrappers initialised."""
-        carry, obs = make_initial_carry(self._batched, rng, self.params)
+        carry, obs = make_initial_carry(batched or self._batched, rng, self.params)
         if not self.wrappers:
             return carry, obs
         return wrap_initial(self.wrappers, rng, carry, obs, self.params)
 
-    def _per_env_mask(self, carry):
-        """Tree of bools: True where a leaf of the carry has the env axis."""
-        env = carry.env if self.wrappers else carry
-        env_mask = EnvCarry(
-            state=tree_map(lambda leaf: leaf.dim() > 0 and leaf.shape[0] == self.num_envs, env.state),
-            rng=False,
-            steps=True,
-            prev_done=True,
-        )
-        if not self.wrappers:
-            return env_mask
-        return WrappedEnvCarry(
-            env=env_mask,
-            wrappers=tuple(
-                w.state_per_env(ws, self.num_envs) for w, ws in zip(self.wrappers, carry.wrappers)
-            ),
-        )
+    # -- sharding -----------------------------------------------------------
+
+    def _shard_of(self, carry):
+        """The carry's env shard, None for a carry on one device: on one
+        device this costs one type check of a carry leaf."""
+        steps = (carry.env if self.wrappers else carry).steps
+        if type(steps) is torch.Tensor:
+            return None
+        from gymnasium_tpu_torch.parallel.mesh import shard_of
+
+        return shard_of(steps)
+
+    def _sharded_parts(self, shard) -> tuple[FuncEnv, Any]:
+        """The batched env and the step over this rank's rows of ``shard``."""
+        parts = self._sharded.get(shard)
+        if parts is None:
+            batched = vectorize_func_env(self.func_env, self.num_envs, sharding=shard)
+            parts = self._sharded[shard] = (batched, self._make_step(batched))
+        return parts
+
+    def _local_actions(self, actions, shard):
+        """This rank's rows of a step's actions: a DTensor's local part, the
+        rows of a whole batch, or a batch of the local size as it is."""
+        from gymnasium_tpu_torch.parallel.mesh import DTensor
+
+        if isinstance(actions, DTensor):
+            return actions.to_local()
+        actions = torch.as_tensor(actions, device=self.device)
+        if actions.dim() > 0 and actions.shape[0] == self.num_envs:
+            return shard.take(actions)
+        return actions
 
     # -- VectorEnv API ------------------------------------------------------
 
@@ -133,7 +165,17 @@ class TorchVectorEnv(VectorEnv):
             return self._partial_reset(options["reset_mask"], seed)
         if seed is not None:
             self._seed = seed
-        self.carry, obs = self._initial(self._generator(self._seed))
+        if self.sharding is None:
+            self.carry, obs = self._initial(self._generator(self._seed))
+        else:
+            # this rank's rows, placed as JAX's _place places the whole carry
+            from gymnasium_tpu_torch.parallel.mesh import shard_for, wrap
+
+            shard = shard_for(self.sharding)
+            with use_shard(shard):
+                carry, obs = self._initial(self._generator(self._seed), self._sharded_parts(shard)[0])
+            per_env = per_env_mask(carry, shard.local_count(self.num_envs), self.wrappers)
+            self.carry, obs = wrap(carry, per_env, shard), wrap(obs, True, shard)
         self._last_obs = obs
         return obs, {}
 
@@ -159,8 +201,24 @@ class TorchVectorEnv(VectorEnv):
         # the carried generator continues its stream unless a seed restarts it
         env = self.carry.env if self.wrappers else self.carry
         rng = self._generator(seed) if seed is not None else env.rng
-        fresh, fresh_obs = self._initial(rng)
+        shard = self._shard_of(self.carry)
         mask = torch.as_tensor(reset_mask, device=self.device)
+        if shard is None:
+            self.carry, self._last_obs = self._merge(mask, rng, self._batched, self.carry, self._last_obs)
+            return self._last_obs, {}
+        from gymnasium_tpu_torch.parallel.mesh import on_shard
+
+        batched = self._sharded_parts(shard)[0]
+        self.carry, self._last_obs = on_shard(
+            lambda carry, obs: self._merge(shard.take(mask), rng, batched, carry, obs), shard, self.carry, self._last_obs
+        )
+        return self._last_obs, {}
+
+    def _merge(self, mask, rng, batched, carry, last_obs):
+        """The carry and obs with the ``mask`` lanes taken from fresh ones
+        that ``batched`` draws from ``rng``."""
+        fresh, fresh_obs = self._initial(rng, batched)
+        per_env = per_env_mask(carry, mask.shape[0], self.wrappers)
 
         def merge(per_env, new, old):
             if isinstance(old, torch.Generator):
@@ -169,15 +227,23 @@ class TorchVectorEnv(VectorEnv):
                 return old
             return torch.where(mask.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
 
-        self.carry = tree_map(merge, self._per_env_mask(self.carry), fresh, self.carry)
-        self._last_obs = tree_map(lambda new, old: merge(True, new, old), fresh_obs, self._last_obs)
-        return self._last_obs, {}
+        carry = tree_map(merge, per_env, fresh, carry)
+        return carry, tree_map(lambda new, old: merge(True, new, old), fresh_obs, last_obs)
 
     def step(self, actions):
         if self.carry is None:
             raise RuntimeError("Call reset before using step method.")
-        actions = torch.as_tensor(actions, device=self.device)
-        self.carry, timestep = self._step_fn(self.carry, actions)
+        shard = self._shard_of(self.carry)
+        if shard is None:
+            actions = torch.as_tensor(actions, device=self.device)
+            self.carry, timestep = self._step_fn(self.carry, actions)
+        else:
+            from gymnasium_tpu_torch.parallel.mesh import on_shard
+
+            step = self._sharded_parts(shard)[1]
+            self.carry, timestep = on_shard(
+                lambda carry: step(carry, self._local_actions(actions, shard)), shard, self.carry
+            )
         self._last_obs = timestep.obs
         return (
             timestep.obs,
@@ -203,33 +269,54 @@ class TorchVectorEnv(VectorEnv):
         observation: the env's last one, or for a ``carry`` passed in, the
         observation of its env state before any wrapper. Returns ``(carry,
         TimeStep)`` with time-major stacked leaves, info included.
+
+        On a sharded carry each rank steps its rows: ``obs`` is this rank's
+        rows, ``action_fn`` may return the whole batch's actions or this
+        rank's, and the trajectory's leaves are DTensors sharded along the
+        env axis (dimension 1).
         """
         if carry is None:
             if self.carry is None:
                 self.reset()
             carry, obs = self.carry, self._last_obs
         else:
-            env = carry.env if self.wrappers else carry
-            obs = self._batched.observation(env.state, env.rng, self.params)
-        rng = (carry.env if self.wrappers else carry).rng
+            obs = None
         if action_fn is None:
             space = self.single_action_space
 
             def action_fn(rng, obs):
                 return space.sample_torch(rng, (self.num_envs,), self.device)
 
-        steps = []
-        for _ in range(num_steps):
-            carry, ts = self._step_fn(carry, action_fn(rng, obs))
-            obs = ts.obs
-            steps.append(ts)
-        traj = TimeStep(
-            obs=torch.stack([ts.obs for ts in steps]),
-            reward=torch.stack([ts.reward for ts in steps]),
-            terminated=torch.stack([ts.terminated for ts in steps]),
-            truncated=torch.stack([ts.truncated for ts in steps]),
-            info={key: torch.stack([ts.info[key] for ts in steps]) for key in steps[-1].info},
-        )
+        shard = self._shard_of(carry)
+        step = self._step_fn if shard is None else self._sharded_parts(shard)[1]
+
+        def run(carry, obs):
+            env = carry.env if self.wrappers else carry
+            if obs is None:
+                obs = self._batched.observation(env.state, env.rng, self.params)
+            steps = []
+            for _ in range(num_steps):
+                actions = action_fn(env.rng, obs)
+                if shard is not None:
+                    actions = self._local_actions(actions, shard)
+                carry, ts = step(carry, actions)
+                obs = ts.obs
+                steps.append(ts)
+            traj = TimeStep(
+                obs=torch.stack([ts.obs for ts in steps]),
+                reward=torch.stack([ts.reward for ts in steps]),
+                terminated=torch.stack([ts.terminated for ts in steps]),
+                truncated=torch.stack([ts.truncated for ts in steps]),
+                info={key: torch.stack([ts.info[key] for ts in steps]) for key in steps[-1].info},
+            )
+            return carry, obs, traj
+
+        if shard is None:
+            carry, obs, traj = run(carry, obs)
+        else:
+            from gymnasium_tpu_torch.parallel.mesh import on_shard
+
+            carry, obs, traj = on_shard(run, shard, carry, obs, dims=(0, 1))
         self.carry = carry
         self._last_obs = obs
         return carry, traj

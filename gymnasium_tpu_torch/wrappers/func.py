@@ -34,15 +34,18 @@ import torch
 
 from gymnasium_tpu_torch import spaces
 from gymnasium_tpu_torch.functional import EnvCarry, TimeStep, _lanes, tree_map
+from gymnasium_tpu_torch.parallel.shard import active as active_shard
 from gymnasium_tpu_torch.utils.device import to_host
 
 __all__ = [
     "FuncWrapper",
     "WrappedEnvCarry",
+    "per_env_mask",
     "wrap_autoreset_step",
     "wrap_initial",
     "wrapped_spaces",
     "RmsState",
+    "batch_moments",
     "rms_init",
     "rms_update",
     "NormalizeObservation",
@@ -119,6 +122,44 @@ class WrappedEnvCarry(NamedTuple):
 
     env: EnvCarry
     wrappers: tuple[Any, ...]
+
+
+def _leading(leaf: Any, num_envs: int) -> bool:
+    return isinstance(leaf, torch.Tensor) and leaf.dim() > 0 and leaf.shape[0] == num_envs
+
+
+def _inferred_per_env(wstate: Any, num_envs: int) -> Any:
+    """A wrapper state's per-env leaves by their leading dimension, running
+    statistics (:class:`RmsState`) shared whatever their shape."""
+    if isinstance(wstate, RmsState):
+        return tree_map(lambda _: False, wstate)
+    if isinstance(wstate, (tuple, list)):
+        children = [_inferred_per_env(child, num_envs) for child in wstate]
+        return type(wstate)(*children) if hasattr(wstate, "_fields") else type(wstate)(children)
+    if isinstance(wstate, dict):
+        return {k: _inferred_per_env(v, num_envs) for k, v in wstate.items()}
+    return _leading(wstate, num_envs)
+
+
+def per_env_mask(carry: EnvCarry | WrappedEnvCarry, num_envs: int, wrappers: Sequence[FuncWrapper] | None = None):
+    """Tree of bools: True where a leaf of ``carry`` has the env axis.
+
+    The env carry's fields are known (``steps`` and ``prev_done`` per env,
+    the generator shared, a state leaf per env when its leading dimension is
+    ``num_envs``); each wrapper's state says its own through
+    ``FuncWrapper.state_per_env``, or without ``wrappers`` by its leading
+    dimension, running statistics always shared.
+    """
+    env = carry.env if isinstance(carry, WrappedEnvCarry) else carry
+    env_mask = EnvCarry(state=tree_map(lambda leaf: _leading(leaf, num_envs), env.state),
+                        rng=False, steps=True, prev_done=True)
+    if not isinstance(carry, WrappedEnvCarry):
+        return env_mask
+    if wrappers is None:
+        states = tuple(_inferred_per_env(ws, num_envs) for ws in carry.wrappers)
+    else:
+        states = tuple(w.state_per_env(ws, num_envs) for w, ws in zip(wrappers, carry.wrappers))
+    return WrappedEnvCarry(env=env_mask, wrappers=states)
 
 
 def wrapped_spaces(func_env: Any, wrappers: Sequence[FuncWrapper]) -> tuple[Any, Any]:
@@ -205,13 +246,29 @@ def rms_init(
     )
 
 
+def batch_moments(batch: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """``(mean, population variance, count)`` over the leading axis.
+
+    Inside a step on a sharded carry, ``batch`` is this rank's rows and the
+    moments are the whole batch's: each rank's, all-gathered over the env
+    axes and merged (``EnvShard.merge_moments``), where JAX's replicated
+    statistics over a sharded batch get their reductions from XLA. A group
+    of one rank gives the unsharded bits.
+    """
+    # jnp.var is the population variance
+    mean, var, count = batch.mean(dim=0), batch.var(dim=0, correction=0), batch.shape[0]
+    shard = active_shard()
+    if shard is None:
+        return mean, var, count
+    mean, var = shard.merge_moments(mean, var)
+    return mean, var, count * shard.count
+
+
 def rms_update(rms: RmsState, batch: torch.Tensor) -> RmsState:
     """Fold a batch (leading axis) into the statistics by the Chan et al.
-    merge. No change where ``update_flag`` is False."""
-    batch_mean = batch.mean(dim=0)
-    # jnp.var is the population variance
-    batch_var = batch.var(dim=0, correction=0)
-    batch_count = batch.shape[0]
+    merge. No change where ``update_flag`` is False. The batch's moments
+    are :func:`batch_moments`'s, the whole batch's on a sharded carry."""
+    batch_mean, batch_var, batch_count = batch_moments(batch)
 
     delta = batch_mean - rms.mean
     tot = rms.count + batch_count
@@ -464,8 +521,12 @@ class StickyAction(FuncWrapper):
         return StickyActionState(rng, last, torch.ones(n, dtype=torch.bool, device=obs.device)), obs
 
     def draws(self, wstate: StickyActionState, n: int) -> torch.Tensor:
-        """The repeat draws of a step: U[0, 1) (n,)."""
-        return torch.rand((n,), generator=wstate.rng, device=wstate.rng.device)
+        """The repeat draws of a step: U[0, 1) (n,); on a sharded carry, this
+        rank's rows of the whole batch's draws."""
+        shard = active_shard()
+        if shard is None:
+            return torch.rand((n,), generator=wstate.rng, device=wstate.rng.device)
+        return shard.take(torch.rand((n * shard.count,), generator=wstate.rng, device=wstate.rng.device))
 
     def apply(self, wstate: StickyActionState, action, u):
         """The action executed for draws ``u``: the last one where ``u < p``

@@ -1,7 +1,12 @@
-"""The port's four examples (``examples/torch_*.py``) run end to end on the
-CPU at a tiny size, through the same ``main`` their command lines call."""
+"""The port's five examples (``examples/torch_*.py``) run end to end on the
+CPU at a tiny size, through the same ``main`` their command lines call (the
+sharded rollout through its command line: its ranks are spawned processes,
+which import the script as the main module)."""
 
 import importlib.util
+import os
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -41,3 +46,15 @@ def test_ppo_halfcheetah_normalized_keeps_running_statistics():
     assert out["updates"] == 2 and bool(torch.isfinite(out["metrics"]["loss"]))
     obs_rms = out["state"].env_carry.wrappers[0]
     assert float(obs_rms.count) > 8 and obs_rms.mean.shape == (17,)
+
+
+def test_sharded_rollout_runs_two_gloo_ranks():
+    root = EXAMPLES.parent
+    out = subprocess.run([sys.executable, str(EXAMPLES / "torch_sharded_rollout.py"), "--device", "cpu",
+                          "--ranks", "2", "--steps", "32"], cwd=root, env={**os.environ, "PYTHONPATH": str(root)},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-4000:]
+    lines = out.stdout.splitlines()
+    assert sorted(line for line in lines if line.startswith("rank ")) == [
+        f"rank {r}: obs shard (32, 64, 4) of (32, 128, 4), placements (Shard(dim=1), Replicate())" for r in (0, 1)]
+    assert lines[-1] == "rolled out 128x32 steps across 2 ranks"

@@ -20,7 +20,7 @@ def _forbidden(module: str) -> bool:
 
 def test_sources_exist():
     assert len(SOURCES) > 10 and all(path.exists() for path in SOURCES)
-    assert len([path for path in SOURCES if path.parent.name == "examples"]) == 4
+    assert len([path for path in SOURCES if path.parent.name == "examples"]) == 5
 
 
 JAX_NAMED_CALLS = """
