@@ -177,9 +177,13 @@ read just after:
 It holds each kernel against its plain PyTorch version on the card and times
 both; the articulated and planar kernels must equal their twins in every
 value (each robot's articulated kernel at N=4096 at its own
-``frame_skip``, Swimmer's at 1 and the XML chain's; the walker's planar
-build and the terrain kernel also at a ragged N, with lanes on both sides of
-the sub-pull clamp). Each ``articulated_step[...]`` entry also gives the
+``frame_skip``, Swimmer's at 1 and the XML chain's; both planar builds
+and the terrain kernel also at a ragged N, with lanes on both sides of the
+sub-pull clamp). Each ``planar_step[...]`` entry gives its build's lane
+layout (``layout``: lanes an env, a staged terrain row, phases, shuffles,
+selects) beside its registers, shared bytes, spills and SASS, and one line a
+build prints them with the schedule's estimates, which are the generator's
+model, not a measurement. Each ``articulated_step[...]`` entry also gives the
 kernel's warp layout (``parts`` warps a group of 32 envs, ``env_groups``
 groups a block, ``phases``, values ``exchanged`` and their loads,
 ``recomputed_ops``, ``shared_bytes_per_block``). A kernel's ``ms`` is its
@@ -711,12 +715,20 @@ def articulated_bound_ms(step, n: int) -> tuple[float, str]:
     return bound(bytes_moved, n * step.source.ops_per_env / FP32_OPS_PER_S)
 
 
+def built_layout(step) -> dict:
+    """A planar build's layout without the schedule's estimates: the facts
+    of the build, not the model's clocks."""
+    return {k: v for k, v in step.source.layout.items() if k != "estimates"}
+
+
 def ptxas_summary(log: str) -> dict:
-    """Registers, spills and stack frame in an ``-Xptxas -v`` log: the most
-    that any kernel of the library uses."""
+    """Registers, static shared bytes, spills and stack frame in an
+    ``-Xptxas -v`` log: the most that any kernel of the library uses."""
     regs = re.findall(r"Used (\d+) registers", log)
     frame = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", log)
-    summary = {"registers": max(map(int, regs)) if regs else None}
+    smem = re.findall(r"Used \d+ registers, (?:.*?, )?(\d+) bytes smem", log)
+    summary = {"registers": max(map(int, regs)) if regs else None,
+               "shared_bytes": max(map(int, smem)) if smem else 0}
     if frame:
         summary.update(zip(("stack_frame", "spill_stores", "spill_loads"),
                            (max(int(f[i]) for f in frame) for i in range(3))))
@@ -4544,8 +4556,15 @@ def smoke(xml_path: str) -> int:
     # -- the planar kernel against its twin -----------------------------------
     planar_inputs = planar_states(NUM_ENVS, dev)
     planar_cmp = compare_planar_with_twin(planar, planar_inputs)
+    planar_ragged = compare_planar_with_twin(planar, planar_states(BIPEDAL_RAGGED, dev, seed=1))
     print(f"planar kernel vs twin (lunar_lander, N={NUM_ENVS}, substeps {planar.substeps}): {planar_cmp}; "
-          "deterministic", flush=True)
+          f"N={BIPEDAL_RAGGED}: {planar_ragged}; deterministic", flush=True)
+    for step in (planar, walker):
+        info = ptxas.get(step.build_name, {})
+        print(f"planar layout {step.name}: {step.source.layout['lanes']} lanes an env "
+              f"({step.source.layout}); {info.get('registers')} registers, {info.get('shared_bytes')} shared "
+              f"bytes a block, spill stores {info.get('spill_stores')} B, {sass[step.build_name]} SASS "
+              "instructions", flush=True)
     walker_inputs = walker_states(NUM_ENVS, dev)
     walker_cmp = compare_planar_with_twin(walker, walker_inputs)
     walker_ragged = compare_planar_with_twin(walker, walker_states(BIPEDAL_RAGGED, dev, seed=1))
@@ -4697,6 +4716,8 @@ def smoke(xml_path: str) -> int:
             "bound_ms": planar_bound,
             "bound_by": planar_bound_by,
             "library_ms": None,
+            "ragged": {"envs": BIPEDAL_RAGGED, **planar_ragged},
+            "layout": built_layout(planar),
             "substeps": planar.substeps,
             "ops_per_env": planar.source.ops_per_env,
             "sass_instructions": sass[planar.build_name],
@@ -4734,6 +4755,7 @@ def smoke(xml_path: str) -> int:
             "bound_ms": walker_bound,
             "bound_by": walker_bound_by,
             "library_ms": None,
+            "layout": built_layout(walker),
             "substeps": walker.substeps,
             "ops_per_env": walker.source.ops_per_env,
             "sass_instructions": sass[walker.build_name],

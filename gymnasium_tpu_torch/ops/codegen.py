@@ -22,6 +22,14 @@ not depend on the carried values is emitted once, before the loop: those are
 the nodes that sharing equal nodes computes once in the unrolled program, so
 both forms run the same operations, with the same rounding.
 
+``unit(tag)`` names the piece of the program that the operations inside it
+belong to (a body, a contact probe, a joint). Over ``TorchOps`` it does
+nothing. Over ``SymOps`` it records, for each unit, the statement nodes its
+code asked for, in order, shared nodes included, and ``repeat`` takes the
+unit that owns each carried value (``homes``): a generator that lays one
+env over several lanes places the program unit by unit
+(:func:`~gymnasium_tpu_torch.ops.warp_partition.lane_schedule`).
+
 A python float stays a python float until it meets a per-env value, so
 constants fold in float64 and round to float32 once, as a weakly typed python
 scalar does in ``jnp``. Operations on constants alone fold in float32, as the
@@ -32,6 +40,7 @@ the float, which rounds twice.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -75,7 +84,11 @@ class TorchOps:
         x = self._tensor(x)
         return torch.sin(x), torch.cos(x)
 
-    def repeat(self, n: int, carried, body):
+    def unit(self, *tag):
+        """No unit bookkeeping for the twin."""
+        return contextlib.nullcontext()
+
+    def repeat(self, n: int, carried, body, homes=None):
         """``body`` applied ``n`` times to the list ``carried``."""
         carried = list(carried)
         for _ in range(n):
@@ -172,6 +185,7 @@ class _Loop:
         self.n, self.parent = n, parent
         self.depth = 1 + (parent.depth if parent is not None else 0)
         self.carries: list = []
+        self.homes: list | None = None  # the unit that owns each carried value, where the program says
 
     def trips(self) -> int:
         """Passes of this loop's body a pass of the code around every loop."""
@@ -186,14 +200,17 @@ class Sym:
     """One value of the emitted program: an input, a constant or an operation.
 
     ``scope`` is the innermost loop whose carried values it depends on (None
-    outside every loop): the node is emitted in that loop's body.
+    outside every loop): the node is emitted in that loop's body. ``unit``
+    is the unit visit whose code made it, ``(tag, visit)`` (None outside
+    every unit).
     """
 
-    __slots__ = ("prog", "id", "kind", "args", "dtype", "varying", "value", "scope")
+    __slots__ = ("prog", "id", "kind", "args", "dtype", "varying", "value", "scope", "unit")
 
     def __init__(self, prog, kind, args=(), dtype="f", varying=False, value=None, scope=None):
         self.prog, self.kind, self.args = prog, kind, args
         self.dtype, self.varying, self.value, self.scope = dtype, varying, value, scope
+        self.unit = prog._unit
         self.id = len(prog.nodes)
         prog.nodes.append(self)
 
@@ -247,6 +264,29 @@ class SymOps:
         self.nodes: list[Sym] = []
         self._memo: dict = {}
         self._loops: list[_Loop] = []  # the loops whose body is being traced, innermost last
+        self._unit = None  # the unit being traced: (tag, visit)
+        self._visits: dict = {}  # tag -> how many times its unit was opened
+        self.requests: dict = {}  # (tag, visit) -> the statement nodes its code asked for, in order
+
+    @contextlib.contextmanager
+    def unit(self, *tag):
+        """The operations inside belong to the unit ``tag`` (units do not
+        nest). Each time a unit is opened is a visit of its own: the piece
+        of the program between two others."""
+        if self._unit is not None:
+            raise ValueError(f"unit {tag} opened inside unit {self._unit}")
+        visit = self._visits[tag] = self._visits.get(tag, -1) + 1
+        self._unit = (tag, visit)
+        self.requests[self._unit] = {}
+        try:
+            yield
+        finally:
+            self._unit = None
+
+    def _request(self, node: Sym) -> Sym:
+        if self._unit is not None and node.kind not in _NO_STATEMENT:
+            self.requests[self._unit].setdefault(node.id, node)
+        return node
 
     def input(self, name: str, varying: bool) -> Sym:
         return Sym(self, "input", dtype="f", varying=varying, value=name)
@@ -286,7 +326,7 @@ class SymOps:
             node = self._memo[key] = Sym(
                 self, kind, args, dtype=dtype, varying=any(a.varying for a in args), scope=scope
             )
-        return node
+        return self._request(node)
 
     def _part(self, node: Sym, index: int, kind: str = "part") -> Sym:
         """Result ``index`` of a node with several (a sincos, a loop)."""
@@ -305,18 +345,22 @@ class SymOps:
         node = self.op("sincos", x)
         return self._part(node, 0), self._part(node, 1)
 
-    def repeat(self, n: int, carried, body):
+    def repeat(self, n: int, carried, body, homes=None):
         """``body`` applied ``n`` times to the list ``carried``, as one C loop.
 
         The body is traced once, on fresh loop-carried values; it must return
         as many values, of the same types, and no value computed from the
         carried ones may leave it but through its result. Returns the values
-        after the last pass. With ``n`` 0 or 1 there is no loop.
+        after the last pass. With ``n`` 0 or 1 there is no loop. ``homes``,
+        where given, is the unit tag that owns each carried value.
         """
         carried = [c if isinstance(c, Sym) else self.const(c) for c in carried]
+        if homes is not None and len(homes) != len(carried):
+            raise ValueError(f"{len(homes)} homes for {len(carried)} carried values")
         if n < 2:
             return list(body(carried)) if n == 1 else carried
         loop = _Loop(n, self._loops[-1] if self._loops else None)
+        loop.homes = None if homes is None else [tuple(h) for h in homes]
         loop.carries = [
             Sym(self, "carry", dtype=c.dtype, varying=True, scope=loop) for c in carried
         ]
@@ -406,9 +450,10 @@ def _statement(node: Sym) -> str:
     return f"const {_ctype(node)} t{node.id} = {_expression(node)};"
 
 
-def _expression(node: Sym) -> str:
-    """The C expression of a statement node's value."""
-    args = [_ref(a) for a in node.args]
+def _expression(node: Sym, args=None) -> str:
+    """The C expression of a statement node's value, over ``args`` (the C
+    text of each operand) where given."""
+    args = [_ref(a) for a in node.args] if args is None else args
     if node.kind in _C_BINARY:
         return f"{args[0]} {_C_BINARY[node.kind]} {args[1]}"
     if node.kind in _C_CALL:

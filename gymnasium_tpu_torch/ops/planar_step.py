@@ -11,8 +11,9 @@ world, four ticks a launch). The TPU kernel's 1024-env multiple and (8, 128) row
 blocks are gone: any N works. On a CUDA tensor the step launches a kernel
 generated for the world
 (:func:`~gymnasium_tpu_torch.ops.planar_codegen.generate_planar_source`, with
-the fixed part in ``csrc/planar_step.cuh``): one thread per env, the whole
-call in registers. On a CPU tensor it runs the plain twin, the same generator
+the fixed part in ``csrc/planar_step.cuh``): the whole call in registers, each
+env over the group of lanes the generator picks for the world (one thread an
+env, or a lane a body). On a CPU tensor it runs the plain twin, the same generator
 over ``(N,)`` torch tensors. A failed build or launch raises; it never gives
 way to the twin.
 """

@@ -28,6 +28,22 @@ the live body nodes of :mod:`gymnasium_tpu_torch.ops.codegen`:
 
 Every node is still the same operation on the same operands, so every value
 keeps its bits. With one partition there is nothing to place.
+
+The planar kernel lays one env over a group of ``G`` lanes of one warp
+instead (:func:`lane_schedule`). Lanes of a warp issue one instruction
+stream, so a phase runs in parallel only where its lanes run the same
+operations on their own operands. The schedule therefore places whole
+**units** (a body, a contact probe, a joint: the pieces the generator
+traces under ``ops.unit``) on fixed lanes, and a phase holds units of one
+shape, one a lane. A unit is the cluster the rules above would keep
+together: it holds every node whose value only it uses, a sine and cosine
+of one angle, and its own copy of a node that another unit also computes
+(recomputed, not exchanged). Loop bodies traced under ``SymOps.repeat``
+are scheduled like straight-line code, with sincos nodes; the values they
+carry stay with the units that own them. What crosses lanes goes through
+``__shfl_sync`` within the group; its cost and the phases' are in
+:data:`LATENCY`, :data:`SHUFFLE` and :data:`SELECT` (a ``__syncwarp`` of
+the group, not a block barrier).
 """
 
 from __future__ import annotations
@@ -36,11 +52,13 @@ import collections
 import dataclasses
 import heapq
 
-__all__ = ["WarpPartition", "partition", "sincos_pairs", "SHARED_BYTES_MAX"]
+__all__ = ["WarpPartition", "partition", "sincos_pairs", "SHARED_BYTES_MAX", "lane_schedule", "unit_shape"]
 
 #: Latency in clocks of one operation, as the schedule counts it: sqrt and
-#: the IEEE divide 20, sin and cos 40, everything else 4.
-LATENCY = collections.defaultdict(lambda: 4, {"div": 20, "sqrt": 20, "sin": 40, "cos": 40})
+#: the IEEE divide 20, sin, cos and one sincosf 40, everything else 4.
+LATENCY = collections.defaultdict(lambda: 4, {"div": 20, "sqrt": 20, "sin": 40, "cos": 40, "sincos": 40})
+SHUFFLE = 8  # clocks a __shfl_sync within a lane group adds to its phase
+SELECT = 4  # clocks a select between two lanes' operands adds
 _EXCHANGE = 4  # clocks a shared-memory store or load adds to its warp's phase
 _BARRIER = 40  # clocks a barrier between phases costs
 _LOAD_PENALTY = 12  # priority a cluster loses for each operand its partition must load
@@ -294,3 +312,72 @@ def partition(body, parts: int, carried: int) -> WarpPartition:
         carried=carried,
         estimate=estimate,
     )
+
+
+def unit_shape(nodes) -> tuple:
+    """The shape of a unit's statement nodes: each node's kind, type and
+    operands, an operand being the position of a node of the same unit or
+    just its type. Units of one shape run the same instructions."""
+    pos = {n.id: i for i, n in enumerate(nodes)}
+
+    def arg(a):
+        a_id = a.args[0].id if a.kind == "part" else a.id
+        if a_id in pos:
+            return ("i", pos[a_id], a.value if a.kind == "part" else None)
+        return ("x", a.dtype)
+
+    return tuple((n.kind, n.dtype, tuple(arg(a) for a in n.args)) for n in nodes)
+
+
+def lane_schedule(units: dict, lane_of: dict) -> list[dict]:
+    """Phases of one straight-line block: ``units`` maps each unit tag to its
+    statement nodes in the block (in order), ``lane_of`` each tag to its
+    lane. Returns ``[{lane: tag}, ...]``: a unit runs after every unit that
+    computes a value it reads (a node outside its own list, made by
+    ``node.unit``), and the units of a phase share a shape and a lane each.
+    Among the ready units the one with the longest path of latencies to the
+    block's end picks the phase's shape."""
+    owned = {t: {n.id for n in nodes} for t, nodes in units.items()}
+    block = set().union(*owned.values()) if owned else set()
+    preds = {}
+    for t, nodes in units.items():
+        ps = set()
+        for n in nodes:
+            for a in n.args:
+                a = a.args[0] if a.kind == "part" else a
+                if a.id in block and a.id not in owned[t]:
+                    if a.unit not in units or a.id not in owned[a.unit]:
+                        raise ValueError(f"node t{a.id} of this block belongs to no unit that computes it")
+                    ps.add(a.unit)
+        preds[t] = ps
+    order = {t: i for i, t in enumerate(units)}
+    users = collections.defaultdict(set)
+    for t, ps in preds.items():
+        for p in ps:
+            users[p].add(t)
+    cost = {t: sum(LATENCY[n.kind] for n in nodes) for t, nodes in units.items()}
+    level: dict = {}
+
+    def path(t, seen=()):
+        if t not in level:
+            if t in seen:
+                raise ValueError(f"units {seen} depend on each other in a cycle")
+            level[t] = cost[t] + max((path(u, seen + (t,)) for u in users[t]), default=0)
+        return level[t]
+
+    for t in units:
+        path(t)
+    shapes = {t: unit_shape(nodes) for t, nodes in units.items()}
+    placed, phases = set(), []
+    while len(placed) < len(units):
+        ready = sorted((t for t in units if t not in placed and preds[t] <= placed),
+                       key=lambda t: (-level[t], order[t]))
+        if not ready:
+            raise ValueError("units depend on each other in a cycle")
+        phase = {}
+        for t in ready:
+            if shapes[t] == shapes[ready[0]] and lane_of[t] not in phase:
+                phase[lane_of[t]] = t
+        placed.update(phase.values())
+        phases.append(dict(sorted(phase.items())))
+    return phases

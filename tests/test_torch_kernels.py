@@ -29,6 +29,7 @@ from chip_smoke import (
     walker_env,
     walker_states,
 )
+from gymnasium_tpu_torch.envs.box2d.bipedal_walker import walker_solver
 from gymnasium_tpu_torch.envs.dynamics.lunar_lander import lander_step
 from gymnasium_tpu_torch.ops import articulated_step as art
 from gymnasium_tpu_torch.ops import cartpole_rollout as cr
@@ -164,12 +165,16 @@ def test_articulated_kernel_takes_strided_inputs(cuda):
 
 
 @pytest.mark.parametrize("n", [1000, 4096])
-def test_planar_kernel_matches_twin(cuda, n):
-    """One call of both substeps on the mixed lander inputs (the last block
-    ragged at 1000); within the same-program tolerance of the twin, flags
-    exact, deterministic, and every side of the solver reached."""
-    step = lander_step(-10.0)
-    inputs = planar_states(n, cuda, seed=3)
+@pytest.mark.parametrize("world", ["lunar_lander", "bipedal_walker"])
+def test_planar_kernel_matches_twin(cuda, world, n):
+    """One call of the lander's two substeps (or the walker's four) on the
+    mixed inputs, each env over the lanes its generator picked (the last
+    block ragged at 1000); equal to the twin in every bit, flags exact,
+    deterministic, and every side of the solver reached."""
+    if world == "lunar_lander":
+        step, inputs = lander_step(-10.0), planar_states(n, cuda, seed=3)
+    else:
+        step, inputs = walker_solver(), walker_states(n, cuda, seed=3)
     before = pl.launches[step.build_name]
     result = compare_planar_with_twin(step, inputs)
     assert pl.launches[step.build_name] == before + 2

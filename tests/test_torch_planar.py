@@ -32,6 +32,7 @@ Flags are compared exactly.
 
 import ctypes
 import hashlib
+import re
 import shutil
 import subprocess
 
@@ -215,8 +216,13 @@ def test_generated_source_is_stable_and_counted():
     step = dyn.lander_step(-10.0)
     world = step.world
     args = (world, ChunkTerrain(11, dyn.W / 10), (dyn._MOTOR_SPEED, dyn._MOTOR_TORQUE), 2, True, True, "x")
-    a = generate_planar_source(*args)
-    assert a.text == generate_planar_source(*args).text
+    # the build's own layout, a lane a body, runs the same operations as
+    # the one-thread form, whose text the checks below read
+    chosen = generate_planar_source(*args)
+    assert chosen.text == generate_planar_source(*args).text == step.source.text.replace(step.name, "x")
+    assert chosen.layout["lanes"] == 4 and "static constexpr int kLanes = 4;" in chosen.text
+    a = generate_planar_source(*args, lanes=1)
+    assert (chosen.prologue_ops, chosen.substep_ops) == (a.prologue_ops, a.substep_ops)
     with unrolled_generator():
         unrolled = generate_planar_source(*args)
     lines = [line.strip() for line in a.text.splitlines()]
@@ -247,6 +253,22 @@ def test_generated_source_is_stable_and_counted():
     lookups = len(world.contacts.body) * (1 + world.position_iterations)
     assert a.substep_ops["floor"] == lookups and a.substep_ops["ge"] == 9 * lookups
     assert step.source.ops_per_env == a.ops_per_env
+    # the shipped 4-lane text keeps that structure: the same rolled loops,
+    # every sine and cosine from one PL_SINCOS a phase (one for the bodies
+    # before the velocity pass; in a position iteration one for each of the
+    # hull's six probes, which run on its lane one after another, and two for
+    # each joint, both on the hull), and the external terms hoisted
+    shipped = [line.strip() for line in chosen.text.splitlines()]
+    sub = shipped.index("for (int sub = 0; sub < 2; ++sub) {")
+    assert shipped[sub - 1] == "PLANAR_NO_UNROLL"
+    for iterations in (world.velocity_iterations, world.position_iterations):
+        loop = f"for (int it = 0; it < {iterations}; ++it) {{"
+        assert shipped.count(loop) == 1 and shipped[shipped.index(loop) - 1] == "PLANAR_NO_UNROLL"
+    hull_probes = list(world.contacts.body).count(0)
+    assert sum(line.count("PL_SINCOS(") for line in shipped) == 1 + hull_probes + 2 * len(world.joints.body_a) == 11
+    assert not any("sincosf(" in line or "sinf(" in line or " cosf(" in line for line in shipped)
+    reads_ext = [i for i, line in enumerate(shipped) if re.search(r"\be\d+\b", line)]
+    assert reads_ext and max(reads_ext) < sub
 
 
 def test_unrolled_trace_is_the_first_port_program():
@@ -374,7 +396,15 @@ def test_walker_generated_source_is_counted():
     assert "static constexpr bool kMotors = true;" in lines and "static constexpr bool kJointCarry = false;" in lines
     assert sum(line.startswith("const float m") for line in lines) == 2 * J
     assert not any(line.startswith(("float j", "jimp[", "const float h", "const float e")) for line in lines)
-    assert sum(line.count("terrain[(int)") for line in lines) == 2 * (C + C)  # before the loops, and in the loop body
+    # the build's text: a probe phase a slot of the busiest body's probes
+    # (four), before the loops and in the position loop's body
+    assert src.layout["lanes"] == 8 and "static constexpr int kLanes = 8;" in lines
+    slots = max(list(world.contacts.body).count(b) for b in range(len(world.bodies.inv_mass)))
+    assert sum(line.count("terrain[(int)") for line in lines) == 2 * (slots + slots) == 16
+    one = generate_planar_source(*step._args, step.name, lanes=1)
+    assert (one.prologue_ops, one.substep_ops) == (src.prologue_ops, src.substep_ops)
+    # one thread an env: a lookup a probe, before the loops and in the loop body
+    assert sum(line.count("terrain[(int)") for line in one.text.splitlines()) == 2 * (C + C)
     assert step.build_name.startswith("planar_bipedal_walker_ss4_") and step.build_name != dyn.lander_step(-10.0).build_name
     assert planar_step.FusedPlanarStep(world, Heightfield(200, BW.TERRAIN_STEP), None, 2, False, False,
                                        name="bipedal_walker").build_name != step.build_name

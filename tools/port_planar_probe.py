@@ -41,10 +41,32 @@ nvcc's time, registers and spills (``-Xptxas -v``), its SASS instructions
 
 It prints one line per measurement, the card's name and power limit, and
 last one JSON object of every number.
+
+``python3 tools/port_planar_probe.py lanes`` runs only the lane-group sweep
+(:func:`lane_sweep`): each build of the walker and the lander at every lane
+count its world fits (``planar_codegen.LANE_CHOICES``, one lane included:
+the one-thread text) and at 32, 64 and 128 threads a block; beside them, at
+32 threads, the walker's groups with their heightfield in global memory
+(the generator stages it in shared memory). Each build's nvcc report
+(registers, spills, shared bytes), SASS instructions and loop bodies; each
+held to its twin in every bit at N=4096, 333 and 1; each timed by CUDA
+events at those N in turns (the list forward, then back), and by
+``torch.profiler`` at N=4096. Then the walker's end-to-end paths with the
+one-lane build and with the generator's own choice, in turns (one, chosen,
+chosen, one): the host step of ``make("BipedalWalker-v3")`` and the
+env-steps/s of ``make_vec("BipedalWalker-v3", 4096)``'s ``rollout(200)``.
+``lanes PATH`` also writes every number, as JSON, to ``PATH``.
+
+``python3 tools/port_planar_probe.py codegen`` needs no card: it times, on
+the host's clock, ``planar_codegen.generate_planar_source`` for both worlds
+and the ``lane_estimates`` inside it (:func:`codegen_seconds`), the work
+the first build of a world does in each process, the kernel's library
+cached or not.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import ctypes
 import dataclasses
@@ -60,16 +82,20 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from chip_smoke import (  # noqa: E402
+    BIPEDAL_RAGGED,
     PLANAR_GRAVITY,
     SASS_BYTES,
     card_line,
+    compare_planar_with_twin,
     cuda_ms,
     device_ms,
+    planar_bound_ms,
     planar_states,
     ptxas_summary,
     run_lunar_lander,
     sass_instructions,
     sass_text,
+    walker_states,
 )
 from gymnasium_tpu_torch.ops import build, planar_codegen  # noqa: E402
 from gymnasium_tpu_torch.ops.codegen import SymOps  # noqa: E402
@@ -139,7 +165,7 @@ class UnrolledSymOps(SymOps):
     ``cosf`` and ``sinf``, as the kernel's first port did. Equal nodes are
     still shared, so the program runs the same operations."""
 
-    def repeat(self, n, carried, body):
+    def repeat(self, n, carried, body, homes=None):
         carried = list(carried)
         for _ in range(n):
             carried = list(body(carried))
@@ -150,9 +176,13 @@ class UnrolledSymOps(SymOps):
         return self.sin(x), c
 
 
+@contextlib.contextmanager
 def unrolled_generator():
-    """Within it, ``planar_codegen.generate_planar_source`` emits the unrolled form."""
-    return mock.patch.object(planar_codegen, "SymOps", UnrolledSymOps)
+    """Within it, ``planar_codegen.generate_planar_source`` emits the unrolled
+    form, one thread an env."""
+    with mock.patch.object(planar_codegen, "SymOps", UnrolledSymOps), \
+            mock.patch.object(planar_codegen, "LANE_CHOICES", (1,)):
+        yield
 
 
 def _with_source(step, suffix: str, source):
@@ -181,6 +211,144 @@ def block_variant(step, block: int):
         raise RuntimeError("the planar source does not hold, once, the lines a block variant edits")
     text = text.replace(include, header.replace(PLANAR_BLOCK_LINE, f"constexpr int kBlock = {block};"))
     return _with_source(step, f"b{block}", dataclasses.replace(step.source, text=text))
+
+
+def lane_variant(step, lanes: int, block: int = 32, stage: bool = False):
+    """``step`` emitted over ``lanes`` lanes an env, with the heightfield
+    staged in shared memory where ``stage``, built with ``block`` threads a
+    block."""
+    source = planar_codegen.generate_planar_source(*step._args, step.name, lanes=lanes, stage_terrain=stage)
+    suffix = f"g{lanes}{'t' if stage else ''}"
+    other = _with_source(step, suffix, source)
+    return other if block == 32 else block_variant(other, block)
+
+
+LANE_BATCHES = (NUM_ENVS, BIPEDAL_RAGGED, 1)
+E2E_STEPS = 300  # host steps of make("BipedalWalker-v3") a turn
+E2E_ROLLOUT = 200
+
+
+def walker_e2e(dev, solver) -> dict:
+    """The walker's two end-to-end paths with ``solver`` as its fused step:
+    the host-clock ms a step of ``make("BipedalWalker-v3")`` (after a reset
+    and 20 untimed steps; an episode that ends is reset inside the timing)
+    and the env-steps/s of ``make_vec(..., 4096).rollout(200)`` after an
+    untimed ``rollout(5)``."""
+    import numpy as np
+
+    import gymnasium_tpu_torch as gym
+    from gymnasium_tpu_torch.envs.box2d import bipedal_walker as bw
+
+    with mock.patch.object(bw, "walker_solver", lambda: solver):
+        env = gym.make("BipedalWalker-v3")
+        env.reset(seed=0)
+        actions = np.random.default_rng(0).uniform(-1, 1, (E2E_STEPS + 20, 4)).astype(np.float32)
+        for a in actions[:20]:
+            env.step(a)
+        start = time.perf_counter()
+        for a in actions[20:]:
+            _, _, term, trunc, _ = env.step(a)
+            if term or trunc:
+                env.reset()
+        host_ms = (time.perf_counter() - start) * 1e3 / E2E_STEPS
+        env.close()
+        venv = gym.make_vec("BipedalWalker-v3", NUM_ENVS)
+        venv.reset(seed=0)
+        venv.rollout(5)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        venv.rollout(E2E_ROLLOUT)
+        torch.cuda.synchronize()
+        rate = NUM_ENVS * E2E_ROLLOUT / (time.perf_counter() - start)
+    return {"host_step_ms": host_ms, "rollout_env_steps_per_s": rate}
+
+
+def lane_sweep(dev, card: str) -> dict:
+    """The lane-group sweep of both planar builds (module docstring)."""
+    from gymnasium_tpu_torch.envs.box2d.bipedal_walker import walker_solver
+    from gymnasium_tpu_torch.envs.dynamics import lunar_lander as dyn
+
+    bases = {"bipedal_walker": walker_solver(), "lunar_lander": dyn.lander_step(PLANAR_GRAVITY)}
+    states = {"bipedal_walker": walker_states, "lunar_lander": planar_states}
+    variants = {}
+    for label, base in bases.items():
+        staged = base.source.layout["stage_terrain"]
+        for lanes in sorted(base.source.layout["estimates"]):
+            for block in BLOCKS:
+                variants[(label, lanes, block, staged and lanes > 1)] = lane_variant(base, lanes, block,
+                                                                                     staged and lanes > 1)
+            if staged and lanes > 1:
+                variants[(label, lanes, 32, False)] = lane_variant(base, lanes, 32, False)
+    built = build.build([], {step.build_name: step.source.text for step in variants.values()})
+    rows = []
+    for (label, lanes, block, stage), step in variants.items():
+        lib, info = build.library_path(step.build_name, step.source.text), built.get(step.build_name, {})
+        count = sass_instructions(lib)
+        bodies = loop_bodies(sass_text(lib))
+        rows.append({"build": label, "lanes": lanes, "block": block, "stage_terrain": stage,
+                     "build_name": step.build_name,
+                     "chosen": step.source.text == bases[label].source.text and block == 32,
+                     "estimate": bases[label].source.layout["estimates"][lanes],
+                     "sass_instructions": count, "code_bytes": SASS_BYTES * count,
+                     "loop_bodies": next((v for k, v in bodies.items() if "step_kernel" in k), []),
+                     "nvcc_s": info.get("seconds"), **ptxas_summary(info.get("log", ""))})
+        print(f"lanes build: {rows[-1]}", flush=True)
+    inputs = {(label, n): states[label](n, dev, seed=n) for label in bases for n in LANE_BATCHES}
+    for label, base in bases.items():  # the twin's sides and the chosen build's bits, once
+        compare_planar_with_twin(base, inputs[(label, NUM_ENVS)])
+    twins = {key: bases[key[0]].reference(*x) for key, x in inputs.items()}
+    for row, step in zip(rows, variants.values()):
+        for n in LANE_BATCHES:
+            got = step(*inputs[(row["build"], n)])
+            torch.cuda.synchronize()
+            row[f"bit_equal_{n}"] = all((a is None and b is None) or bits_equal(a, b)
+                                        for a, b in zip(got, twins[(row["build"], n)]))
+            if not row[f"bit_equal_{n}"]:
+                raise RuntimeError(f"{row['build_name']} differs from its twin at N={n}")
+        print(f"lanes {row['build_name']}: equal to the twin in every bit at N={LANE_BATCHES}", flush=True)
+    for row in rows:
+        row.update({f"events_ms_{n}": [] for n in LANE_BATCHES})
+    for label in bases:
+        mine = [(row, step) for row, step in zip(rows, variants.values()) if row["build"] == label]
+        for n in LANE_BATCHES:
+            for row, step in mine + mine[::-1]:
+                row[f"events_ms_{n}"].append(cuda_ms(lambda: step(*inputs[(label, n)]), 50, 5))
+        for row, step in mine:
+            row["device_ms_4096"] = device_ms(lambda: step(*inputs[(label, NUM_ENVS)]), "step_kernel", 50)
+            row["bound_ms_4096"] = planar_bound_ms(step, NUM_ENVS)[0]
+            print(f"lanes {label} G={row['lanes']} block={row['block']} "
+                  f"stage={row['stage_terrain']}: device {row['device_ms_4096']:.4f} ms at N={NUM_ENVS}; "
+                  + "; ".join(f"events N={n} {row[f'events_ms_{n}']}" for n in LANE_BATCHES), flush=True)
+    one = variants[("bipedal_walker", 1, 32, False)]
+    chosen = bases["bipedal_walker"]
+    e2e = {"one_lane": [], "chosen": []}
+    for name in ("one_lane", "chosen", "chosen", "one_lane"):
+        solver = one if name == "one_lane" else chosen
+        e2e[name].append(walker_e2e(dev, solver))
+        print(f"walker end to end, {name} ({solver.build_name}): {e2e[name][-1]}", flush=True)
+    return {"card": card, "rows": rows, "walker_e2e": e2e,
+            "layouts": {label: base.source.layout for label, base in bases.items()}}
+
+
+def codegen_seconds(repeats: int = 3) -> dict:
+    """Host seconds of each of ``repeats`` calls of
+    ``generate_planar_source`` for the walker's and the lander's worlds, and
+    of the ``lane_estimates`` on the traced program inside each."""
+    from gymnasium_tpu_torch.envs.box2d.bipedal_walker import walker_solver
+    from gymnasium_tpu_torch.envs.dynamics import lunar_lander as dyn
+
+    out = {}
+    for label, step in (("bipedal_walker", walker_solver()), ("lunar_lander", dyn.lander_step(PLANAR_GRAVITY))):
+        row = out[label] = {"generate_s": [], "lane_estimates_s": []}
+        for _ in range(repeats):
+            start = time.perf_counter()
+            planar_codegen.generate_planar_source(*step._args, step.name)
+            row["generate_s"].append(time.perf_counter() - start)
+            prog = planar_codegen._trace(planar_codegen.planar_tables(*step._args))
+            start = time.perf_counter()
+            planar_codegen.lane_estimates(prog)
+            row["lane_estimates_s"].append(time.perf_counter() - start)
+    return out
 
 
 def cartpole_library(name: str, text: str) -> ctypes.CDLL:
@@ -270,9 +438,23 @@ def bits_equal(a, b) -> bool:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["codegen"]:
+        print(json.dumps(codegen_seconds()))
+        return 0
     if not torch.cuda.is_available():
         print("port_planar_probe: no CUDA device is available", file=sys.stderr)
         return 2
+
+    if sys.argv[1:2] == ["lanes"]:
+        card = card_line()
+        print(card, flush=True)
+        result = lane_sweep(torch.device("cuda"), card)
+        if len(sys.argv) > 2:
+            out = Path(sys.argv[2])
+            out.parent.mkdir(parents=True, exist_ok=True)
+            out.write_text(json.dumps(result, indent=1))
+        print(json.dumps({k: v for k, v in result.items() if k != "rows"}))
+        return 0
 
     from gymnasium_tpu_torch.envs.dynamics import lunar_lander as dyn
     from gymnasium_tpu_torch.ops import cartpole_rollout as cr
