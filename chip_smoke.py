@@ -263,6 +263,7 @@ ART_ENVS = {
 # reset, ART_WARM_STEPS steps, a masked reset, rollout(ART_ROLLOUT). The
 # other robots reset and take rollout(ROBOT_ROLLOUT).
 ART_FULL_PATHS = ("half_cheetah", "ant")
+HUMANOID_RAGGED = 333  # a ragged batch for the Humanoid builds' check against the twin
 ART_TIME_LIMIT = 1000
 ART_WARM_STEPS = 4
 ART_ROLLOUT = 100
@@ -716,8 +717,8 @@ def articulated_bound_ms(step, n: int) -> tuple[float, str]:
 
 
 def built_layout(step) -> dict:
-    """A planar build's layout without the schedule's estimates: the facts
-    of the build, not the model's clocks."""
+    """A planar or articulated build's layout without the schedule's
+    estimates: the facts of the build, not the model's clocks."""
     return {k: v for k, v in step.source.layout.items() if k != "estimates"}
 
 
@@ -4341,7 +4342,13 @@ def smoke(xml_path: str) -> int:
     print(f"mjcf: compiled {xml_path} through load_model: nq {xml_model.nq}, nv {xml_model.nv}, "
           f"nu {xml_model.nu}, contacts {len(xml_model.contact_body)}, bodies {xml_meta['body_names']}", flush=True)
     more = {"swimmer_fs1": art.fused_step("swimmer", 1), "mjcf": art.fused_step(xml_path, MJCF_FRAME_SKIP)}
-    generated = {step.build_name: step.source.text for step in (*steps.values(), *more.values())}
+    generated, generate_s = {}, {}
+    for step in (*steps.values(), *more.values()):  # each robot's layout choice and text, timed
+        began_one = time.perf_counter()
+        generated[step.build_name] = step.source.text
+        generate_s[step.build_name] = time.perf_counter() - began_one
+    print("generate seconds a build (the layout choice included): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in generate_s.items()), flush=True)
     generated[planar.build_name] = planar.source.text
     generated[walker.build_name] = walker.source.text
     print(f"generate: {time.perf_counter() - start:.2f} s; operations an env-call: "
@@ -4548,10 +4555,15 @@ def smoke(xml_path: str) -> int:
     for name, step in (*steps.items(), *more.items()):
         art_inputs[name] = articulated_states(step.model, NUM_ENVS, dev)
         art_errs[name] = compare_articulated_with_twin(step, *art_inputs[name])
+        lay, info = built_layout(step), ptxas.get(step.build_name, {})
         print(f"articulated kernel vs twin ({name}, N={NUM_ENVS}, frame_skip {step.frame_skip}, "
-              f"layout {step.source.layout}): max|dq|={art_errs[name][0]:.3e} max|dqd|={art_errs[name][1]:.3e}, "
+              f"layout {lay}): max|dq|={art_errs[name][0]:.3e} max|dqd|={art_errs[name][1]:.3e}, "
               f"bit_equal={art_errs[name][3]}; deterministic; {art_errs[name][2]} lanes on the small-angle side",
               flush=True)
+        print(f"articulated layout {name}: {lay['parts']} warps a group, {lay['env_groups']} groups a block, "
+              f"code bytes {SASS_BYTES * sass[step.build_name]}, {info.get('registers')} registers, "
+              f"spill stores {info.get('spill_stores')} B, {lay['shared_bytes_per_block']} shared bytes a block, "
+              f"generated in {generate_s[step.build_name]:.3f} s", flush=True)
 
     # -- the planar kernel against its twin -----------------------------------
     planar_inputs = planar_states(NUM_ENVS, dev)
@@ -4575,9 +4587,10 @@ def smoke(xml_path: str) -> int:
 
     # -- the registry paths' kernels at a batch of one and a ragged batch -----
     small = {"articulated_step[half_cheetah]": {}, "articulated_step[ant]": {},
+             "articulated_step[humanoid]": {}, "articulated_step[humanoidstandup]": {},
              "planar_step[lunar_lander]": {}, "planar_step[bipedal_walker]": {}}
     for n_small in (1, RAGGED_ENVS):
-        for name in ("half_cheetah", "ant"):
+        for name in ("half_cheetah", "ant", "humanoid", "humanoidstandup"):
             inputs = articulated_states(steps[name].model, n_small, dev, seed=n_small)
             dq, dqd, lanes, bits = compare_articulated_with_twin(steps[name], *inputs)
             small[f"articulated_step[{name}]"][n_small] = {
@@ -4588,7 +4601,15 @@ def smoke(xml_path: str) -> int:
             cmp = compare_planar_with_twin(step, inputs, every_branch=False)
             cmp["events_ms"] = cuda_ms(lambda: step(*inputs), 50, 5)
             small[f"planar_step[{label}]"][n_small] = cmp
-    print(f"kernels vs twins at N=1 and N={RAGGED_ENVS}: {json.dumps(small)}", flush=True)
+    # the Humanoid builds at a ragged N too, where the last block holds envs past the end
+    for name in ("humanoid", "humanoidstandup"):
+        inputs = articulated_states(steps[name].model, HUMANOID_RAGGED, dev, seed=HUMANOID_RAGGED)
+        dq, dqd, lanes, bits = compare_articulated_with_twin(steps[name], *inputs)
+        small[f"articulated_step[{name}]"][HUMANOID_RAGGED] = {
+            "max_abs_err": max(dq, dqd), "bit_equal": bits, "small_angle_lanes": lanes,
+            "events_ms": cuda_ms(lambda: steps[name](*inputs), 50, 5)}
+    print(f"kernels vs twins at N=1, N={RAGGED_ENVS} (the Humanoids also N={HUMANOID_RAGGED}): {json.dumps(small)}",
+          flush=True)
     lap("the kernels against their twins")
     # every host env's build at a batch of one, as its env step launches it
     host_small = {}
@@ -4682,10 +4703,11 @@ def smoke(xml_path: str) -> int:
                 "bit_equal": art_errs[name][3],
                 "frame_skip": step.frame_skip,
                 "small_angle_lanes": art_errs[name][2],
-                **step.source.layout,
+                **built_layout(step),
                 "ops_per_env": step.source.ops_per_env,
                 "sass_instructions": sass[step.build_name],
                 "code_bytes": SASS_BYTES * sass[step.build_name],
+                "generate_s": generate_s[step.build_name],
                 "nvcc_s": built.get(step.build_name, {}).get("seconds"),
                 **ptxas.get(step.build_name, {}),
                 "ok": True,

@@ -19,11 +19,14 @@
 // HalfCheetah, while it runs several thousand float operations a substep
 // (the generator counts them). So operations bound it, at one float32
 // operation a lane a clock (-fmad=false: no add or multiply is fused). Far
-// from that bound, the time is set by how long a warp takes to walk its
-// substep: thousands of instructions, about 4 clocks each, with one warp a
-// scheduler.
+// from that bound, the time is set by how long a group of envs takes to
+// walk its substep: tens of thousands of dependent instructions for the
+// largest robots, and by what the SMs share while they walk it (instruction
+// fetch and spills through L2).
 //
-// Two layouts:
+// Two layouts; the generator picks one for each robot by its layout model
+// (ops/warp_partition.py::layout_clocks, fitted to the card), together with
+// kParts and kGroups:
 //
 // - One thread an env (ART_ENTRY_POINTS, run(q, qd, ctrl)): each thread
 //   loads q, qd and ctrl into registers, runs frame_skip substeps of
@@ -36,13 +39,18 @@
 //   makes the partition: ops/warp_partition.py). Partitions exchange values
 //   through the group's shared memory, slot s of env l at [s * 32 + l], so a
 //   warp's 32 lanes hit 32 banks; between phases the group's warps meet at
-//   their own named barrier (bar.sync 1 + group, 32 * kParts). N=4096 then
-//   gives 128 * kParts warps over up to 128 SMs, and each walks about a
-//   kParts-th of the substep. The values carried from one substep to the
-//   next end each substep in slots 0 .. kNq + kNv - 1, from which the
-//   group's threads store q' and qd' at the end, coalesced. Recomputed
-//   operations and the shared-memory traffic are overhead, not work: the
-//   bound counts each distinct operation once.
+//   their own named barrier (bar.sync 1 + group, 32 * kParts). A block holds
+//   kGroups groups. N=4096 then gives 128 * kParts warps over up to 128
+//   SMs, and each walks about a kParts-th of the substep. The values carried
+//   from one substep to the next end each substep in slots 0 .. kNq + kNv - 1,
+//   from which the group's threads store q' and qd' at the end, coalesced.
+//   Recomputed operations and the shared-memory traffic are overhead, not
+//   work: the bound counts each distinct operation once.
+//
+// A group's partitions spread over the blocks of a thread-block cluster,
+// exchanging through distributed shared memory, ran slower than one block on
+// every robot measured (Humanoid 0.4872 ms at best against 0.3349 in one
+// block of 8 warps on an H100: PERF.md), so no layout uses clusters.
 //
 // The build uses precise sinf/cosf/sqrtf, IEEE division and -fmad=false, so
 // every operation rounds where the plain twin's does, in either layout.

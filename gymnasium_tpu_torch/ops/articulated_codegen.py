@@ -27,6 +27,10 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import hashlib
+import json
+import os
+from pathlib import Path
 
 import numpy as np
 
@@ -40,7 +44,14 @@ from gymnasium_tpu_torch.ops.codegen import (
     _ref,
     _statement,
 )
-from gymnasium_tpu_torch.ops.warp_partition import SHARED_BYTES_MAX, partition, sincos_pairs
+from gymnasium_tpu_torch.ops import warp_partition
+from gymnasium_tpu_torch.ops.build import BUILD_DIR
+from gymnasium_tpu_torch.ops.warp_partition import (
+    SHARED_BYTES_MAX,
+    layout_clocks,
+    partition,
+    sincos_pairs,
+)
 from gymnasium_tpu_torch.physics.articulated import (
     HINGE,
     SLIDE,
@@ -63,19 +74,29 @@ __all__ = [
     "GeneratedSource",
     "generate_source",
     "substep_program",
-    "WARP_PARTS",
-    "ENV_GROUPS",
+    "choose_layout",
+    "layout_candidates",
 ]
 
-#: Warps that share each group of 32 envs, one partition of the substep each,
-#: by robot, and groups of 32 envs a block. HalfCheetah's and Ant's were
-#: chosen from the sweep of ``tools/port_articulated_probe.py`` on an H100
-#: (PERF.md). Humanoid's substep has twice Ant's operations, whose one-thread
-#: form spills, so both Humanoid models take the layout the probe built and
-#: held to the twin, unswept. A robot not listed runs one thread an env, 128
-#: threads a block.
-WARP_PARTS = {"half_cheetah": 4, "ant": 8, "humanoid": 4, "humanoidstandup": 4}
-ENV_GROUPS = {"half_cheetah": 2, "ant": 1, "humanoid": 1, "humanoidstandup": 1}
+#: The layout of a robot's kernel is the one the layout model
+#: (``warp_partition.layout_clocks``) gives the fewest clocks at this many
+#: envs, the batch of the vector envs and of the PPO step, among one thread
+#: an env and ``G`` warps a group of 32 envs for each ``G`` of
+#: :data:`PART_CHOICES`, with as many groups a block as the card's limits
+#: allow.
+LAYOUT_ENVS = 4096
+PART_CHOICES = (4, 8, 16)
+MAX_WARPS_BLOCK = 32
+MAX_NAMED_GROUPS = 15  # named barriers 1..15, one a group
+#: Layouts within this share of the fewest clocks tie, and the tie goes to
+#: the fewest warps a group, then the fewest groups a block: the fitted
+#: model does not rank layouts this close as the card does (Walker2d's 4 x 2
+#: ran 6 % faster than its 8 x 2, 0.6 % apart in the model; PERF.md).
+LAYOUT_TIE = 0.01
+#: Where each choice of :func:`kept_choice` is kept, beside the kernels'
+#: builds: choosing takes seconds for a Humanoid, and every process that
+#: steps one would choose again before it finds its built kernel.
+CHOICE_DIR = BUILD_DIR / "layouts"
 
 # ---------------------------------------------------------------------------
 # Folding helpers: a python float 0.0 is a structural zero, 1.0 a unit.
@@ -592,6 +613,60 @@ def substep_program(t: ModelTables):
     return [n for n in live if not n.varying], [n for n in live if n.varying], outputs
 
 
+def layout_candidates(t: ModelTables, body) -> dict:
+    """Every layout the rule weighs, ``(parts, groups) -> WarpPartition``:
+    one thread an env (``(1, 4)``: 128 threads a block) and ``parts`` warps
+    a group with ``groups`` groups a block, within the card's limits (warps
+    a block, named barriers, shared memory a block), each ``parts`` with
+    the partition :func:`~gymnasium_tpu_torch.ops.warp_partition.partition`
+    gives."""
+    carried = t.nq + t.nv
+    out = {(1, 4): partition(body, 1, carried)}
+    for parts in PART_CHOICES:
+        wp = partition(body, parts, carried)
+        for groups in range(1, min(MAX_WARPS_BLOCK // parts, MAX_NAMED_GROUPS) + 1):
+            if wp.shared_bytes(groups) > SHARED_BYTES_MAX:
+                break
+            out[(parts, groups)] = wp
+    return out
+
+
+def choose_layout(t: ModelTables, body, frame_skip: int) -> tuple[tuple, object, dict]:
+    """The layout with the fewest clocks in the layout model at
+    :data:`LAYOUT_ENVS` envs, the smallest of those within
+    :data:`LAYOUT_TIE` of it: ``((parts, groups), WarpPartition, {layout:
+    clocks})``."""
+    candidates = layout_candidates(t, body)
+    clocks = {key: layout_clocks(wp, key[1], LAYOUT_ENVS, frame_skip)["clocks"] for key, wp in candidates.items()}
+    least = min(clocks.values())
+    best = min(key for key, c in clocks.items() if c <= least * (1 + LAYOUT_TIE))
+    return best, candidates[best], clocks
+
+
+def kept_choice(t: ModelTables, body, frame_skip: int) -> tuple[tuple, object, dict]:
+    """:func:`choose_layout`'s answer, read from :data:`CHOICE_DIR` when an
+    earlier call kept it (then without its ``WarpPartition``: None), else
+    chosen and kept. The key is a digest of the substep program, the widths,
+    ``frame_skip`` and the code that chooses (this module and
+    ``warp_partition``), so any change to one of them chooses again."""
+    digest = hashlib.sha256(f"{frame_skip} {t.nq} {t.nv}\n".encode())
+    digest.update("\n".join(_statement(n) for n in body).encode())
+    for module in (__file__, warp_partition.__file__):
+        digest.update(Path(module).read_bytes())
+    path = CHOICE_DIR / f"{digest.hexdigest()[:24]}.json"
+    try:
+        kept = json.loads(path.read_text())
+        return tuple(kept["layout"]), None, {tuple(key): c for key, c in kept["clocks"]}
+    except (OSError, ValueError, KeyError, TypeError):
+        pass
+    best, wp, clocks = choose_layout(t, body, frame_skip)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    partial = path.with_name(f"{path.name}.{os.getpid()}")  # written whole, then renamed
+    partial.write_text(json.dumps({"layout": best, "clocks": [[list(key), c] for key, c in clocks.items()]}))
+    os.replace(partial, path)
+    return best, wp, clocks
+
+
 def generate_source(
     model: ArticulatedModel, frame_skip: int, name: str, parts: int | None = None, groups: int | None = None
 ) -> GeneratedSource:
@@ -605,21 +680,27 @@ def generate_source(
     the same text without a card.
 
     ``parts`` warps share each group of 32 envs and ``groups`` groups share
-    a block; by default the robot's entries of :data:`WARP_PARTS` and
-    :data:`ENV_GROUPS`. With one part, ``run(q, qd, ctrl)`` holds the whole
-    step in one thread's registers. With more, the substep's operations are
-    partitioned over the warps (:func:`~gymnasium_tpu_torch.ops.warp_partition.partition`)
-    and ``run<part>(q, qd, ctrl, x)`` is one partition, exchanging values
+    a block (1 by default); with no ``parts`` the layout is
+    :func:`choose_layout`'s (:func:`kept_choice`). With one part,
+    ``run(q, qd, ctrl)`` holds the whole step in one thread's registers.
+    With more, the substep's operations are partitioned over the warps
+    (:func:`~gymnasium_tpu_torch.ops.warp_partition.partition`) and
+    ``run<part>(q, qd, ctrl, x)`` is one partition, exchanging values
     through the group's shared memory ``x`` between phases.
     """
     if frame_skip < 1:
         raise ValueError(f"frame_skip must be at least 1, got {frame_skip}")
-    parts = WARP_PARTS.get(name, 1) if parts is None else parts
-    groups = ENV_GROUPS.get(name, 1) if groups is None else groups
-    if parts < 1 or groups < 1 or parts * groups > 32 or groups > 15:
-        raise ValueError(f"{parts} warps a group and {groups} groups a block do not fit a block")
     t = model_tables(model)
     prologue, body, outputs = substep_program(t)
+    estimates = None
+    if parts is None:
+        (parts, groups), wp, clocks = kept_choice(t, body, frame_skip)
+        estimates = {"g{}x{}".format(*key): round(c) for key, c in sorted(clocks.items(), key=lambda kv: kv[1])}
+    else:
+        groups = 1 if groups is None else groups
+        wp = None
+    if parts < 1 or groups < 1 or parts * groups > MAX_WARPS_BLOCK or groups > MAX_NAMED_GROUPS:
+        raise ValueError(f"{parts} warps a group and {groups} groups a block do not fit a block")
     prologue_ops = dict(collections.Counter(n.kind for n in prologue))
     substep_ops = dict(collections.Counter(n.kind for n in body))
 
@@ -627,7 +708,8 @@ def generate_source(
         return ", ".join(f"{k} {v}" for k, v in sorted(c.items()))
 
     if parts > 1:
-        wp = partition(body, parts, t.nq + t.nv)
+        if wp is None:
+            wp = partition(body, parts, t.nq + t.nv)
         if wp.shared_bytes(groups) > SHARED_BYTES_MAX:
             raise ValueError(f"{name} on {parts} warps needs {wp.shared_bytes(groups)} B of shared memory a "
                              f"block of {groups} groups, more than {SHARED_BYTES_MAX}")
@@ -642,6 +724,8 @@ def generate_source(
             "recomputed_ops": len(wp.recomputed),
             "shared_bytes_per_block": wp.shared_bytes(groups),
         }
+        if estimates is not None:
+            layout["estimates"] = estimates
         return GeneratedSource(name, frame_skip, "\n".join(lines), prologue_ops, substep_ops, layout)
 
     ind2, ind3 = " " * 4, " " * 6
@@ -673,6 +757,8 @@ def generate_source(
     lines += ["  }", "};", "", "ART_ENTRY_POINTS(ArticulatedStep)", ""]
     layout = {"parts": 1, "env_groups": 4, "phases": 1, "exchanged": 0, "exchange_loads": 0,
               "recomputed_ops": 0, "shared_bytes_per_block": 0}
+    if estimates is not None:
+        layout["estimates"] = estimates
     return GeneratedSource(name, frame_skip, "\n".join(lines), prologue_ops, substep_ops, layout)
 
 

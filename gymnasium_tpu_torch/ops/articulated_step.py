@@ -5,11 +5,12 @@ with the same batch-first signature, ``(q (N, nq), qd (N, nv), ctrl (N, nu))
 -> (q', qd')`` in float32, running ``frame_skip`` substeps of the MuJoCo-class
 engine. On a CUDA tensor the step launches a kernel generated for the model
 (:func:`~gymnasium_tpu_torch.ops.articulated_codegen.generate_source`, with
-the fixed part in ``csrc/articulated_step.cuh``): for a robot of
-``articulated_codegen.WARP_PARTS``, several warps share each group of 32
-envs, one partition of the substep each; otherwise one thread an env, the
-whole step in registers. On a CPU tensor it runs the plain twin, the same
-generator over ``(N,)`` torch tensors. A failed build or launch raises; it
+the fixed part in ``csrc/articulated_step.cuh``) in the layout the
+generator's layout model picks for the robot
+(``articulated_codegen.choose_layout``): several warps a group of 32 envs,
+one partition of the substep each, or one thread an env, the whole step in
+registers. On a CPU tensor it runs the plain twin, the same generator over
+``(N,)`` torch tensors. A failed build or launch raises; it
 never gives way to the twin.
 """
 
@@ -126,9 +127,9 @@ def make_fused_step(model: ArticulatedModel, frame_skip: int = 1, name: str = "m
     """The fused step of ``frame_skip`` substeps of ``model``.
 
     ``name`` names the generated source and its library; models that differ
-    must not share it; it also picks the robot's warp layout
-    (``articulated_codegen.WARP_PARTS``). The kernel is generated and built
-    at its first launch.
+    must not share it. The kernel's layout is the layout model's choice for
+    the model (``articulated_codegen.choose_layout``); it is generated and
+    built at its first launch.
     """
     return FusedStep(model, frame_skip, name)
 

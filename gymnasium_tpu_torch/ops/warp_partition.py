@@ -28,6 +28,8 @@ the live body nodes of :mod:`gymnasium_tpu_torch.ops.codegen`:
 
 Every node is still the same operation on the same operands, so every value
 keeps its bits. With one partition there is nothing to place.
+:func:`layout_clocks` is the model that ranks the layouts of a placement
+(warps a group, groups a block) on the card.
 
 The planar kernel lays one env over a group of ``G`` lanes of one warp
 instead (:func:`lane_schedule`). Lanes of a warp issue one instruction
@@ -52,7 +54,10 @@ import collections
 import dataclasses
 import heapq
 
-__all__ = ["WarpPartition", "partition", "sincos_pairs", "SHARED_BYTES_MAX", "lane_schedule", "unit_shape"]
+import numpy as np
+
+__all__ = ["WarpPartition", "partition", "layout_clocks", "sincos_pairs", "SHARED_BYTES_MAX", "ONE_GROUP_SLOTS",
+           "lane_schedule", "unit_shape"]
 
 #: Latency in clocks of one operation, as the schedule counts it: sqrt and
 #: the IEEE divide 20, sin, cos and one sincosf 40, everything else 4.
@@ -66,6 +71,7 @@ _CHEAP = frozenset({"add", "sub", "mul", "neg", "max", "min", "gt", "lt", "ge", 
 _BUDGET_FRACTIONS = (1 / 32, 1 / 16, 1 / 8, 1 / 4, 1 / 2)
 #: Shared memory one block may use on an H100 (227 KB, dynamic above 48 KB).
 SHARED_BYTES_MAX = 232_448
+ONE_GROUP_SLOTS = SHARED_BYTES_MAX // (4 * 32)  # the most exchange slots one group of a block may have
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +94,10 @@ class WarpPartition:
     slots: int  # exchange floats an env, the carried slots first
     carried: int
     estimate: int  # clocks of one substep in the schedule's own cost model (not a measurement)
+    segments: list  # [phase][part]: clocks in the cost model
+    issues: list  # [phase][part]: statements, loads and stores issued
+    moved: list  # [phase][part]: values loaded and stored
+    live: list  # [part]: the most values held in registers across a phase boundary
 
     @property
     def exchanged(self) -> int:
@@ -141,6 +151,7 @@ class _Graph:
             members[root[i]].append(i)
         self.members = dict(members)
         self.ext = {c: sorted({j for i in m for j in self.preds[i] if root[j] != c}) for c, m in members.items()}
+        self.ext_set = {c: frozenset(ext) for c, ext in self.ext.items()}
         self.cusers = collections.defaultdict(set)
         for c, ext in self.ext.items():
             for j in ext:
@@ -164,7 +175,7 @@ def _place(g: _Graph, parts: int, budget: float):
         blocked = []
 
         def missing(c, p):
-            return sum(1 for j in g.ext[c] if j not in held[p])
+            return len(g.ext_set[c] - held[p])
 
         while True:
             open_parts = [p for p in range(parts) if not idle[p] and load[p] < budget]
@@ -261,21 +272,30 @@ def _finish(g: _Graph, where, phases: int, parts: int, carried: int):
         slot_of[j] = s
         heapq.heappush(busy, (last_read[j], s))
     seg = [[0] * parts for _ in range(phases)]
+    issue = [[0] * parts for _ in range(phases)]
+    moved = [[0] * parts for _ in range(phases)]
     for p in range(parts):
         for i, k in computed[p].items():
             seg[k][p] += g.cost[i]
+            issue[k][p] += 1
     for (j, q), k in need.items():
         seg[k][q] += _EXCHANGE
+        issue[k][q] += 1
+        moved[k][q] += 1
     for j in slot_of:
         seg[node_phase[j]][node_part[j]] += _EXCHANGE
+        issue[node_phase[j]][node_part[j]] += 1
+        moved[node_phase[j]][node_part[j]] += 1
     estimate = sum(max(s) for s in seg) + _BARRIER * phases
-    return node_phase, node_part, computed, need, recomputed, slot_of, top, estimate
+    return node_phase, node_part, computed, need, recomputed, slot_of, seg, issue, moved, top, estimate
 
 
 def partition(body, parts: int, carried: int) -> WarpPartition:
     """Place the live body nodes (creation order, no loop nodes) of one
     substep on ``parts`` warps; ``carried`` slots are kept for the values
-    carried between substeps."""
+    carried between substeps. The placement of least estimate wins, the
+    fewest slots on a tie, among those whose slots fit one group in a block
+    (:data:`ONE_GROUP_SLOTS`) if any does."""
     if parts < 1:
         raise ValueError(f"parts must be at least 1, got {parts}")
     if any(n.kind in ("loop", "sincos") for n in body):
@@ -286,10 +306,10 @@ def partition(body, parts: int, carried: int) -> WarpPartition:
     for fraction in _BUDGET_FRACTIONS if parts > 1 else (1.0,):
         where, phases = _place(g, parts, max(total / parts * fraction, 1.0))
         result = _finish(g, where, phases, parts, carried)
-        key = (result[-1], result[-2])  # estimate, then slots
+        key = (result[-2] > ONE_GROUP_SLOTS, result[-1], result[-2])  # fits, estimate, slots
         if best is None or key < best[0]:
             best = (key, phases, result)
-    _, phases, (node_phase, node_part, computed, need, recomputed, slot_of, slots, estimate) = best
+    _, phases, (node_phase, node_part, computed, need, recomputed, slot_of, seg, issue, moved, slots, estimate) = best
     blocks = [[[] for _ in range(parts)] for _ in range(phases)]
     for p in range(parts):
         for i, k in sorted(computed[p].items()):
@@ -311,7 +331,114 @@ def partition(body, parts: int, carried: int) -> WarpPartition:
         slots=slots,
         carried=carried,
         estimate=estimate,
+        segments=seg,
+        issues=issue,
+        moved=moved,
+        live=_live(blocks, loads, parts, phases),
     )
+
+
+def _live(blocks, loads, parts: int, phases: int) -> list:
+    """``live[p]``: the most values partition p holds in registers across a
+    phase boundary (computed or loaded before it, read at or after it); with
+    one phase (one thread an env), the most values live at once in emission
+    order."""
+    live = [0] * parts
+    for p in range(parts):
+        if phases == 1:  # positions in emission order stand for phases
+            enter = {n.id: i for i, n in enumerate(blocks[0][p])}
+            last = {a.id: i for i, n in enumerate(blocks[0][p]) for a in n.args}
+            steps = len(blocks[0][p])
+        else:
+            enter, last = {}, {}
+            for k in range(phases):
+                for n, _ in loads[k][p]:
+                    enter[n.id] = k
+                for n in blocks[k][p]:
+                    enter.setdefault(n.id, k)
+                    last.update(dict.fromkeys((a.id for a in n.args), k))
+            steps = phases
+        crossing = [0] * (steps + 1)
+        for i, k in enter.items():
+            if i in last and last[i] > k:
+                crossing[k + 1] += 1
+                crossing[last[i] + 1] -= 1
+        run = 0
+        for k in range(steps):
+            run += crossing[k]
+            live[p] = max(live[p], run)
+    return live
+
+
+# ---------------------------------------------------------------------------
+# The layout model: clocks of a call for a placement, ``groups`` groups of 32
+# envs a block. Each SM walks its phases at the pace of the slower of its
+# warps' own chains (the schedule's segments, scaled) and its four
+# schedulers' issue; a phase ends at the group's named barrier; and what an
+# SM fetches from L2 each substep (its code past the instruction cache, the
+# values its threads spill) comes at the L2's rate shared by the busy SMs.
+# Waves of blocks run one after another. The card's limits are the H100's;
+# the fitted constants are those of ``tools/port_articulated_fit.py`` over
+# the probe's sweeps (PERF.md).
+
+SMS = 132
+SCHEDULERS = 4  # warp schedulers an SM, each issuing one instruction a clock
+WARPS_SM = 64
+SHARED_SM = 233_472  # shared memory of an SM, of which one block may have SHARED_BYTES_MAX
+REGISTERS_SM = 65_536
+SASS_BYTES = 16
+SASS_PER_STATEMENT = 1.3  # SASS instructions an emitted statement, load or store takes (the HalfCheetah and Ant builds)
+#: The constants ``tools/port_articulated_fit.py`` fitted to three of the
+#: probe's sweeps on an H100, in sample: no held-out check (PERF.md).
+#: ``spill_live_one`` was set by hand (one thread an env spills above about
+#: 360 live values: Pusher, Ant).
+MODEL = {
+    "issue_scale": 3.69,  # clocks a scheduler takes for one instruction of each warp it holds
+    "latency_scale": 1.36,  # real clocks a schedule clock of one warp's chain takes
+    "block_barrier": 99.075,  # clocks a group's named barrier adds a phase ...
+    "barrier_warp": 0.01,  # ... and for each warp it holds
+    "exchange": 7.742,  # clocks each load or store adds to its warp's chain beyond the schedule's
+    "spill_live": 388.433,  # values a thread holds across phases (carried ones too) before it spills
+    "spill_live_one": 360.0,  # the same, one thread an env (its live values counted in emission order)
+    "spill_bytes": 1249.791,  # L2 bytes a substep each value past those costs a warp
+    "icache_bytes": 41311.837,  # code an SM runs without fetching all of it again each substep
+    "warm_fetch": 0.01,  # the share of its code an SM fetches again each substep when the code fits
+    "l2_sms": 29.006,  # SMs that take all of the L2's rate between them; fewer get as much each
+    "l2_rate": 2492.298,  # L2 bytes a clock all the SMs get together
+}
+
+
+def layout_clocks(wp: WarpPartition, groups: int, envs: int, substeps: int = 1, model: dict | None = None) -> dict:
+    """The layout model's clocks of one call at ``envs`` envs (``model``
+    overrides :data:`MODEL`), with its parts: waves of blocks, blocks an SM,
+    busy SMs, code bytes, L2 and phase clocks a substep."""
+    c = {**MODEL, **(model or {})}
+    warps = wp.parts * groups
+    shared = wp.shared_bytes(groups)
+    # ptxas keeps a thread within 65,536 registers over the block's threads
+    # (__launch_bounds__), at most 255: a smaller budget spills sooner
+    cap = min(255, REGISTERS_SM // (32 * warps) // 8 * 8)
+    threshold = (c["spill_live"] if wp.phases > 1 else c["spill_live_one"]) * cap / 255
+    excess = np.maximum(0.0, np.asarray(wp.live, dtype=np.float64) + wp.carried - threshold)
+    registers = min(255, 32 + max(wp.live) + wp.carried)
+    resident = max(1, min(SHARED_SM // (shared + 1024) if shared else 32, WARPS_SM // warps,
+                          REGISTERS_SM // (registers * 32 * warps)))
+    # the card spreads blocks over its SMs before it stacks them on one
+    blocks = -(-(-(-envs // 32)) // groups)
+    waves = -(-blocks // (SMS * resident))
+    busy_sms = min(SMS, blocks)
+    stacked = groups * min(resident, -(-blocks // SMS))  # groups an SM runs at once
+    seg, moved, issues = (np.asarray(x, dtype=np.float64) for x in (wp.segments, wp.moved, wp.issues))
+    chain = c["latency_scale"] * seg + c["exchange"] * moved
+    latency = chain.max(axis=1) + c["block_barrier"] + c["barrier_warp"] * wp.parts
+    slots = c["issue_scale"] * stacked * issues.sum(axis=1) / min(SCHEDULERS, wp.parts * stacked)
+    phase_clocks = float(np.maximum(latency, slots).sum())
+    code = float(SASS_BYTES * SASS_PER_STATEMENT * issues.sum())
+    spilled = c["spill_bytes"] * stacked * float(excess.sum())
+    fetched = code * (1.0 if code > c["icache_bytes"] else c["warm_fetch"]) + spilled
+    l2_clocks = fetched / (c["l2_rate"] / max(busy_sms, c["l2_sms"]))
+    return {"clocks": waves * substeps * (phase_clocks + l2_clocks), "waves": waves, "resident_blocks": resident,
+            "busy_sms": busy_sms, "code_bytes": int(code), "l2_clocks": l2_clocks, "phase_clocks": phase_clocks}
 
 
 def unit_shape(nodes) -> tuple:

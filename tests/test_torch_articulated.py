@@ -168,9 +168,9 @@ def _host_step(tmp_path, robot, frame_skip, parts=None):
 
 @pytest.mark.parametrize("robot, frame_skip", [("reacher", 2), ("half_cheetah", 5), ("ant", 1)])
 def test_emitted_source_matches_twin_on_host(request, tmp_path, robot, frame_skip):
-    """The robot's own layout: warp-specialised for half_cheetah and ant
-    (``articulated_codegen.WARP_PARTS``), run on the host one partition after
-    another, phase by phase."""
+    """The robot's own layout (``articulated_codegen.choose_layout``):
+    warp-specialised for half_cheetah and ant, run on the host one partition
+    after another, phase by phase."""
     model, _ = load_model(robot)
     q, qd, ctrl = _states(model, 512, seed=2)
     cq, cqd = _host_step(tmp_path, robot, frame_skip)(q, qd, ctrl)

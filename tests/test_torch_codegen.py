@@ -22,8 +22,6 @@ import torch
 
 from gymnasium_tpu_torch.envs.mujoco.mujoco_env import load_model
 from gymnasium_tpu_torch.ops.articulated_codegen import (
-    ENV_GROUPS,
-    WARP_PARTS,
     generate_source,
     model_tables,
     substep_program,
@@ -233,8 +231,9 @@ def _run_phases(body, outputs, wp):
         assert o.id not in body_ids or o.id in held[wp.owner[o.id]]
 
 
-PARTITION_CASES = [("half_cheetah", 2), ("half_cheetah", WARP_PARTS["half_cheetah"]), ("ant", 2),
-                   ("ant", WARP_PARTS["ant"]), ("hopper", 2), ("hopper", 4), ("reacher", 2), ("reacher", 4)]
+# HalfCheetah's and Ant's shipped layouts (4 and 8 warps) among them
+PARTITION_CASES = [("half_cheetah", 2), ("half_cheetah", 4), ("ant", 2),
+                   ("ant", 8), ("hopper", 2), ("hopper", 4), ("reacher", 2), ("reacher", 4)]
 
 
 @pytest.mark.parametrize("robot, parts", PARTITION_CASES)
@@ -260,14 +259,23 @@ def test_warp_partition_places_every_node_once_and_reads_only_earlier_phases(rob
     assert wp.exchanged == len({n.id for phase in wp.stores for s in phase for n, _ in s})
 
 
-@pytest.mark.parametrize("robot", sorted(WARP_PARTS))
+#: The layout each robot's kernel ships with, ``(warps a group, groups a
+#: block)``: the fastest the probe's sweeps measured on an H100 at 4096 envs
+#: (PERF.md: HalfCheetah 4 x 2 and Ant 8 x 1 as before, Humanoid and
+#: HumanoidStandup 8 x 1 in place of 4 x 1).
+SHIPPED_LAYOUTS = {"ant": (8, 1), "half_cheetah": (4, 2), "humanoid": (8, 1), "humanoidstandup": (8, 1)}
+
+
+@pytest.mark.parametrize("robot", sorted(SHIPPED_LAYOUTS))
 def test_shipped_layout_fits_the_shared_memory_of_a_block(robot):
+    """The layout model picks the layout measured fastest, and it fits a block."""
     model, _ = load_model(robot)
-    layout = generate_source(model, 5, robot).layout
-    assert (layout["parts"], layout["env_groups"]) == (WARP_PARTS[robot], ENV_GROUPS[robot])
+    src = generate_source(model, 5, robot)
+    layout = src.layout
+    assert (layout["parts"], layout["env_groups"]) == SHIPPED_LAYOUTS[robot]
     assert 0 < layout["shared_bytes_per_block"] <= SHARED_BYTES_MAX
-    assert layout["shared_bytes_per_block"] == 4 * 32 * ENV_GROUPS[robot] * int(
-        generate_source(model, 5, robot).text.split("kSlots = ")[1].split(";")[0])
+    assert layout["shared_bytes_per_block"] == 4 * 32 * layout["env_groups"] * int(
+        src.text.split("kSlots = ")[1].split(";")[0])
 
 
 def test_a_layout_over_the_shared_memory_of_a_block_raises():

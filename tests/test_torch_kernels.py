@@ -140,14 +140,19 @@ def test_ant_vector_env_launches_the_kernel_once_a_step(cuda):
     assert traj.obs.shape == (6, 256, 105) and bool(torch.isfinite(traj.obs).all())
 
 
-@pytest.mark.parametrize("parts, groups", [(1, 4), (2, 3), (8, 2)])
-def test_articulated_layouts_give_the_same_bits(cuda, parts, groups):
+@pytest.mark.parametrize(
+    "robot, parts, groups",
+    [pytest.param("half_cheetah", 1, 4, id="1-4"), pytest.param("half_cheetah", 2, 3, id="2-3"),
+     pytest.param("half_cheetah", 8, 2, id="8-2"), pytest.param("humanoid", 4, 1, id="humanoid-4x1")],
+)
+def test_articulated_layouts_give_the_same_bits(cuda, robot, parts, groups):
     """One thread an env, and warp-specialised layouts whose last block holds
-    groups past the batch's end (N=1000), against the shipped layout: each a
-    copy of the step carrying the generator's text for its layout."""
-    step = art.fused_step("half_cheetah", 5)
+    groups past the batch's end (N=1000, Humanoid 333), against the shipped
+    layout: each a copy of the step carrying the generator's text for its
+    layout."""
+    step = art.fused_step(robot, 5)
     other = layout(step, parts, groups)
-    inputs = articulated_states(step.model, 1000, cuda, seed=6)
+    inputs = articulated_states(step.model, 1000 if robot == "half_cheetah" else 333, cuda, seed=6)
     for a, b in zip(other(*inputs), step(*inputs)):
         torch.cuda.synchronize()
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))

@@ -1,40 +1,41 @@
 #!/usr/bin/env python3
-"""Sweep the articulated kernel's warp layout on one CUDA card.
+"""Sweep the articulated kernel's layouts on one CUDA card.
 
 Run from the repository root on a machine with a card::
 
-    python3 tools/port_articulated_probe.py [--models half_cheetah ant] [--parts 1 2 4 8]
-        [--groups 1 2 3 4] [--no-humanoid]
+    python3 tools/port_articulated_probe.py [--humanoids humanoid humanoidstandup]
+        [--models half_cheetah ant] [--robots hopper walker2d_v5 ...]
+        [--layouts 8,1 ...] [--block-layouts 4,2 ...] [--no-scaling] [--json PATH]
 
-For each model, at ``frame_skip`` 5 and N=4096, it builds the step with one
-thread an env (G = 1); the same program in the partitioned form with a
-single partition, one warp a group of 32 envs and four groups a block
-(:func:`one_partition`: its out-of-line ``art::sin_cos`` and its carried
-values through shared memory, no second warp); and warp-specialised on G
-warps a group for each G > 1 of ``--parts`` and each count of env groups a
-block of ``--groups``; every build at once. Each variant is a copy of the
-shipped step carrying its own text and build name (:func:`layout`,
-:func:`variant`); the package's step has one layout per robot. For each
-build it prints the registers, spills and stack frame
-(``-Xptxas -v``), the SASS instructions of the library (``cuobjdump``) and
-the partition (phases, values exchanged, operations recomputed, shared bytes
-a block). It holds every variant bit for bit against the G = 1 kernel at
-N=4096 and at a ragged N, and the G = 1 kernel against the plain twin
-(``chip_smoke.compare_articulated_with_twin``). Then it times every variant
-of a model by device time (``chip_smoke.device_ms``, ``torch.profiler``) in
-turns: each variant once in order, then once in reverse. Last it builds
-Humanoid at HalfCheetah's G, one group a block (its shipped layout; at Ant's
-G its exchange buffer would pass the 227 KB a block may have), and holds it
-against its twin, a build check only.
+A layout is ``G,B``: ``G`` warps (partitions) a group of 32 envs and ``B``
+groups a block; ``1,4`` is one thread an env, 128 threads a block. Each
+variant is a copy of the robot's step carrying the generator's text for its
+layout under its own build name (:func:`layout`).
 
-Where the time goes: for the one-thread layout and each model's shipped
-layout it times one call with 1 to 128 blocks, one block a busy SM. A
-kernel bound by its own warps' latency takes as long on one SM as on 128;
-one that waits on what the SMs share slows as more SMs run it. The curve
-does not say what is shared: the instruction stream of a substep too long
-for an SM's instruction cache, L2 and memory (spills), or the clock of a
-busier card. It prints the card's name and power limit and, last, one
-JSON object of every number.
+It builds every variant at once and prints, for each, the registers, spills
+and stack frame (``-Xptxas -v``), the SASS instructions and code bytes of the
+library (``cuobjdump``), the partition (phases, values exchanged, shared
+bytes a block) and the layout model's clocks
+(``warp_partition.layout_clocks``). It holds every variant bit for bit
+against the plain twin at N=4096, at a ragged N and at N=1, then times the
+variants of each model by device time (``chip_smoke.device_ms``,
+``torch.profiler``) in turns: each once in order, then once in reverse.
+
+- The Humanoid builds (``--humanoids``) take :data:`HUMANOID_LAYOUTS` (or
+  ``--layouts``) beside the layout the generator picks.
+- HalfCheetah and Ant (``--models``) and the other robots (``--robots``)
+  take :data:`BLOCK_LAYOUTS` (or ``--block-layouts``) beside the
+  generator's pick.
+
+Where the time goes (``--no-scaling`` skips it): Humanoid's 4-warp layout and
+the generator's pick, each at ``frame_skip`` 5 and 1, are timed on 1 to 128
+blocks (one block an SM). A kernel bound by its own warps' latency takes
+as long on one SM as on 128; one that waits on what the SMs share (L2:
+instruction fetch, spills) slows as more SMs run it. The same layout's time
+a substep at ``frame_skip`` 1 and 5 tells whether each substep pays the same
+again (code fetched again each substep) or the later substeps run faster.
+It prints the card's name and power limit and, last, one JSON object of
+every number (also written to ``--json``).
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ import copy
 import json
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 import torch
@@ -51,14 +53,34 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 N = 4096
+RAGGED = 333
 FRAME_SKIP = 5
-RAGGED = {"half_cheetah": 1000, "ant": 333, "humanoid": 333}
-ITERS = 50
-SCALING_BLOCKS = (1, 8, 16, 32, 64, 96, 128)
+ITERS = 20
+SCALING_SETS = (1, 8, 16, 32, 64, 128)
+#: The layouts tried on both Humanoid builds: 4, 8 and 16 warps a group
+#: with the groups a block that fit its shared memory.
+HUMANOID_LAYOUTS = ("4,1", "8,1", "16,1")
+#: One thread an env, 4, 8 and 16 warps with 1 to 4 groups: the layouts
+#: every other robot takes (those that fit), beside the generator's pick.
+BLOCK_LAYOUTS = ("1,4", "4,1", "4,2", "4,3", "4,4", "8,1", "8,2", "8,4", "16,1", "16,2")
+ROBOTS = ("hopper", "walker2d_v5", "walker2d", "inverted_pendulum", "inverted_double_pendulum", "reacher",
+          "pusher_v5", "pusher", "swimmer")
+FRAME_SKIPS = {"hopper": 4, "walker2d_v5": 4, "walker2d": 4, "inverted_pendulum": 2,
+               "inverted_double_pendulum": 5, "reacher": 2, "pusher_v5": 5, "pusher": 5, "swimmer": 1}
 
 
 def bits(x):
     return x.contiguous().view(torch.int32)
+
+
+def parse(spec: str) -> tuple:
+    """``G,B`` -> ``(G, B)``."""
+    g, b = spec.split(",")
+    return int(g), int(b)
+
+
+def label(spec: tuple) -> str:
+    return "g{}x{}".format(*spec)
 
 
 def variant(step, suffix: str, source):
@@ -71,144 +93,169 @@ def variant(step, suffix: str, source):
 
 
 def layout(step, parts: int, groups: int):
-    """A copy of ``step`` in another warp layout: ``parts`` warps a group of
-    32 envs and ``groups`` groups a block (``parts=1``: one thread an env)."""
+    """A copy of ``step`` in another layout: ``parts`` warps a group of 32
+    envs, ``groups`` groups a block (``parts=1``: one thread an env)."""
     from gymnasium_tpu_torch.ops.articulated_codegen import generate_source
 
-    return variant(step, f"g{parts}x{groups}", generate_source(step.model, step.frame_skip, step.name, parts, groups))
+    source = generate_source(step.model, step.frame_skip, step.name, parts, groups)
+    return variant(step, label((parts, groups)), source)
 
 
-def one_partition(step, groups: int = 4):
-    """A copy of ``step`` whose text is the partitioned form with a single
-    partition: the generator's emission for G > 1, run on one warp."""
-    from gymnasium_tpu_torch.ops import articulated_codegen as ac
-    from gymnasium_tpu_torch.ops.codegen import GeneratedSource
-    from gymnasium_tpu_torch.ops.warp_partition import partition
+def _generate(job):
+    """``(model name, frame_skip, spec)`` -> the generated source (a worker)."""
+    from gymnasium_tpu_torch.envs.mujoco.mujoco_env import load_model
+    from gymnasium_tpu_torch.ops.articulated_codegen import generate_source
 
-    t = ac.model_tables(step.model)
-    prologue, body, outputs = ac.substep_program(t)
-    wp = partition(body, 1, t.nq + t.nv)
-    lines = ac._partitioned_lines(t, step.frame_skip, step.name, "", "", prologue, outputs, wp, groups)
-    source = step.source
-    return variant(step, "one_partition", GeneratedSource(
-        step.name, source.substeps, "\n".join(lines), source.prologue_ops, source.substep_ops,
-        {"parts": 1, "env_groups": groups, "phases": wp.phases, "exchanged": 0, "exchange_loads": 0,
-         "recomputed_ops": 0, "shared_bytes_per_block": wp.shared_bytes(groups)}))
+    name, fs, spec = job
+    model = load_model(name)[0]
+    if spec is None:
+        return generate_source(model, fs, name)
+    try:
+        return generate_source(model, fs, name, *spec)
+    except ValueError as err:  # the block does not fit the card
+        return str(err)
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--models", nargs="+", default=["half_cheetah", "ant"])
-    parser.add_argument("--parts", nargs="+", type=int, default=[1, 2, 4, 8])
-    parser.add_argument("--groups", nargs="+", type=int, default=[1, 2, 3, 4])
-    parser.add_argument("--no-humanoid", action="store_true", help="skip the Humanoid build check")
+    parser.add_argument("--humanoids", nargs="*", default=["humanoid", "humanoidstandup"])
+    parser.add_argument("--layouts", nargs="+", default=list(HUMANOID_LAYOUTS))
+    parser.add_argument("--models", nargs="*", default=["half_cheetah", "ant"])
+    parser.add_argument("--robots", nargs="*", default=list(ROBOTS))
+    parser.add_argument("--block-layouts", nargs="+", default=list(BLOCK_LAYOUTS),
+                        help="the layouts of HalfCheetah, Ant and the other robots")
+    parser.add_argument("--no-scaling", action="store_true", help="skip the SM-scaling and frame-skip readings")
+    parser.add_argument("--json", help="also write the JSON object to this file")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("port_articulated_probe: no CUDA device is available", file=sys.stderr)
         return 2
 
     from chip_smoke import (
+        SASS_BYTES,
         articulated_states,
         card_line,
         check,
-        compare_articulated_with_twin,
+        cuda_ms,
         device_ms,
         ptxas_summary,
         sass_instructions,
     )
     from gymnasium_tpu_torch.envs.mujoco.mujoco_env import load_model
     from gymnasium_tpu_torch.ops import build
-    from gymnasium_tpu_torch.ops.articulated_codegen import WARP_PARTS
     from gymnasium_tpu_torch.ops.articulated_step import make_fused_step
 
     dev = torch.device("cuda")
     print(card_line(), flush=True)
-    variants = {}  # model -> [step], the G = 1 step first
-    shipped = {}  # model -> the step in its own layout
-    for m in args.models:
-        model = load_model(m)[0]
-        shipped[m] = make_fused_step(model, FRAME_SKIP, m)
-        steps = [layout(shipped[m], 1, 4)]
-        steps.append(one_partition(shipped[m]))
-        for g in sorted(set(args.parts) - {1}):
-            for b in args.groups:
-                try:
-                    steps.append(layout(shipped[m], g, b))
-                except ValueError as err:  # the block does not fit the card
-                    print(f"skipped {m} G={g} groups={b}: {err}", flush=True)
-        variants[m] = steps
-    extra = []
-    if not args.no_humanoid:
-        humanoid = make_fused_step(load_model("humanoid")[0], FRAME_SKIP, "humanoid")
-        extra.append(layout(humanoid, WARP_PARTS["half_cheetah"], 1))
-    every = [s for steps in variants.values() for s in steps] + extra
     start = time.perf_counter()
-    texts = {s.build_name: s.source.text for s in every + list(shipped.values())}
-    print(f"generated {len(texts)} sources in {time.perf_counter() - start:.1f} s", flush=True)
+    plan = {}  # model -> (frame_skip, [spec or None (the generator's pick)])
+    for m in args.humanoids:
+        plan[m] = (FRAME_SKIP, [None] + [parse(s) for s in args.layouts])
+    for m in args.models:
+        plan[m] = (FRAME_SKIP, [None] + [parse(s) for s in args.block_layouts])
+    for m in args.robots:
+        plan[m] = (FRAME_SKIPS[m], [None] + [parse(s) for s in args.block_layouts])
+    scaled = {}  # (model, frame_skip, spec) of the scaling readings
+    if not args.no_scaling and "humanoid" in args.humanoids:
+        for fs in (FRAME_SKIP, 1):
+            scaled[("humanoid", fs, parse("4,1"))] = None
+            scaled[("humanoid", fs, None)] = None
+    jobs = sorted({(m, fs, spec) for m, (fs, specs) in plan.items() for spec in specs} | set(scaled),
+                  key=lambda j: (j[0], j[1], str(j[2])))
+    with ProcessPoolExecutor(max_workers=8) as pool:
+        sources = dict(zip(jobs, pool.map(_generate, jobs)))
+    for job, src in list(sources.items()):
+        if isinstance(src, str):
+            print(f"skipped {job[0]} {label(job[2])}: {src}", flush=True)
+            del sources[job]
+            scaled.pop(job, None)
+    plan = {m: (fs, [spec for spec in specs if (m, fs, spec) in sources]) for m, (fs, specs) in plan.items()}
+    jobs = [job for job in jobs if job in sources]
+    steps = {}  # job -> step
+    base = {}
+    for job in jobs:
+        m, fs, spec = job
+        if (m, fs) not in base:
+            base[(m, fs)] = make_fused_step(load_model(m)[0], fs, m)
+        src = sources[job]
+        shipped = spec is None
+        if shipped:
+            base[(m, fs)]._source = src
+            steps[job] = base[(m, fs)]
+        else:
+            steps[job] = variant(base[(m, fs)], label(spec), src)
+    picked = {m: sources[(m, plan[m][0], None)].layout for m in plan}
+    for m, lay in picked.items():
+        print(f"{m}: the generator picks {lay['parts']} warps x {lay['env_groups']} groups; model clocks, "
+              f"best first: {list(lay['estimates'].items())[:8]}", flush=True)
+    print(f"generated {len(jobs)} sources in {time.perf_counter() - start:.1f} s", flush=True)
+
+    texts = {s.build_name: s.source.text for s in steps.values()}
     start = time.perf_counter()
     built = build.build((), texts)
-    print(f"built in {time.perf_counter() - start:.1f} s", flush=True)
+    print(f"built {len(texts)} libraries in {time.perf_counter() - start:.1f} s", flush=True)
 
     rows = {}
-    for s in every:
+    for job, s in steps.items():
         info = built.get(s.build_name, {})
-        row = {"model": s.source.name, **s.source.layout, "ops_per_env": s.source.ops_per_env,
-               "nvcc_s": info.get("seconds"), **ptxas_summary(info.get("log", "")),
-               "sass_instructions": sass_instructions(build.library_path(s.build_name, s.source.text))}
+        lay = {k: v for k, v in s.source.layout.items() if k != "estimates"}
+        sass = sass_instructions(build.library_path(s.build_name, s.source.text))
+        row = {"model": job[0], "frame_skip": job[1], "layout": label(job[2]) if job[2] else "picked", **lay,
+               "ops_per_env": s.source.ops_per_env, "nvcc_s": info.get("seconds"),
+               **ptxas_summary(info.get("log", "")), "sass_instructions": sass, "code_bytes": SASS_BYTES * sass}
         rows[s.build_name] = row
         print(f"{s.build_name}: {row}", flush=True)
 
-    # bits: every variant against the G = 1 kernel, which is held against the twin
-    for m, steps in variants.items():
-        for n in (N, RAGGED[m]):
-            inputs = articulated_states(steps[0].model, n, dev, seed=3)
-            if n == N:
-                errs = compare_articulated_with_twin(steps[0], *inputs)
-                print(f"{steps[0].build_name} N={n} vs twin: {errs}", flush=True)
-            want = steps[0](*inputs)
-            for s in steps[1:]:
+    # bits: every variant against the plain twin, in every bit, at N=4096, ragged and 1
+    for m, (fs, specs) in plan.items():
+        group = [steps[(m, fs, spec)] for spec in specs]
+        for n in (N, RAGGED, 1):
+            inputs = articulated_states(group[0].model, n, dev, seed=3)
+            want = group[0].reference(*inputs)
+            for s in group:
                 got = s(*inputs)
                 torch.cuda.synchronize()
                 same = all(torch.equal(bits(a), bits(b)) for a, b in zip(got, want))
-                check(same, f"{s.build_name} N={n} differs from the one-thread kernel")
+                check(same, f"{s.build_name} N={n} differs from the twin")
                 rows[s.build_name][f"bit_equal_n{n}"] = same
-            print(f"{m} N={n}: {len(steps) - 1} variants equal the one-thread kernel in every bit", flush=True)
+            print(f"{m} N={n}: {len(group)} layouts equal the twin in every bit", flush=True)
 
     # times, in turns: forward, then back
-    for m, steps in variants.items():
-        inputs = articulated_states(steps[0].model, N, dev)
-        for turn, order in enumerate((steps, steps[::-1])):
+    for m, (fs, specs) in plan.items():
+        group = [steps[(m, fs, spec)] for spec in specs]
+        inputs = articulated_states(group[0].model, N, dev)
+        small = articulated_states(group[0].model, 1, dev, seed=1)
+        ragged = articulated_states(group[0].model, RAGGED, dev, seed=2)
+        for turn, order in enumerate((group, group[::-1])):
             for s in order:
                 ms = device_ms(lambda: s(*inputs), "kernel<ArticulatedStep>", ITERS)
                 rows[s.build_name].setdefault("device_ms", []).append(ms)
+                rows[s.build_name].setdefault("events_ms_n1", []).append(cuda_ms(lambda: s(*small), ITERS, 3))
+                rows[s.build_name].setdefault("events_ms_n333", []).append(cuda_ms(lambda: s(*ragged), ITERS, 3))
                 print(f"turn {turn} {s.build_name}: device {ms:.4f} ms a call", flush=True)
+        fastest = min(group, key=lambda s: sum(rows[s.build_name]["device_ms"]))
+        print(f"{m}: fastest {fastest.build_name}; the generator's pick {group[0].build_name} "
+              f"{sum(rows[group[0].build_name]['device_ms']) / 2:.4f} ms", flush=True)
 
-    for s in extra:  # a build check; chip_smoke.py holds the shipped step to the small-angle side too
-        inputs = articulated_states(s.model, RAGGED[s.source.name], dev, seed=3)
-        got, want = s(*inputs), s.reference(*inputs)
-        torch.cuda.synchronize()
-        errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
-        check(all(torch.equal(a, b) for a, b in zip(got, want)), f"{s.build_name} differs from the twin by {errs}")
-        rows[s.build_name]["vs_twin"] = errs
-        inputs = articulated_states(s.model, N, dev)
-        rows[s.build_name]["device_ms"] = [device_ms(lambda: s(*inputs), "kernel<ArticulatedStep>", 5)]
-        print(f"{s.build_name} N={RAGGED[s.source.name]} vs twin: {errs}; N={N} device "
-              f"{rows[s.build_name]['device_ms'][0]:.4f} ms", flush=True)
-
-    # time against the SMs in use: one block a busy SM, up to the card's 132
+    # time against the SMs in use: one block an SM, 1 to 128 blocks
     scaling = {}
-    for m, steps in variants.items():
-        for s in (steps[0], shipped[m]):
-            shape = s.source.layout
-            envs = 32 * shape["env_groups"] if shape["parts"] > 1 else 128
-            row = scaling.setdefault(s.build_name, {"parts": shape["parts"], "env_groups": shape["env_groups"]})
-            for blocks in SCALING_BLOCKS:
-                inputs = articulated_states(s.model, blocks * envs, dev)
-                row[blocks] = device_ms(lambda: s(*inputs), "kernel<ArticulatedStep>", ITERS)
-            print(f"{s.build_name} device ms by blocks: {row}", flush=True)
+    for job in scaled:
+        s = steps[job]
+        lay = s.source.layout
+        envs = 32 * lay["env_groups"] if lay["parts"] > 1 else 128
+        row = scaling.setdefault(s.build_name, {"frame_skip": job[1], "layout": label(job[2]) if job[2] else "picked"})
+        for sets in SCALING_SETS:
+            inputs = articulated_states(s.model, sets * envs, dev)
+            row[sets] = device_ms(lambda: s(*inputs), "kernel<ArticulatedStep>", ITERS)
+        print(f"{s.build_name} device ms by sets of groups: {row}", flush=True)
 
-    print(json.dumps({"card": card_line(), "kind": torch.cuda.get_device_name(0), "rows": rows,
-                      "scaling": scaling}))
+    out = {"card": card_line(), "kind": torch.cuda.get_device_name(0), "rows": rows, "scaling": scaling,
+           "picked": {m: {k: v for k, v in lay.items() if k != "estimates"} for m, lay in picked.items()},
+           "estimates": {m: lay["estimates"] for m, lay in picked.items()}}
+    if args.json:
+        Path(args.json).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.json).write_text(json.dumps(out, indent=1))
+    print(json.dumps(out))
     return 0
 
 
