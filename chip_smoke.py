@@ -33,13 +33,15 @@ read just after:
   ``rollout(20)``, one articulated launch an env step;
 - ``TorchVectorEnv(LunarLanderFunctional(), 4096, max_episode_steps=1000)``:
   reset, four steps, a masked reset of every other lane, ``rollout(200)``.
-  Each env step launches the generated planar kernel twice: the transition
-  and the settle tick of the reset drawn for every lane;
+  Each env step launches the generated planar kernel once: the transition
+  and the settle tick of the reset drawn for every lane in one call, on
+  inputs chosen lane by lane (the env's ``autoreset_transition``);
 - ``TorchVectorEnv(BipedalWalkerFunctional(), 4096, max_episode_steps=1600)``
   and the hardcore variant (2000): reset, four steps, a masked reset of
-  every other lane, ``rollout(200)``. Each env step launches the walker's
-  planar kernel twice (the transition and the settle tick of the reset
-  drawn for every lane) and the terrain kernel once. After the kernel
+  every other lane, ``rollout(200)``. Each env step launches the terrain
+  kernel once (the reset drawn for every lane) and the walker's planar
+  kernel once (the transition and the reset's settle tick, chosen lane by
+  lane). After the kernel
   timings, five env steps of each under ``torch.profiler``, 8 steps at 4096
   envs on the card and on the CPU from the CPU's carry with the same draws
   (``compare_bipedal_with_cpu``), and the new functional wrappers on the
@@ -179,7 +181,11 @@ both; the articulated and planar kernels must equal their twins in every
 value (each robot's articulated kernel at N=4096 at its own
 ``frame_skip``, Swimmer's at 1 and the XML chain's; both planar builds
 and the terrain kernel also at a ragged N, with lanes on both sides of the
-sub-pull clamp). Each ``planar_step[...]`` entry gives its build's lane
+sub-pull clamp; the terrain kernel also at N=1). The one-launch autoreset of
+the lander's three variants and both walkers is held against the two-launch
+form (the hook hidden) in every bit at N=4096, 333 and 1, over steps that
+cross autoresets (``compare_autoreset_forms``), each form's launches
+counted. Each ``planar_step[...]`` entry gives its build's lane
 layout (``layout``: lanes an env, a staged terrain row, phases, shuffles,
 selects) beside its registers, shared bytes, spills and SASS, and one line a
 build prints them with the schedule's estimates, which are the generator's
@@ -293,10 +299,11 @@ PLANAR_ROLLOUT = 200
 
 # BipedalWalker-v3 and BipedalWalkerHardcore-v3 (step limits 1600 and 2000):
 # reset, BIPEDAL_WARM_STEPS steps, a masked reset of every other lane,
-# rollout(BIPEDAL_ROLLOUT); two launches of the walker's planar build (the
-# transition and the reset's settle tick) and one of the terrain kernel an
-# env step. The walker's build and the terrain kernel are held to their twins
-# in every bit at N=4096 and at a ragged N. The card against the CPU: 8 steps
+# rollout(BIPEDAL_ROLLOUT); one launch of the terrain kernel (the reset drawn
+# for every lane) and one of the walker's planar build (the transition and the
+# reset's settle tick, inputs chosen lane by lane) an env step. The walker's
+# build and the terrain kernel are held to their twins in every bit at N=4096
+# and at a ragged N (the terrain kernel also at N=1). The card against the CPU: 8 steps
 # at 4096 envs, step limit 3, each taken on both from the CPU's carry with the
 # same draws and actions; values within a relative BIPEDAL_CHECK_TOL but on
 # lanes (at most a hundredth) where the two took a different side of a
@@ -318,6 +325,20 @@ WRAPPER_CHECK_ENVS, WRAPPER_CHECK_STEPS = 256, 12
 # writes 200.
 TERRAIN_WALK_OPS = 21 * 6 + 179 * 8
 TERRAIN_OVERLAY_OPS = 11 * 19
+# The one-launch autoreset (the Box2D functionals' autoreset_transition)
+# against the two-launch form (the hook hidden: the transition, the reset, a
+# select), on the card: AUTORESET_STEPS steps of make_autoreset_step at step
+# limit AUTORESET_LIMIT from one seed and one action stream, every fourth lane
+# in crash_pose, so each lane resets at least twice and natural terminations
+# occur; every state leaf, output, flag and counter and the generator's state
+# in every bit, at each N of AUTORESET_BATCHES. The one-launch form launches the
+# planar build once a step, the two-launch form twice; the walker's the
+# terrain kernel once a step in both.
+AUTORESET_ENVS = {"lunar_lander": {}, "lunar_lander_continuous": {"continuous": True},
+                  "lunar_lander_wind": {"enable_wind": True}, "bipedal_walker": {},
+                  "bipedal_walker_hardcore": {"hardcore": True}}
+AUTORESET_BATCHES = (NUM_ENVS, BIPEDAL_RAGGED, 1)
+AUTORESET_STEPS, AUTORESET_LIMIT = 10, 3
 
 PPO_ROLLOUT = 64  # tools/bench_ppo.py:70-84
 PPO_TIMED_STEPS = 3
@@ -1490,6 +1511,90 @@ def terrain_bound_ms(n: int, hardcore: bool) -> tuple[float, str]:
     bytes_moved = n * 4 * (400 + (22 if hardcore else 0))
     ops = TERRAIN_WALK_OPS + (TERRAIN_OVERLAY_OPS if hardcore else 0)
     return bound(bytes_moved, n * ops / FP32_OPS_PER_S)
+
+
+def crash_pose(state: dict) -> dict:
+    """A copy of a Box2D functional's state with every fourth lane set to
+    crash on its first step: moved 11 m right, past the lander's side bound
+    (``|obs x| >= 1``), or 5 m left of the walker's terrain start
+    (``hull_x < 0``)."""
+    from gymnasium_tpu_torch.functional import tree_map
+
+    state = tree_map(torch.clone, state)
+    if "body" in state:
+        state["body"][::4, :, 0] += 11.0
+    else:
+        state["bodies"][::4, :, 0] -= 5.0
+    return state
+
+
+def autoreset_env(name: str):
+    """The functional of :data:`AUTORESET_ENVS` ``name``."""
+    from gymnasium_tpu_torch.envs.box2d import BipedalWalkerFunctional, LunarLanderFunctional
+
+    cls = BipedalWalkerFunctional if name.startswith("bipedal") else LunarLanderFunctional
+    return cls(AUTORESET_ENVS[name])
+
+
+def autoreset_run(dev, func, n: int, actions, hidden: bool) -> tuple[list, torch.Tensor, dict]:
+    """``make_autoreset_step`` of ``func`` at ``n`` envs over ``actions``, from
+    seed 0 with :func:`crash_pose`; ``hidden`` hides the env's
+    ``autoreset_transition``. Returns each step's leaves (the reset's
+    observation first), the generator's state after the run and the steps'
+    launches by build."""
+    from gymnasium_tpu_torch.functional import make_autoreset_step, make_initial_carry, vectorize_func_env
+    from gymnasium_tpu_torch.ops import planar_step as pl
+    from gymnasium_tpu_torch.ops import walker_terrain as wt
+
+    batched = vectorize_func_env(func, n)
+    if hidden:
+        batched.autoreset_transition = None
+    rng = torch.Generator(device=dev).manual_seed(0)
+    carry, obs = make_initial_carry(batched, rng)
+    carry = carry._replace(state=crash_pose(carry.state))
+    step = make_autoreset_step(batched, None, time_limit=AUTORESET_LIMIT)
+    torch.cuda.synchronize()
+    before, terrain_before = dict(pl.launches), wt.launches
+    out = [tree_leaves(obs)]
+    for a in actions:
+        carry, ts = step(carry, a)
+        out.append(tree_leaves((carry.state, carry.steps, carry.prev_done, tuple(ts[:4]))))
+    torch.cuda.synchronize()
+    launches = {k: v - before.get(k, 0) for k, v in pl.launches.items() if v - before.get(k, 0)}
+    if wt.launches - terrain_before:
+        launches["walker_terrain"] = wt.launches - terrain_before
+    return out, rng.get_state(), launches
+
+
+def compare_autoreset_forms(dev, name: str, n: int, build_name: str) -> dict:
+    """The one-launch autoreset of :data:`AUTORESET_ENVS` ``name`` against the
+    two-launch form at ``n`` envs (module constants): raises unless every
+    leaf of every step and the generator's state are the same bits, the
+    one-launch form launched ``build_name`` once a step and the two-launch
+    form twice (the walker's terrain kernel once a step in both), every lane
+    reset at least twice and every fourth lane ended on its own."""
+    func = autoreset_env(name)
+    gen = torch.Generator(device=dev).manual_seed(n)
+    actions = [func.action_space.sample_torch(gen, (n,), dev) for _ in range(AUTORESET_STEPS)]
+    one, one_rng, one_launches = autoreset_run(dev, func, n, actions, hidden=False)
+    two, two_rng, two_launches = autoreset_run(dev, func, n, actions, hidden=True)
+    compared = 0
+    for s, (got, want) in enumerate(zip(one, two)):
+        check(len(got) == len(want), f"autoreset {name} N={n}: step {s} has {len(got)} leaves, want {len(want)}")
+        for i, (a, b) in enumerate(zip(got, want)):
+            check(same_bits(a, b), f"autoreset {name} N={n}: step {s}, leaf {i}: the one-launch form differs")
+            compared += 1
+    check(torch.equal(one_rng, two_rng), f"autoreset {name} N={n}: the two forms drew differently")
+    terrain = {"walker_terrain": AUTORESET_STEPS} if name.startswith("bipedal") else {}
+    want_one, want_two = {build_name: AUTORESET_STEPS, **terrain}, {build_name: 2 * AUTORESET_STEPS, **terrain}
+    check(one_launches == want_one, f"autoreset {name} N={n}: one-launch form launched {one_launches}, want {want_one}")
+    check(two_launches == want_two, f"autoreset {name} N={n}: two-launch form launched {two_launches}, want {want_two}")
+    resets = torch.stack([step[-5] for step in one[1:-1]]).sum(dim=0)  # a done before the last step
+    terminations = int(torch.stack([step[-2] for step in one[1:]]).sum())
+    check(bool((resets >= 2).all()), f"autoreset {name} N={n}: a lane reset fewer than twice")
+    check(terminations >= (n + 3) // 4, f"autoreset {name} N={n}: {terminations} natural terminations")
+    return {"envs": n, "steps": AUTORESET_STEPS, "leaves_in_bits": compared, "one_launch": one_launches,
+            "two_launch": two_launches, "resets": int(resets.sum()), "terminations": terminations}
 
 
 def teacher_forced_with_cpu(dev, func, n: int, actions, limit: int | None, wrappers=lambda: ()):
@@ -4449,15 +4554,17 @@ def smoke(xml_path: str) -> int:
                 ART_WARM_STEPS + ART_ROLLOUT if name in ART_FULL_PATHS else ROBOT_ROLLOUT}
         check(counts == want, f"{name} path launches {counts}, want {want}")
     check(robots["half_cheetah"]["terminations"] == 0, "a half_cheetah lane terminated")
-    # reset, then two launches a step (transition, reset tick), the masked reset
+    # reset, then one launch a step (the transition and the reset tick, chosen
+    # lane by lane), the masked reset
     ll_want = {"cartpole_rollout_fused": 0, **gen_zero,
-               planar.build_name: 1 + 2 * PLANAR_WARM_STEPS + 1 + 2 * PLANAR_ROLLOUT}
+               planar.build_name: 1 + PLANAR_WARM_STEPS + 1 + PLANAR_ROLLOUT}
     check(ll_counts == ll_want, f"lunar_lander path launches {ll_counts}, want {ll_want}")
-    # reset, then two walker launches and one terrain launch a step (the
-    # transition, the reset drawn for every lane), the masked reset
+    # reset, then one terrain launch (the reset drawn for every lane) and one
+    # walker launch (the transition and the reset's settle tick) a step, the
+    # masked reset
     env_steps = BIPEDAL_WARM_STEPS + BIPEDAL_ROLLOUT
     for name, counts in bipedal_counts.items():
-        want = {"cartpole_rollout_fused": 0, **gen_zero, walker.build_name: 1 + 2 * env_steps + 1,
+        want = {"cartpole_rollout_fused": 0, **gen_zero, walker.build_name: 1 + env_steps + 1,
                 "walker_terrain": 1 + env_steps + 1}
         check(counts == want, f"{name} path launches {counts}, want {want}")
     for name, counts in classic_counts.items():
@@ -4470,14 +4577,15 @@ def smoke(xml_path: str) -> int:
     mjcf_want = {"cartpole_rollout_fused": 0, **gen_zero, more["mjcf"].build_name: MJCF_ROLLOUT}
     check(mjcf_counts == mjcf_want, f"mjcf path launches {mjcf_counts}, want {mjcf_want}")
     # the registry's paths launch a step as the direct paths do: CartPole none,
-    # HalfCheetah one, the lander two (the transition, the reset tick drawn
-    # for every lane) after one at reset, the walker two and a terrain launch
+    # HalfCheetah one, the lander one (the transition and the reset tick drawn
+    # for every lane, in one call) after one at reset, the walker one and a
+    # terrain launch
     reg_steps = REGISTRY_WARM_STEPS + REGISTRY_ROLLOUT
     registry_want = {
         "CartPole-v1": {},
         "HalfCheetah-v5": {steps["half_cheetah"].build_name: reg_steps},
-        "LunarLander-v3": {planar.build_name: 1 + 2 * reg_steps},
-        "BipedalWalkerHardcore-v3": {walker.build_name: 1 + 2 * reg_steps, "walker_terrain": 1 + reg_steps},
+        "LunarLander-v3": {planar.build_name: 1 + reg_steps},
+        "BipedalWalkerHardcore-v3": {walker.build_name: 1 + reg_steps, "walker_terrain": 1 + reg_steps},
     }
     for env_id, counts in registry_counts.items():
         want = {"cartpole_rollout_fused": 0, **gen_zero, **registry_want[env_id]}
@@ -4582,8 +4690,14 @@ def smoke(xml_path: str) -> int:
     walker_ragged = compare_planar_with_twin(walker, walker_states(BIPEDAL_RAGGED, dev, seed=1))
     print(f"planar kernel vs twin (bipedal_walker, N={NUM_ENVS}, substeps {walker.substeps}): {walker_cmp}; "
           f"N={BIPEDAL_RAGGED}: {walker_ragged}; deterministic", flush=True)
-    terrain_cmp = [compare_terrain_with_twin(n, dev) for n in (NUM_ENVS, BIPEDAL_RAGGED)]
+    terrain_cmp = [compare_terrain_with_twin(n, dev) for n in (NUM_ENVS, BIPEDAL_RAGGED, 1)]
     print(f"walker_terrain kernel vs twin, normal and hardcore: {terrain_cmp}", flush=True)
+    # the one-launch autoreset against the two-launch form, every bit
+    autoreset_forms = {}
+    for name in AUTORESET_ENVS:
+        build_name = walker.build_name if name.startswith("bipedal") else planar.build_name
+        autoreset_forms[name] = [compare_autoreset_forms(dev, name, n, build_name) for n in AUTORESET_BATCHES]
+    print(f"one-launch autoreset vs the two-launch form, in every bit: {json.dumps(autoreset_forms)}", flush=True)
 
     # -- the registry paths' kernels at a batch of one and a ragged batch -----
     small = {"articulated_step[half_cheetah]": {}, "articulated_step[ant]": {},
@@ -4740,6 +4854,7 @@ def smoke(xml_path: str) -> int:
             "library_ms": None,
             "ragged": {"envs": BIPEDAL_RAGGED, **planar_ragged},
             "layout": built_layout(planar),
+            "autoreset_forms": {k: v for k, v in autoreset_forms.items() if not k.startswith("bipedal")},
             "substeps": planar.substeps,
             "ops_per_env": planar.source.ops_per_env,
             "sass_instructions": sass[planar.build_name],
@@ -4778,6 +4893,7 @@ def smoke(xml_path: str) -> int:
             "bound_by": walker_bound_by,
             "library_ms": None,
             "layout": built_layout(walker),
+            "autoreset_forms": {k: v for k, v in autoreset_forms.items() if k.startswith("bipedal")},
             "substeps": walker.substeps,
             "ops_per_env": walker.source.ops_per_env,
             "sass_instructions": sass[walker.build_name],
@@ -4796,7 +4912,8 @@ def smoke(xml_path: str) -> int:
         bnd, bnd_by = terrain_bound_ms(NUM_ENVS, draws is not None)
         terrain_times[mode] = {"ms": ms, "events_ms": events, "plain_ms": plain, "bound_ms": bnd, "bound_by": bnd_by}
         print(f"walker_terrain[{mode}] N={NUM_ENVS}: device {ms:.4f} ms/call, events {events:.4f} ms, "
-              f"bound {bnd:.5f} ms ({bnd_by}), {bnd / ms:.2%} of bound; plain twin {plain:.2f} ms/call", flush=True)
+              f"bound {bnd:.5f} ms ({bnd_by}), {bnd / ms:.2%} of bound; plain twin {plain:.2f} ms/call; "
+              f"{ptxas.get('walker_terrain', {})}, {sass['walker_terrain']} SASS instructions", flush=True)
     terrain_launches = {name: counts["walker_terrain"] for name, counts in bipedal_counts.items()}
     kernels.append(
         {
@@ -4844,7 +4961,7 @@ def smoke(xml_path: str) -> int:
     for hardcore in (False, True):
         name = "bipedal_walker_hardcore" if hardcore else "bipedal_walker"
         bipedal[name]["env_step_profile"] = profile_env_step(
-            dev, walker_env(hardcore), name, step_limit(walker_id(hardcore)), "step_kernel", launches_a_step=2)
+            dev, walker_env(hardcore), name, step_limit(walker_id(hardcore)), "step_kernel")
         print(f"{name} TorchVectorEnv step under torch.profiler (N={NUM_ENVS}): "
               f"{json.dumps(bipedal[name]['env_step_profile'])}", flush=True)
         bipedal[name]["device_vs_cpu"] = compare_bipedal_with_cpu(dev, hardcore)
@@ -5083,12 +5200,13 @@ def smoke(xml_path: str) -> int:
     parallel = run_parallel(dev)
     one = parallel["one_rank"]
     reacher_build = steps["reacher"].build_name
-    # an env step one articulated launch, the lander's two (the transition, the
-    # reset tick drawn for every lane) after one at reset; scaling_report: a
-    # warm and 5 timed rollouts sharded, the same on the whole batch alone
+    # an env step one articulated launch, the lander's one (the transition and
+    # the reset tick drawn for every lane, in one call) after one at reset;
+    # scaling_report: a warm and 5 timed rollouts sharded, the same on the
+    # whole batch alone
     parallel_want = {
         "half_cheetah": {hc_build: PARALLEL_CHEETAH_STEPS},
-        "lunar_lander": {planar.build_name: 1 + 2 * PARALLEL_LANDER_STEPS},
+        "lunar_lander": {planar.build_name: 1 + PARALLEL_LANDER_STEPS},
         "ppo_half_cheetah": {hc_build: PPO_ROLLOUT},
         "scaling_report": {hc_build: 2 * 6 * PARALLEL_SCALING_STEPS},
         "dryrun": {hc_build: 2, reacher_build: 1},

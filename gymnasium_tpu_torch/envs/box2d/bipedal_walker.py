@@ -12,7 +12,10 @@ inputs, the heightfield read by index, joint impulses starting from zero
 each tick, contact impulses carried across ticks and env steps. The
 heightfield of a reset comes from the hand-written terrain kernel
 (:mod:`gymnasium_tpu_torch.ops.walker_terrain`). On the CPU both run their
-plain twins.
+plain twins. The functional's autoreset step draws a reset for the whole
+batch each step (one terrain launch) and makes the transition and the
+reset's settle tick in one launch of the walker build, on inputs chosen lane
+by lane (``autoreset_transition``).
 
 The state is a dict of ``bodies`` (N, 5, 6) ``[x, y, angle, vx, vy, omega]``
 of hull, thigh1, shank1, thigh2, shank2, ``terrain`` (N, 200), ``cimp``
@@ -35,7 +38,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Any
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -43,7 +46,7 @@ import torch
 from gymnasium_tpu_torch import logger, spaces
 from gymnasium_tpu_torch.core import Env
 from gymnasium_tpu_torch.error import Error
-from gymnasium_tpu_torch.functional import FuncEnv, tree_map
+from gymnasium_tpu_torch.functional import FuncEnv, deferred_ticks, select_lanes, ticks_deferred, tree_map
 from gymnasium_tpu_torch.ops.planar_codegen import Heightfield
 from gymnasium_tpu_torch.ops.planar_step import FusedPlanarStep
 from gymnasium_tpu_torch.ops.walker_terrain import walker_terrain
@@ -378,6 +381,49 @@ def walker_step(state: dict, action: torch.Tensor) -> dict:
     return walker_tick(state, action)[0]
 
 
+class WalkerTick(NamedTuple):
+    """The inputs of one :func:`tick`, left unmade inside a ``deferred_ticks`` block."""
+
+    state: dict  # the leaves walker_step reads (_TICK_READS)
+    action: torch.Tensor
+    settle: bool  # a reset's settle tick: its reward and termination are cleared
+
+
+_TICK_READS = ("bodies", "terrain", "cimp", "prev_shaping")
+
+
+def tick(state: dict, action: torch.Tensor, settle: bool = False) -> dict:
+    """:func:`walker_step`; a ``settle`` tick (the reset's) then clears the
+    reward and termination. Inside a ``deferred_ticks`` block, the call's
+    inputs (:class:`WalkerTick`) instead."""
+    if ticks_deferred():
+        return WalkerTick({k: state[k] for k in _TICK_READS}, action, settle)
+    state = walker_step(state, action)
+    if settle:
+        state["r"] = torch.zeros_like(state["r"])
+        state["done"] = torch.zeros_like(state["done"])
+    return state
+
+
+def autoreset_tick(prev_done: torch.Tensor, reset, moved) -> dict:
+    """The state after an autoreset step: ``reset`` where ``prev_done`` is
+    set, ``moved`` elsewhere. Where ``reset`` is an unmade settle tick and
+    ``moved`` an unmade step, one call of the walker build on inputs chosen
+    lane by lane (the zero action on the reset lanes), whose reward and
+    termination are then cleared on those lanes; the kernel computes each
+    env alone, so every lane gets the bits of its own tick. A side already
+    made (an env whose reset or transition ends otherwise) is selected as it
+    is."""
+    if isinstance(reset, WalkerTick) and isinstance(moved, WalkerTick) and reset.settle and not moved.settle:
+        state = walker_step(select_lanes(prev_done, reset.state, moved.state),
+                            select_lanes(prev_done, reset.action, moved.action))
+        state["r"] = torch.where(prev_done, 0.0, state["r"])
+        state["done"] = state["done"] & ~prev_done
+        return state
+    reset, moved = (tick(*x) if isinstance(x, WalkerTick) else x for x in (reset, moved))
+    return select_lanes(prev_done, reset, moved)
+
+
 def solver_legs(flags: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The legs' ground contacts of the solver's flags: any probe of a shank,
     foot or knee end, as the reference's lower-leg contact listener."""
@@ -560,10 +606,8 @@ class BipedalWalkerFunctional(FuncEnv):
         reference's zero-action settle tick, whose post-tick shaping seeds
         ``prev_shaping``; its reward and termination are cleared."""
         state = self.reset_pre(terrain_u, obstacle_u, kick_u)
-        state = walker_step(state, torch.zeros((terrain_u.shape[0], 4), dtype=torch.float32, device=terrain_u.device))
-        state["r"] = torch.zeros_like(state["r"])
-        state["done"] = torch.zeros_like(state["done"])
-        return state
+        zero = torch.zeros((terrain_u.shape[0], 4), dtype=torch.float32, device=terrain_u.device)
+        return tick(state, zero, settle=True)
 
     def initial(self, rng: torch.Generator, params: Any = None):
         return tree_map(lambda x: x[0], self.initial_batched(rng, 1, params))
@@ -572,7 +616,18 @@ class BipedalWalkerFunctional(FuncEnv):
         return self.reset_values(*self.reset_draws(rng, n), params)
 
     def transition(self, state, action, rng, params: Any = None):
-        return walker_step(state, action)
+        return tick(state, action)
+
+    def autoreset_transition(self, state, action, prev_done, rng: torch.Generator, params: Any = None) -> dict:
+        """An autoreset step of the batch that ``vectorize_func_env`` made, in
+        one launch of the walker build: the transition and the batch's
+        ``initial`` (its draws and terrain launch as ``make_autoreset_step``
+        takes them), each solver call left unmade, then both made as one
+        (:func:`autoreset_tick`)."""
+        with deferred_ticks():
+            moved = self.transition(state, action, rng, params)
+            reset = self.initial(rng, params)
+        return autoreset_tick(prev_done, reset, moved)
 
     def observation(self, state, rng, params: Any = None):
         return observe_state(state)

@@ -19,8 +19,10 @@ the JAX module's controller and its episode loop.
 The functionals run both solver calls of the JAX functional through the same
 fused step (:func:`~gymnasium_tpu_torch.envs.dynamics.lunar_lander.lander_step`):
 the transition, and the reference's settle tick inside every reset. The
-autoreset step draws a reset for the whole batch each step, so an env step
-launches the kernel twice on the card.
+autoreset step draws a reset for the whole batch each step; its
+``autoreset_transition`` makes one call of the fused step for both, on
+inputs chosen lane by lane, so an env step launches the kernel once on the
+card.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ import torch
 from gymnasium_tpu_torch import error, logger, spaces
 from gymnasium_tpu_torch.core import Env
 from gymnasium_tpu_torch.envs.dynamics import lunar_lander as dyn
-from gymnasium_tpu_torch.functional import FuncEnv, tree_map
+from gymnasium_tpu_torch.functional import FuncEnv, deferred_ticks, tree_map
 from gymnasium_tpu_torch.utils.device import resolve_device, upload_row
 from gymnasium_tpu_torch.utils.ezpickle import EzPickle
 
@@ -276,10 +278,7 @@ class LunarLanderFunctional(FuncEnv):
         p = params or self._default_params
         state = dyn.initial_state_pre(terrain_u, force_u, p)
         external = torch.zeros(terrain_u.shape[:-1] + (3, 3), dtype=torch.float32, device=terrain_u.device)
-        bodies, jimp, cimp, flags = dyn.lander_step(float(p.gravity))(
-            state["body"], external, state["terrain"], state["jimp"], state["cimp"]
-        )
-        return dyn.finish_step(state, bodies, (jimp, cimp), flags, 0.0, 0.0, p)
+        return dyn.tick(state, external, 0.0, 0.0, p)
 
     def initial(self, rng: torch.Generator, params: dyn.LunarParams | None = None):
         return tree_map(lambda x: x[0], self.initial_batched(rng, 1, params))
@@ -320,6 +319,18 @@ class LunarLanderFunctional(FuncEnv):
 
     def transition(self, state, action, rng: torch.Generator, params: dyn.LunarParams | None = None):
         return self.transition_values(state, action, *self.transition_draws(rng, state["body"].shape[0]), params)
+
+    def autoreset_transition(self, state, action, prev_done, rng: torch.Generator,
+                             params: dyn.LunarParams | None = None) -> dict:
+        """An autoreset step of the batch that ``vectorize_func_env`` made, in
+        one call of the fused step: the transition and the batch's
+        ``initial``, their draws taken in ``make_autoreset_step``'s order,
+        each solver call left unmade, then both made as one
+        (:func:`~gymnasium_tpu_torch.envs.dynamics.lunar_lander.autoreset_tick`)."""
+        with deferred_ticks():
+            moved = self.transition(state, action, rng, params)
+            reset = self.initial(rng, params)
+        return dyn.autoreset_tick(prev_done, reset, moved)
 
     def observation(self, state, rng, params: dyn.LunarParams | None = None):
         return dyn.observe(state["body"], state["leg1"], state["leg2"]).to(torch.float32)

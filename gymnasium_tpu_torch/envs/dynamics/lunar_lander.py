@@ -11,7 +11,11 @@ the JAX module's expressions in their order, so each float operation rounds
 as it does there.
 
 All functions broadcast over leading batch axes; random draws are passed in
-explicitly.
+explicitly. A step and a reset each end in :func:`tick`, one call of the
+fused step and its tail; inside a
+:func:`~gymnasium_tpu_torch.functional.deferred_ticks` block it returns the
+call's inputs (:class:`LanderTick`), and :func:`autoreset_tick` makes one
+call for a batch whose lanes either step or reset.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from gymnasium_tpu_torch.functional import select_lanes, ticks_deferred
 from gymnasium_tpu_torch.ops.planar_codegen import ChunkTerrain
 from gymnasium_tpu_torch.ops.planar_step import FusedPlanarStep
 from gymnasium_tpu_torch.physics.planar import BodySpec, ContactSpec, JointSpec, PlanarWorld
@@ -438,12 +443,47 @@ def finish_step(state, bodies, warm, flags, m_power, s_power, params: LunarParam
     }
 
 
+class LanderTick(NamedTuple):
+    """The inputs of one :func:`tick`, left unmade inside a ``deferred_ticks`` block."""
+
+    state: dict  # the leaves the tick reads (_TICK_READS)
+    external: torch.Tensor
+    m_power: Any
+    s_power: Any
+    params: LunarParams
+
+
+_TICK_READS = ("body", "terrain", "jimp", "cimp", "sleep_timer", "prev_shaping")
+
+
+def tick(state, external, m_power, s_power, params: LunarParams):
+    """Both solver substeps in one call of the fused step, then
+    :func:`finish_step`; inside a ``deferred_ticks`` block, the call's
+    inputs (:class:`LanderTick`) instead."""
+    if ticks_deferred():
+        return LanderTick({k: state[k] for k in _TICK_READS}, external, m_power, s_power, params)
+    bodies, jimp, cimp, flags = lander_step(float(params.gravity))(
+        state["body"], external, state["terrain"], state["jimp"], state["cimp"]
+    )
+    return finish_step(state, bodies, (jimp, cimp), flags, m_power, s_power, params)
+
+
+def autoreset_tick(prev_done, reset, moved) -> dict:
+    """The state after an autoreset step: ``reset`` where ``prev_done`` is
+    set, ``moved`` elsewhere. Where both are unmade ticks of one world, one
+    call of the fused step on inputs chosen lane by lane (the reset's zero
+    force and engine power on the reset lanes); the kernel computes each env
+    alone, so every lane gets the bits of its own tick. A side already made
+    (an env whose reset or transition ends otherwise) is selected as it is."""
+    if isinstance(reset, LanderTick) and isinstance(moved, LanderTick) and reset.params == moved.params:
+        return tick(*select_lanes(prev_done, reset[:4], moved[:4]), moved.params)
+    reset, moved = (tick(*x) if isinstance(x, LanderTick) else x for x in (reset, moved))
+    return select_lanes(prev_done, reset, moved)
+
+
 def full_step(state, action, dispersion, wind, params: LunarParams, continuous: bool) -> dict:
     """One complete LunarLander tick: engines, both solver substeps in one
     call of the fused step, reward. ``dispersion``: (..., 2) U[-1, 1);
     ``wind``: (..., 2) wind and turbulence terms (zeros when wind is off)."""
     external, m_power, s_power = engine_external(state, action, dispersion, wind, params, continuous)
-    bodies, jimp, cimp, flags = lander_step(float(params.gravity))(
-        state["body"], external, state["terrain"], state["jimp"], state["cimp"]
-    )
-    return finish_step(state, bodies, (jimp, cimp), flags, m_power, s_power, params)
+    return tick(state, external, m_power, s_power, params)

@@ -17,8 +17,10 @@ tuples and lists), as a JAX pytree is; :func:`tree_map` walks it.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import copy
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, Iterator, NamedTuple
 
 import torch
 
@@ -26,8 +28,11 @@ __all__ = [
     "FuncEnv",
     "EnvCarry",
     "TimeStep",
+    "deferred_ticks",
     "make_autoreset_step",
     "make_initial_carry",
+    "select_lanes",
+    "ticks_deferred",
     "tree_map",
     "vectorize_func_env",
 ]
@@ -55,6 +60,33 @@ def _lanes(mask: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
     return mask.reshape(mask.shape + (1,) * (leaf.ndim - mask.ndim))
 
 
+def select_lanes(mask: torch.Tensor, on: Any, off: Any) -> Any:
+    """Lane by lane, the leaves of ``on`` where ``mask`` is set and those of
+    ``off`` elsewhere. Each leaf of ``off`` is a tensor with the env axis
+    first; a leaf of ``on`` may be a python number."""
+    return tree_map(lambda a, b: torch.where(_lanes(mask, b), a, b), on, off)
+
+
+_DEFERRED: contextvars.ContextVar[bool] = contextvars.ContextVar("deferred_ticks", default=False)
+
+
+@contextlib.contextmanager
+def deferred_ticks() -> Iterator[None]:
+    """Inside the block, an env whose transition and reset each end in one
+    solver call returns that call's inputs instead of making it (see
+    ``FuncEnv.autoreset_transition``)."""
+    token = _DEFERRED.set(True)
+    try:
+        yield
+    finally:
+        _DEFERRED.reset(token)
+
+
+def ticks_deferred() -> bool:
+    """Whether a :func:`deferred_ticks` block is open."""
+    return _DEFERRED.get()
+
+
 class FuncEnv:
     """A stateless environment: an MDP split into functions of tensors.
 
@@ -70,10 +102,19 @@ class FuncEnv:
     ``state_info``/``transition_info`` give the single-env adapter's info
     dicts; ``render_init``/``render_image``/``render_close`` raise until an
     env brings a renderer.
+
+    An env may also provide ``autoreset_transition(state, action, prev_done,
+    rng, params) -> state``: the state each lane of a batch holds after an
+    autoreset step, the transition of ``state`` under ``action`` where
+    ``prev_done`` is False and the reset where it is True, with the same
+    draws in the same order and the same bits as ``transition`` followed by
+    the batch's ``initial``. :func:`make_autoreset_step` calls it when it is
+    set; the Box2D-class envs use it to make one solver call a step.
     """
 
     observation_space: Any
     action_space: Any
+    autoreset_transition: Callable | None = None
 
     def __init__(self, options: dict[str, Any] | None = None):
         self.__dict__.update(options or {})
@@ -215,26 +256,29 @@ def make_autoreset_step(
     """Build a step with next-step autoreset folded in.
 
     The returned ``step(carry, action)`` never branches on data: a reset is
-    drawn for the whole batch every step and selected with ``torch.where``.
+    drawn for the whole batch every step and selected with ``torch.where``
+    (inside the env's ``autoreset_transition`` where it has one).
     The step *after* a done returns the reset observation with reward 0 and
     both flags False, ignoring the submitted action, and its step counter
     restarts at 0. Truncation is ``steps >= time_limit`` on a lane that did
     not terminate; ``time_limit=None`` disables it.
     """
 
+    fused = getattr(func_env, "autoreset_transition", None) if autoreset else None
+
     def step(carry: EnvCarry, action: Any) -> tuple[EnvCarry, TimeStep]:
         rng = carry.rng
-        next_state = func_env.transition(carry.state, action, rng, params)
         if autoreset:
-            reset_state = func_env.initial(rng, params)
             prev_done = carry.prev_done
-            state = tree_map(
-                lambda r, n: torch.where(_lanes(prev_done, n), r, n), reset_state, next_state
-            )
+            if fused is not None:
+                state = fused(carry.state, action, prev_done, rng, params)
+            else:
+                next_state = func_env.transition(carry.state, action, rng, params)
+                state = select_lanes(prev_done, func_env.initial(rng, params), next_state)
             # the reset step performs no transition: the new episode starts at 0
             steps = torch.where(prev_done, 0, carry.steps + 1)
         else:
-            state = next_state
+            state = func_env.transition(carry.state, action, rng, params)
             steps = carry.steps + 1
             prev_done = torch.zeros_like(carry.prev_done)
 

@@ -5,8 +5,9 @@ The JAX package computes the heightfield with a ``lax.scan`` inside
 obstacles in ``_overlay_obstacles``; no TPU kernel replaces it. The port
 draws a reset for the whole batch on every env step, and the recurrence is
 200 sequential points, so on a CUDA tensor :func:`walker_terrain` launches
-``csrc/walker_terrain.cu`` (one thread per env, the loop in registers; see
-the source for its design and bound). On a CPU tensor it runs
+``csrc/walker_terrain.cu`` (a block of 8 envs, a thread a column to load,
+divide and store, a thread an env to walk; see the source for its design and
+bound). On a CPU tensor it runs
 :func:`walker_terrain_reference`, the same float32 loop over ``(N,)``
 columns. A failed build or launch raises; it never gives way to the twin.
 """

@@ -13,11 +13,13 @@ import torch
 
 from chip_smoke import (
     ART_ENVS,
+    AUTORESET_ENVS,
     MJCF_CHAIN_XML,
     MJCF_FRAME_SKIP,
     articulated_env,
     articulated_states,
     compare_articulated_with_twin,
+    compare_autoreset_forms,
     compare_car_racing_with_cpu,
     compare_classic_with_cpu,
     compare_planar_with_twin,
@@ -317,6 +319,8 @@ def test_walker_terrain_kernel_matches_twin(cuda, n):
 
 
 def test_bipedal_vector_env_launches_two_walker_kernels_and_a_terrain_kernel_a_step(cuda):
+    """An env step launches the walker's build once (the transition and the
+    reset's settle tick in one call) and the terrain kernel once."""
     from gymnasium_tpu_torch.envs.box2d.bipedal_walker import walker_solver
     from gymnasium_tpu_torch.ops import walker_terrain as wt
     from gymnasium_tpu_torch.vector import TorchVectorEnv
@@ -326,6 +330,16 @@ def test_bipedal_vector_env_launches_two_walker_kernels_and_a_terrain_kernel_a_s
     before, terrain_before = dict(pl.launches), wt.launches
     carry, traj = env.rollout(3)
     torch.cuda.synchronize()
-    assert pl.launches - collections.Counter(before) == {walker_solver().build_name: 6}
+    assert pl.launches - collections.Counter(before) == {walker_solver().build_name: 3}
     assert wt.launches == terrain_before + 3
     assert traj.obs.shape == (3, 256, 24) and bool(torch.isfinite(traj.obs).all())
+
+
+@pytest.mark.parametrize("name", list(AUTORESET_ENVS))
+def test_one_launch_autoreset_equals_two_launches_on_the_card(cuda, name):
+    """The lander's and the walker's one-launch autoreset against the
+    two-launch form at a ragged N, in every bit, each form's launches
+    counted (``chip_smoke.compare_autoreset_forms``)."""
+    build = walker_solver() if name.startswith("bipedal") else lander_step(-10.0)
+    result = compare_autoreset_forms(cuda, name, 333, build.build_name)
+    assert result["one_launch"][build.build_name] == result["steps"]

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from gymnasium_tpu_torch.envs.box2d.lunar_lander import LunarLanderFunctional
 from gymnasium_tpu_torch.envs.mujoco.half_cheetah import HalfCheetahFunctional
 from gymnasium_tpu_torch.envs.phys2d.cartpole import CartPoleFunctional
 from gymnasium_tpu_torch.parallel import shard as env_shard
@@ -40,6 +41,7 @@ GATHER_STEPS = 16
 REGROUP_STEPS = 16
 ENVS_A_RANK = 16
 CHEETAH_ENVS, CHEETAH_STEPS = 16, 8
+LANDER_ENVS, LANDER_STEPS, LANDER_LIMIT = 16, 8, 3
 # the PPO case of tests/test_torch_ppo.py, with the three wrappers
 PPO_ENVS, PPO_STEPS, PPO_LIMIT = 16, 16, 10
 PPO_CONFIG = dict(num_envs=PPO_ENVS, rollout_steps=PPO_STEPS, hidden_sizes=(32, 32), num_minibatches=2,
@@ -284,6 +286,27 @@ def regroup_case(rank: int, world: int) -> dict:
     shard, after = rollout(mesh)
     return {"unsharded": traj_numpy(want), "before": before, "after": after, "equal_meshes": mesh == old_mesh,
             "new_shard": shard.mesh is mesh and shard.group is mesh.get_group(0)}
+
+
+def lander_rollouts(rank: int, world: int) -> dict:
+    """LunarLander's ``rollout`` from one seed: sharded over the dp mesh
+    (this rank's rows, through the one-launch autoreset), unsharded, and
+    unsharded with ``autoreset_transition`` hidden (a transition and a
+    reset a step); trajectories and final states as numpy."""
+    mesh = make_mesh("cpu")
+    hidden = LunarLanderFunctional()
+    hidden.autoreset_transition = None
+    kw = dict(max_episode_steps=LANDER_LIMIT, seed=0, device="cpu")
+    out = {}
+    for label, func, sharding in (("sharded", LunarLanderFunctional(), NamedSharding(mesh, ("dp",))),
+                                  ("unsharded", LunarLanderFunctional(), None), ("hidden", hidden, None)):
+        env = TorchVectorEnv(func, LANDER_ENVS, sharding=sharding, **kw)
+        env.reset()
+        carry, traj = env.rollout(LANDER_STEPS)
+        shard = env._shard_of(carry)
+        out[label] = {"traj": traj_numpy(traj), "state": {k: _np(v) for k, v in carry.state.items()},
+                      "shard": None if shard is None else shard.index}
+    return out
 
 
 def run(rank: int, world: int) -> dict:

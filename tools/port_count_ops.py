@@ -16,7 +16,9 @@ numpy actions, the ops of each ``step`` through the wrappers. Its upload and
 read-back are no-ops on the CPU; on the card each is one more copy.
 
 ``--envs`` and ``--steps`` set the batch (default 64) and the counted steps
-(default 10, after 2 uncounted ones). The counts predict the kernels a step
+(default 10, after 2 uncounted ones). ``--two-launch`` hides a functional's
+``autoreset_transition``, so a step runs the transition, the reset and a
+select of the two (the lander's and the walker's planar build twice). The counts predict the kernels a step
 on the card; they take no time on any device.
 """
 
@@ -125,10 +127,12 @@ def count_host(env_id: str, steps: int) -> dict:
     }
 
 
-def count(name: str, envs: int, steps: int) -> dict:
+def count(name: str, envs: int, steps: int, two_launch: bool = False) -> dict:
     if "-v" in name:
         return count_host(name, steps)
     func, limit = env_factory(name)
+    if two_launch:
+        func.autoreset_transition = None
     counter, launches = Counter(), collections.Counter()
     with kernels_counted_once(counter, launches):
         env = TorchVectorEnv(func, envs, max_episode_steps=limit, device="cpu")
@@ -142,6 +146,7 @@ def count(name: str, envs: int, steps: int) -> dict:
         "env": name,
         "envs": envs,
         "steps": steps,
+        "two_launch": two_launch,
         "aten_ops_a_step": aten / steps,
         "kernel_launches_a_step": {k: v / steps for k, v in launches.items()},
         "top_ops_a_step": {k: v / steps for k, v in counter.ops.most_common(8)},
@@ -153,9 +158,10 @@ def main() -> int:
     parser.add_argument("envs_to_count", nargs="+", metavar="env")
     parser.add_argument("--envs", type=int, default=64)
     parser.add_argument("--steps", type=int, default=10)
+    parser.add_argument("--two-launch", action="store_true")
     args = parser.parse_args()
     for name in args.envs_to_count:
-        print(json.dumps(count(name, args.envs, args.steps)), flush=True)
+        print(json.dumps(count(name, args.envs, args.steps, args.two_launch)), flush=True)
     return 0
 
 

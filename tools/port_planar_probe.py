@@ -57,6 +57,27 @@ chosen, one): the host step of ``make("BipedalWalker-v3")`` and the
 env-steps/s of ``make_vec("BipedalWalker-v3", 4096)``'s ``rollout(200)``.
 ``lanes PATH`` also writes every number, as JSON, to ``PATH``.
 
+``python3 tools/port_planar_probe.py autoreset [PATH]`` times the Box2D
+functionals' two autoreset forms in turns (one-launch, two-launch,
+two-launch, one-launch, twice) under ``TorchVectorEnv`` at 4096 envs: LunarLander
+and both walkers, the two-launch form being the env with its
+``autoreset_transition`` hidden. Each turn gives ``chip_smoke.profile_env_step``'s
+numbers after a warm-up (host ms a step, and under ``torch.profiler`` the
+device's busy ms, kernels and the planar build's launches and device ms a
+step) and the host ms a step of a ``rollout(200)`` (:func:`autoreset_turns`).
+
+``python3 tools/port_planar_probe.py terrain [PATH]`` builds the terrain
+kernel as shipped (8 envs a block), copies of its text with 32, 16 and 4
+envs a block (:data:`TERRAIN_GROUPS`), each also with ``WT_CLOCKS`` defined (``clock64()``
+stamps at each phase's end), and the kernel before its redesign
+(``tools/walker_terrain_before.cu``) with and without stamps; holds each to
+the twin in every bit at N=4096, 333 and 1, normal and hardcore; reads each
+stamped build's phase clocks (staging, walk, overlay, store: the mean and
+the largest over blocks) there; and times the unstamped kernels in turns
+(the list forward, then back) by CUDA events at each N and by
+``torch.profiler`` at 4096 (:func:`terrain_probe`). ``PATH`` takes every
+number of either mode as JSON.
+
 ``python3 tools/port_planar_probe.py codegen`` needs no card: it times, on
 the host's clock, ``planar_codegen.generate_planar_source`` for both worlds
 and the ``lane_estimates`` inside it (:func:`codegen_seconds`), the work
@@ -92,6 +113,7 @@ from chip_smoke import (  # noqa: E402
     planar_bound_ms,
     planar_states,
     ptxas_summary,
+    query_gpu,
     run_lunar_lander,
     sass_instructions,
     sass_text,
@@ -330,6 +352,144 @@ def lane_sweep(dev, card: str) -> dict:
             "layouts": {label: base.source.layout for label, base in bases.items()}}
 
 
+AUTORESET_PATHS = ("lunar_lander", "bipedal_walker", "bipedal_walker_hardcore")
+AUTORESET_LIMITS = {"lunar_lander": 1000, "bipedal_walker": 1600, "bipedal_walker_hardcore": 2000}
+
+
+def autoreset_turns(dev) -> dict:
+    """Each of :data:`AUTORESET_PATHS` under ``TorchVectorEnv`` at 4096 envs in
+    both autoreset forms, in turns (module docstring): per turn
+    ``profile_env_step``'s numbers and a ``rollout(200)``'s host ms a step."""
+    from chip_smoke import autoreset_env, profile_env_step
+
+    from gymnasium_tpu_torch.vector import TorchVectorEnv
+
+    out = {}
+    for name in AUTORESET_PATHS:
+        rows = out[name] = {"one_launch": [], "two_launch": []}
+        for form in ("one_launch", "two_launch", "two_launch", "one_launch") * 2:
+            func = autoreset_env(name)
+            if form == "two_launch":
+                func.autoreset_transition = None
+            row = profile_env_step(dev, func, f"{name} {form}", AUTORESET_LIMITS[name], "step_kernel",
+                                   launches_a_step=1 if form == "one_launch" else 2)
+            env = TorchVectorEnv(func, NUM_ENVS, max_episode_steps=AUTORESET_LIMITS[name], device=dev)
+            env.reset(seed=0)
+            env.rollout(5)
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            env.rollout(E2E_ROLLOUT)
+            torch.cuda.synchronize()
+            row["rollout_host_ms_a_step"] = (time.perf_counter() - start) * 1e3 / E2E_ROLLOUT
+            rows[form].append(row)
+            print(f"autoreset {name} {form}: host {row['step_ms']:.4f} ms a step (rollout(200) "
+                  f"{row['rollout_host_ms_a_step']:.4f}), device {row['device_busy_ms_a_step']:.4f} ms, "
+                  f"{row['kernels_a_step']:.1f} kernels, planar {row['kernel_device_ms_a_step']:.4f} ms a step, "
+                  f"busy {row['device_busy_share']:.1%}", flush=True)
+    return out
+
+
+TERRAIN_BATCHES = (NUM_ENVS, BIPEDAL_RAGGED, 1)
+TERRAIN_BEFORE = Path(__file__).resolve().parent / "walker_terrain_before.cu"
+TERRAIN_STAMPS = {"shipped": ("staging", "walk", "store"), "before": ("staging", "walk", "overlay", "store")}
+TERRAIN_ENVS_LINE = "constexpr int kEnvs = 8;"
+TERRAIN_GROUPS = (32, 16, 4)  # envs a block of the shipped text's variants
+
+
+def terrain_library(name: str, text: str | None):
+    """``(launch, clocks)`` of a terrain build: the library of ``csrc/walker_terrain.cu``
+    (``text`` None) or of ``text``, its launcher typed as the wrapper types
+    it, and its clock reader (None in a build without ``WT_CLOCKS``)."""
+    lib = build.load(name, text)
+    launch = lib.walker_terrain_launch
+    launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    launch.restype = ctypes.c_int
+    clocks = getattr(lib, "walker_terrain_clocks", None)
+    if clocks is not None:
+        clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        clocks.restype = ctypes.c_int
+    return launch, clocks
+
+
+def terrain_probe(dev, card: str) -> dict:
+    """The terrain kernel before and after its redesign (module docstring)."""
+    import numpy as np
+    from chip_smoke import terrain_bound_ms, terrain_draws
+
+    from gymnasium_tpu_torch.ops import walker_terrain as wt
+
+    shipped = (build.SOURCE_DIR / "walker_terrain.cu").read_text()
+    before = TERRAIN_BEFORE.read_text()
+    if shipped.count(TERRAIN_ENVS_LINE) != 1:
+        raise RuntimeError("csrc/walker_terrain.cu does not hold, once, the line an envs-a-block variant edits")
+    texts = {"shipped": None, "shipped_clocks": "#define WT_CLOCKS\n" + shipped,
+             "before": before, "before_clocks": "#define WT_CLOCKS\n" + before}
+    envs_a_block = {"shipped": 8, "before": 32}
+    for envs in TERRAIN_GROUPS:
+        text = shipped.replace(TERRAIN_ENVS_LINE, f"constexpr int kEnvs = {envs};")
+        texts[f"shipped_e{envs}"], texts[f"shipped_e{envs}_clocks"] = text, "#define WT_CLOCKS\n" + text
+        envs_a_block[f"shipped_e{envs}"] = envs
+    envs_a_block.update({f"{label}_clocks": envs for label, envs in list(envs_a_block.items())})
+    timed = [label for label in texts if not label.endswith("_clocks")]
+    names = {label: "walker_terrain" if text is None else f"walker_terrain_{label}" for label, text in texts.items()}
+    built = build.build(["walker_terrain"], {names[k]: t for k, t in texts.items() if t is not None})
+    libraries, builds = {}, {}
+    for label, text in texts.items():
+        libraries[label] = terrain_library(names[label], text)
+        lib, info = build.library_path(names[label], text), built.get(names[label], {})
+        builds[label] = {"sass_instructions": sass_instructions(lib), "nvcc_s": info.get("seconds"),
+                         **ptxas_summary(info.get("log", ""))}
+        print(f"terrain build {label}: {builds[label]}", flush=True)
+
+    def run(label, u, draws):
+        with mock.patch.object(wt, "_launcher", lambda: libraries[label][0]):
+            return wt.walker_terrain(u, draws)
+
+    inputs = {n: terrain_draws(n, dev, seed=n) for n in TERRAIN_BATCHES}
+    clocks = []
+    for n, (u, d) in inputs.items():
+        for mode, draws in (("normal", None), ("hardcore", d)):
+            want = wt.walker_terrain_reference(u, draws)
+            for label in texts:
+                got = run(label, u, draws)
+                torch.cuda.synchronize()
+                if not bits_equal(got, want):
+                    raise RuntimeError(f"terrain build {label} differs from the twin at N={n} ({mode})")
+                read = libraries[label][1]
+                if read is None:
+                    continue
+                kind = label.split("_")[0]
+                stamps = len(TERRAIN_STAMPS[kind]) + 1
+                blocks = -(-n // envs_a_block[label])
+                buf = np.zeros(blocks * stamps, dtype=np.int64)
+                rc = read(buf.ctypes.data, buf.size)
+                if rc != 0:
+                    raise RuntimeError(f"walker_terrain_clocks failed with cudaError {rc}")
+                phases = np.diff(buf.reshape(blocks, stamps), axis=1)
+                row = {"build": label[: -len("_clocks")], "n": n, "mode": mode, "blocks": blocks,
+                       **{f"{p}_clocks": float(phases[:, i].mean()) for i, p in enumerate(TERRAIN_STAMPS[kind])},
+                       **{f"{p}_clocks_max": int(phases[:, i].max()) for i, p in enumerate(TERRAIN_STAMPS[kind])},
+                       "total_clocks": float(phases.sum(axis=1).mean()), "total_clocks_max": int(phases.sum(axis=1).max())}
+                clocks.append(row)
+                print(f"terrain clocks: {row}", flush=True)
+    print(f"terrain builds equal to the twin in every bit at N={TERRAIN_BATCHES}, normal and hardcore", flush=True)
+    times = {label: {f"{mode}_events_ms_{n}": [] for n in TERRAIN_BATCHES for mode in ("normal", "hardcore")}
+             for label in timed}
+    for label in timed + timed[::-1]:
+        for n, (u, d) in inputs.items():
+            for mode, draws in (("normal", None), ("hardcore", d)):
+                times[label][f"{mode}_events_ms_{n}"].append(cuda_ms(lambda: run(label, u, draws), 50, 5))
+    u, d = inputs[NUM_ENVS]
+    for label in timed:
+        for mode, draws in (("normal", None), ("hardcore", d)):
+            ms = device_ms(lambda: run(label, u, draws), "terrain_kernel", 50)
+            bound = terrain_bound_ms(NUM_ENVS, draws is not None)[0]
+            times[label][f"{mode}_device_ms_{NUM_ENVS}"] = ms
+            times[label][f"{mode}_bound_share_{NUM_ENVS}"] = bound / ms
+        print(f"terrain {label}: {times[label]}", flush=True)
+    return {"card": card, "sm_clock": query_gpu("clocks.sm"), "builds": builds, "clocks": clocks, "times": times}
+
+
 def codegen_seconds(repeats: int = 3) -> dict:
     """Host seconds of each of ``repeats`` calls of
     ``generate_planar_source`` for the walker's and the lander's worlds, and
@@ -445,10 +605,13 @@ def main() -> int:
         print("port_planar_probe: no CUDA device is available", file=sys.stderr)
         return 2
 
-    if sys.argv[1:2] == ["lanes"]:
+    modes = {"lanes": lambda dev, card: lane_sweep(dev, card),
+             "autoreset": lambda dev, card: {"card": card, "paths": autoreset_turns(dev)},
+             "terrain": terrain_probe}
+    if sys.argv[1:2] and sys.argv[1] in modes:
         card = card_line()
         print(card, flush=True)
-        result = lane_sweep(torch.device("cuda"), card)
+        result = modes[sys.argv[1]](torch.device("cuda"), card)
         if len(sys.argv) > 2:
             out = Path(sys.argv[2])
             out.parent.mkdir(parents=True, exist_ok=True)
