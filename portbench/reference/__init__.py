@@ -1,0 +1,1 @@
+"""Plain PyTorch references that decide ``correct``; they import nothing of the program."""
