@@ -24,6 +24,8 @@ from typing import Any, Callable, Iterator, NamedTuple
 
 import torch
 
+from gymnasium_tpu_torch.utils.tracing import span
+
 __all__ = [
     "FuncEnv",
     "EnvCarry",
@@ -271,19 +273,25 @@ def make_autoreset_step(
         if autoreset:
             prev_done = carry.prev_done
             if fused is not None:
-                state = fused(carry.state, action, prev_done, rng, params)
+                with span("func.transition"):
+                    state = fused(carry.state, action, prev_done, rng, params)
             else:
-                next_state = func_env.transition(carry.state, action, rng, params)
-                state = select_lanes(prev_done, func_env.initial(rng, params), next_state)
+                with span("func.transition"):
+                    next_state = func_env.transition(carry.state, action, rng, params)
+                with span("func.reset"):
+                    state = select_lanes(prev_done, func_env.initial(rng, params), next_state)
             # the reset step performs no transition: the new episode starts at 0
             steps = torch.where(prev_done, 0, carry.steps + 1)
         else:
-            state = func_env.transition(carry.state, action, rng, params)
+            with span("func.transition"):
+                state = func_env.transition(carry.state, action, rng, params)
             steps = carry.steps + 1
             prev_done = torch.zeros_like(carry.prev_done)
 
-        obs = func_env.observation(state, rng, params)
-        raw_reward = func_env.reward(carry.state, action, state, rng, params)
+        with span("func.observation"):
+            obs = func_env.observation(state, rng, params)
+        with span("func.reward"):
+            raw_reward = func_env.reward(carry.state, action, state, rng, params)
         raw_terminated = func_env.terminal(state, rng, params)
 
         if autoreset:

@@ -28,7 +28,9 @@ __all__ = [
     "launches",
 ]
 
-#: Number of kernel launches made by :func:`cartpole_rollout_fused`.
+#: Number of kernel launches made by :func:`cartpole_rollout_fused`: Python
+#: calls of the launch (under a CUDA graph, its capture only), not kernels on
+#: the card, which the profiler counts.
 launches = 0
 
 _MASK32 = 0xFFFFFFFF

@@ -39,7 +39,9 @@ from gymnasium_tpu_torch.physics.planar import PlanarWorld
 
 __all__ = ["FusedPlanarStep", "make_fused_planar_step", "launches"]
 
-#: Kernel launches, by the ``build_name`` of the step that made them.
+#: Kernel launches, by the ``build_name`` of the step that made them: Python
+#: calls of the launch (under a CUDA graph, its capture only), not kernels on
+#: the card, which the profiler counts.
 launches: collections.Counter[str] = collections.Counter()
 
 

@@ -23,7 +23,9 @@ from gymnasium_tpu_torch.ops import build
 
 __all__ = ["walker_terrain", "walker_terrain_reference", "launches", "LENGTH"]
 
-#: Number of kernel launches made by :func:`walker_terrain`.
+#: Number of kernel launches made by :func:`walker_terrain`: Python calls of
+#: the launch (under a CUDA graph, its capture only), not kernels on the card,
+#: which the profiler counts.
 launches = 0
 
 LENGTH = 200  # TERRAIN_LENGTH

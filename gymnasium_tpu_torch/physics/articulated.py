@@ -30,6 +30,8 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from gymnasium_tpu_torch.utils.tracing import span
+
 __all__ = [
     "SLIDE",
     "HINGE",
@@ -517,6 +519,10 @@ def make_dynamics(model: ArticulatedModel) -> dict:
         return _points(c, *_fk(model, c, q, full=False))
 
     def contact_wrenches(q, qd):
+        with span("mujoco.contact_wrenches"):
+            return _contact_wrenches(q, qd)
+
+    def _contact_wrenches(q, qd):
         c = constants.on(q.device)
         if nc == 0:
             return torch.zeros((q.shape[0], nbody, 6), dtype=q.dtype, device=q.device)

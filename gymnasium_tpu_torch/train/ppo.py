@@ -45,6 +45,7 @@ from gymnasium_tpu_torch.parallel.shard import active as active_shard
 from gymnasium_tpu_torch.train.policy import ActorCritic
 from gymnasium_tpu_torch.utils.device import resolve_device
 from gymnasium_tpu_torch.utils.draws import gumbel
+from gymnasium_tpu_torch.utils.tracing import span
 from gymnasium_tpu_torch.wrappers.func import (
     WrappedEnvCarry,
     batch_moments,
@@ -253,19 +254,21 @@ def _rollout(state: PPOState, env_step, num_steps: int, continuous: bool, noise=
     shard = active_shard()
     traj = {"obs": [], "action": [], "logp": [], "reward": [], "done": []}
     for t in range(num_steps):
-        logits = policy.pi(obs)
-        # on a shard, this rank's rows of the whole batch's noise
-        shape = logits.shape if shard is None else (logits.shape[0] * shard.count, *logits.shape[1:])
-        if noise is not None:
-            draw = noise[t]
-        elif continuous:
-            draw = torch.randn(shape, generator=rng, device=logits.device)
-        else:
-            draw = gumbel(rng, shape, logits.device)
-        if shard is not None and draw.shape[0] != logits.shape[0]:
-            draw = shard.take(draw)
-        action, logp = _sample_action(logits, policy.log_std, draw, continuous)
-        env_carry, ts = env_step(env_carry, action)
+        with span("ppo.policy"):
+            logits = policy.pi(obs)
+            # on a shard, this rank's rows of the whole batch's noise
+            shape = logits.shape if shard is None else (logits.shape[0] * shard.count, *logits.shape[1:])
+            if noise is not None:
+                draw = noise[t]
+            elif continuous:
+                draw = torch.randn(shape, generator=rng, device=logits.device)
+            else:
+                draw = gumbel(rng, shape, logits.device)
+            if shard is not None and draw.shape[0] != logits.shape[0]:
+                draw = shard.take(draw)
+            action, logp = _sample_action(logits, policy.log_std, draw, continuous)
+        with span("ppo.env_step"):
+            env_carry, ts = env_step(env_carry, action)
         for key, value in (
             ("obs", obs),
             ("action", action),
@@ -344,7 +347,8 @@ def make_train_step(
                 mb = [x[i * mb_steps : (i + 1) * mb_steps] for x in shuffled]
                 optimizer.zero_grad()
                 loss = _loss(policy, mb, config)
-                loss.backward()
+                with span("ppo.backward"):
+                    loss.backward()
                 if shard is not None:
                     _average_gradients(params, shard)
                 _clip_by_global_norm(params, config.max_grad_norm)
@@ -370,12 +374,12 @@ def make_train_step(
         def collect(env_carry, obs):
             """The rollout and GAE from ``(env_carry, obs)``."""
             with torch.no_grad():
-                with torch.profiler.record_function("ppo.rollout"):
+                with span("ppo.rollout"):
                     env_carry, last_obs, traj = _rollout(
                         state._replace(env_carry=env_carry, obs=obs), step, t_len, continuous,
                         None if draws is None else draws.actions,
                     )
-                with torch.profiler.record_function("ppo.advantages"):
+                with span("ppo.advantages"):
                     values, adv, returns = _advantages(state.policy, traj, last_obs, config)
                     adv_n = _normalized(adv)
             return env_carry, last_obs, (traj, values, adv_n, returns)
@@ -386,7 +390,7 @@ def make_train_step(
             env_carry, last_obs, (traj, values, adv_n, returns) = on_shard(
                 collect, shard, state.env_carry, state.obs, dims=(0, None))
         batch = (traj["obs"], traj["action"], traj["logp"], values, adv_n, returns)
-        with torch.profiler.record_function("ppo.update"):
+        with span("ppo.update"):
             loss = update(state, batch, draws, shard)
         metrics = {
             "loss": loss,

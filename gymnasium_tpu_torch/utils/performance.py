@@ -130,6 +130,13 @@ def trace(log_dir: str, host_tracer_level: int = 2, device_tracer_level: int = 1
     a ``device_tracer_level`` above 0 adds the card's kernels and copies when
     a CUDA device is present. ``host_tracer_level`` is kept for the JAX
     signature and changes nothing.
+
+    The port's own ranges (:func:`~gymnasium_tpu_torch.utils.tracing.span`),
+    recorded only while a profiler is active, as here: ``vector.rollout``,
+    ``vector.step``, ``vector.actions``; ``func.transition``, ``func.reset``,
+    ``func.observation``, ``func.reward``; ``mujoco.contact_wrenches``;
+    ``ppo.rollout``, ``ppo.policy``, ``ppo.env_step``, ``ppo.advantages``,
+    ``ppo.update``, ``ppo.backward``.
     """
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 

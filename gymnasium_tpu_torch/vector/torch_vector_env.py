@@ -34,6 +34,7 @@ from gymnasium_tpu_torch.functional import (
 )
 from gymnasium_tpu_torch.parallel.shard import use as use_shard
 from gymnasium_tpu_torch.utils.device import resolve_device
+from gymnasium_tpu_torch.utils.tracing import span
 from gymnasium_tpu_torch.vector.utils import batch_space
 from gymnasium_tpu_torch.vector.vector_env import AutoresetMode, VectorEnv
 from gymnasium_tpu_torch.wrappers.func import (
@@ -234,16 +235,17 @@ class TorchVectorEnv(VectorEnv):
         if self.carry is None:
             raise RuntimeError("Call reset before using step method.")
         shard = self._shard_of(self.carry)
-        if shard is None:
-            actions = torch.as_tensor(actions, device=self.device)
-            self.carry, timestep = self._step_fn(self.carry, actions)
-        else:
-            from gymnasium_tpu_torch.parallel.mesh import on_shard
+        with span("vector.step"):
+            if shard is None:
+                actions = torch.as_tensor(actions, device=self.device)
+                self.carry, timestep = self._step_fn(self.carry, actions)
+            else:
+                from gymnasium_tpu_torch.parallel.mesh import on_shard
 
-            step = self._sharded_parts(shard)[1]
-            self.carry, timestep = on_shard(
-                lambda carry: step(carry, self._local_actions(actions, shard)), shard, self.carry
-            )
+                step = self._sharded_parts(shard)[1]
+                self.carry, timestep = on_shard(
+                    lambda carry: step(carry, self._local_actions(actions, shard)), shard, self.carry
+                )
         self._last_obs = timestep.obs
         return (
             timestep.obs,
@@ -296,10 +298,12 @@ class TorchVectorEnv(VectorEnv):
                 obs = self._batched.observation(env.state, env.rng, self.params)
             steps = []
             for _ in range(num_steps):
-                actions = action_fn(env.rng, obs)
-                if shard is not None:
-                    actions = self._local_actions(actions, shard)
-                carry, ts = step(carry, actions)
+                with span("vector.step"):
+                    with span("vector.actions"):
+                        actions = action_fn(env.rng, obs)
+                    if shard is not None:
+                        actions = self._local_actions(actions, shard)
+                    carry, ts = step(carry, actions)
                 obs = ts.obs
                 steps.append(ts)
             traj = TimeStep(
@@ -311,12 +315,13 @@ class TorchVectorEnv(VectorEnv):
             )
             return carry, obs, traj
 
-        if shard is None:
-            carry, obs, traj = run(carry, obs)
-        else:
-            from gymnasium_tpu_torch.parallel.mesh import on_shard
+        with span("vector.rollout"):
+            if shard is None:
+                carry, obs, traj = run(carry, obs)
+            else:
+                from gymnasium_tpu_torch.parallel.mesh import on_shard
 
-            carry, obs, traj = on_shard(run, shard, carry, obs, dims=(0, 1))
+                carry, obs, traj = on_shard(run, shard, carry, obs, dims=(0, 1))
         self.carry = carry
         self._last_obs = obs
         return carry, traj
