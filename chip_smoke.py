@@ -15,8 +15,9 @@ which it writes to a temporary file and compiles through ``load_model``,
 the planar solver step generated for LunarLander (two substeps) and the one
 generated for BipedalWalker's world (four substeps: per-env motors, the
 heightfield read by index, the bounded sub-pull), and BipedalWalker's
-terrain kernel (``csrc/walker_terrain.cu``). Then it drives each path of the
-port once, with every kernel launch count set to 0 just before the path and
+terrain kernel (``csrc/walker_terrain.cu``), and the contact-wrench kernel
+generated for Ant, Humanoid and HumanoidStandup (``csrc/contact_wrenches.cuh``).
+Then it drives each path of the port once, with every kernel launch count set to 0 just before the path and
 read just after:
 
 - the CartPole-v1 headline of ``bench.py``: chained ``cartpole_rollout_fused``
@@ -26,9 +27,10 @@ read just after:
 - ``TorchVectorEnv(HalfCheetahFunctional(), 4096, max_episode_steps=1000)``
   and the same over ``AntFunctional()``: reset, four steps, a masked reset
   of every other lane, ``rollout(100)``. Each env step is one launch of the
-  robot's generated articulated kernel. After the kernel timings, five Ant
+  robot's generated articulated kernel; Ant's also two of its contact-wrench
+  kernel (the observation's and the reward's). After the kernel timings, five Ant
   env steps run under ``torch.profiler`` (kernels a step, the device's busy
-  share);
+  share, the kernels inside ``mujoco.contact_wrenches``: two a step);
 - ``TorchVectorEnv`` over each other robot at 4096 envs: reset, then
   ``rollout(20)``, one articulated launch an env step;
 - ``TorchVectorEnv(LunarLanderFunctional(), 4096, max_episode_steps=1000)``:
@@ -94,7 +96,9 @@ read just after:
   (the card) for the eleven MuJoCo-class v5 ids (:data:`HOST_IDS`):
   ``reset(seed=0)`` (no launch) and 20 steps of numpy actions, one launch
   of the robot's build an env step (Swimmer: four of its ``frame_skip=1``
-  build), host-clock ms a step. After the kernel timings, the first five
+  build), and for Ant, Humanoid and HumanoidStandup one launch of the
+  contact-wrench kernel a state (the reset's and each step's: the observation
+  and the contact cost share it), host-clock ms a step. After the kernel timings, the first five
   steps again on the same env made with ``device="cpu"`` from the card's
   state before each step, five profiled steps of HalfCheetah and Ant, and
   one ``rgb_array`` frame of each; every robot's build is held against its
@@ -181,7 +185,9 @@ both; the articulated and planar kernels must equal their twins in every
 value (each robot's articulated kernel at N=4096 at its own
 ``frame_skip``, Swimmer's at 1 and the XML chain's; both planar builds
 and the terrain kernel also at a ragged N, with lanes on both sides of the
-sub-pull clamp; the terrain kernel also at N=1). The one-launch autoreset of
+sub-pull clamp; the terrain kernel also at N=1; the contact-wrench kernel of
+each of its three robots at N=4096 and 333, Ant's also at 65536, with
+contacts in at least a quarter of the lanes). The one-launch autoreset of
 the lander's three variants and both walkers is held against the two-launch
 form (the hook hidden) in every bit at N=4096, 333 and 1, over steps that
 cross autoresets (``compare_autoreset_forms``), each form's launches
@@ -270,6 +276,12 @@ ART_ENVS = {
 # other robots reset and take rollout(ROBOT_ROLLOUT).
 ART_FULL_PATHS = ("half_cheetah", "ant")
 HUMANOID_RAGGED = 333  # a ragged batch for the Humanoid builds' check against the twin
+# The contact-wrench kernel's robots, each with how far every other lane of
+# its check is lowered into the ground (tests/test_torch_contact_wrenches.py),
+# and the batch of the benchmark's Ant cell, where it is timed too.
+WRENCH_ROBOTS = {"ant": 0.3, "humanoid": 0.9, "humanoidstandup": 0.3}
+WRENCH_HOST_IDS = ("Ant-v5", "Humanoid-v5", "HumanoidStandup-v5")
+WRENCH_ENVS = 65536
 ART_TIME_LIMIT = 1000
 ART_WARM_STEPS = 4
 ART_ROLLOUT = 100
@@ -1110,6 +1122,45 @@ def compare_articulated_with_twin(step, q, qd, ctrl) -> tuple[float, float, int,
     bit_equal = all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(out, ref))
     check(bit_equal, f"{step.name}: kernel and twin differ in the sign of a zero")
     return errs[0], errs[1], small, bit_equal
+
+
+def wrench_states(model, n: int, dev, lower: float, seed: int = 0):
+    """``tests/test_torch_contact_wrenches.py::states`` on ``dev``: perturbed
+    poses and velocities, every other lane's root lowered by ``lower``."""
+    from gymnasium_tpu_torch.physics.articulated import init_qpos
+
+    rng = np.random.default_rng(seed)
+    q = np.tile(init_qpos(model)[None, :], (n, 1)).astype(np.float32)
+    q += rng.uniform(-0.3, 0.3, q.shape).astype(np.float32)
+    if model.root_free:
+        q[:, 3:7] /= np.linalg.norm(q[:, 3:7], axis=1, keepdims=True)
+    q[1::2, 2] -= np.float32(lower)
+    qd = rng.uniform(-1.0, 1.0, (n, model.nv)).astype(np.float32)
+    return torch.from_numpy(q).to(dev), torch.from_numpy(qd).to(dev)
+
+
+def wrench_bound_ms(op, n: int) -> tuple[float, str]:
+    """Each env reads q and qd and writes its (nbody, 6) wrench row once, in
+    float32, and runs the operations the generator emitted at the float32 rate."""
+    t = op.tables
+    return bound(n * 4 * (t.nq + t.nv + 6 * t.nbody), n * op.source.ops_per_env / FP32_OPS_PER_S)
+
+
+def compare_wrenches_with_twin(op, q, qd) -> dict:
+    """One wrench-kernel call against the plain twin on the same inputs.
+    Raises if a bit differs (zero signs too), if two calls differ in a bit,
+    or if contacts act in fewer than a quarter of the lanes."""
+    out, again = op(q, qd), op(q, qd)
+    torch.cuda.synchronize()
+    check(torch.equal(out.view(torch.int32), again.view(torch.int32)), f"{op.build_name}: same input, different bits")
+    ref = op.reference(q, qd)
+    check(bool(torch.isfinite(out).all()), f"{op.build_name}: kernel wrenches not finite")
+    err = float((out - ref).abs().max())
+    check(torch.equal(out.view(torch.int32), ref.view(torch.int32)),
+          f"{op.build_name}: kernel differs from the twin by up to {err} (or in a zero's sign)")
+    touching = float((ref.reshape(q.shape[0], -1).abs().amax(dim=1) > 0).float().mean())
+    check(touching >= 0.25, f"{op.build_name}: contacts act in only {touching:.0%} of the lanes")
+    return {"envs": q.shape[0], "bit_equal": True, "max_abs_err": err, "contact_lanes": touching}
 
 
 def run_lunar_lander(dev, n: int = NUM_ENVS) -> float:
@@ -2397,6 +2448,7 @@ def run_host_env(dev, env_id: str, steps: int = HOST_STEPS) -> dict:
     each step and the step's outputs."""
     import gymnasium_tpu_torch as gym
     from gymnasium_tpu_torch.ops import articulated_step as art
+    from gymnasium_tpu_torch.ops import contact_wrenches as cwr
 
     env = gym.make(env_id)
     check(env.unwrapped.device.type == torch.device(dev).type, f"{env_id}: make's env on {env.unwrapped.device}")
@@ -2404,24 +2456,27 @@ def run_host_env(dev, env_id: str, steps: int = HOST_STEPS) -> dict:
           f"{env_id}: make's wrappers {wrapper_chain(env)}")
     actions = host_actions(env, steps)
     art.launches.clear()
+    cwr.launches.clear()
     start = time.perf_counter()
     obs, _ = env.reset(seed=0)
     reset_ms = (time.perf_counter() - start) * 1e3
-    reset_launches = dict(art.launches)
+    reset_launches, reset_wrenches = dict(art.launches), dict(cwr.launches)
     art.launches.clear()
+    cwr.launches.clear()
     states, outs = [], []
     start = time.perf_counter()
     for action in actions:
         states.append(env.unwrapped.get_state())
         outs.append(env.step(action))
     seconds = time.perf_counter() - start
-    step_launches = dict(art.launches)
+    step_launches, step_wrenches = dict(art.launches), dict(cwr.launches)
     for o in outs:
         check(o[0].dtype == np.float64 and o[0].shape == env.observation_space.shape, f"{env_id}: obs {o[0].shape}")
         check(bool(np.isfinite(o[0]).all()) and isinstance(o[1], float), f"{env_id}: obs not finite or reward not a float")
     env.close()
     return {"steps": steps, "ms_a_step": seconds * 1e3 / steps, "reset_ms": reset_ms,
             "reset_launches": reset_launches, "step_launches": step_launches,
+            "wrench_launches": {"reset": reset_wrenches, "steps": step_wrenches},
             "terminations": sum(bool(o[2]) for o in outs),
             "_states": states, "_actions": actions, "_outs": outs}
 
@@ -4418,6 +4473,7 @@ def smoke(xml_path: str) -> int:
     from gymnasium_tpu_torch.ops import articulated_step as art
     from gymnasium_tpu_torch.ops import build
     from gymnasium_tpu_torch.ops import cartpole_rollout as cr
+    from gymnasium_tpu_torch.ops import contact_wrenches as cwr
     from gymnasium_tpu_torch.ops import planar_step as pl
     from gymnasium_tpu_torch.ops import walker_terrain as wt
 
@@ -4454,11 +4510,20 @@ def smoke(xml_path: str) -> int:
         generate_s[step.build_name] = time.perf_counter() - began_one
     print("generate seconds a build (the layout choice included): "
           + ", ".join(f"{k} {v:.3f}" for k, v in generate_s.items()), flush=True)
+    wrenches = {name: cwr.contact_wrenches_of(steps[name].model) for name in WRENCH_ROBOTS}
+    for op in wrenches.values():  # each text, timed: a process generates it once a model
+        began_one = time.perf_counter()
+        generated[op.build_name] = op.source.text
+        generate_s[op.build_name] = time.perf_counter() - began_one
+    print("generate seconds a contact-wrench build: "
+          + ", ".join(f"{name} {generate_s[op.build_name]:.3f}" for name, op in wrenches.items()), flush=True)
     generated[planar.build_name] = planar.source.text
     generated[walker.build_name] = walker.source.text
     print(f"generate: {time.perf_counter() - start:.2f} s; operations an env-call: "
           + ", ".join(f"{name} {step.source.ops_per_env}" for name, step in (*steps.items(), *more.items()))
-          + f", lunar_lander {planar.source.ops_per_env}, bipedal_walker {walker.source.ops_per_env}", flush=True)
+          + f", lunar_lander {planar.source.ops_per_env}, bipedal_walker {walker.source.ops_per_env}, "
+          + ", ".join(f"contact_wrenches[{name}] {op.source.ops_per_env}" for name, op in wrenches.items()),
+          flush=True)
     start = time.perf_counter()
     built = build.build(build.KERNELS, generated)
     print(f"build: {time.perf_counter() - start:.2f} s for {sorted(built)}", flush=True)
@@ -4486,17 +4551,24 @@ def smoke(xml_path: str) -> int:
     gen_zero[walker.build_name] = 0
     gen_zero["walker_terrain"] = 0
 
+    # The contact-wrench builds' launches of each path, by label, kept apart
+    # from the counts the paths' checks compare.
+    wrench_counts = {}
+
     def counted(label, fn):
         cr.launches = 0
         wt.launches = 0
         art.launches.clear()
         pl.launches.clear()
+        cwr.launches.clear()
         start = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         counts = {"cartpole_rollout_fused": cr.launches, **gen_zero, **art.launches, **pl.launches,
                   "walker_terrain": wt.launches}
-        print(f"path {label}: {time.perf_counter() - start:.2f} s, launches {counts}", flush=True)
+        wrench_counts[label] = dict(cwr.launches)
+        print(f"path {label}: {time.perf_counter() - start:.2f} s, launches {counts}, contact-wrench launches "
+              f"{wrench_counts[label]}", flush=True)
         return out, counts
 
     print(f"clocks.sm, power.draw before the warm-up block: {query_gpu('clocks.sm,power.draw')}", flush=True)
@@ -4553,6 +4625,14 @@ def smoke(xml_path: str) -> int:
         want = {"cartpole_rollout_fused": 0, **gen_zero, steps[name].build_name:
                 ART_WARM_STEPS + ART_ROLLOUT if name in ART_FULL_PATHS else ROBOT_ROLLOUT}
         check(counts == want, f"{name} path launches {counts}, want {want}")
+    # the observation's and the reward's wrenches: one launch each an env step,
+    # and the observation's at each reset (the first and the masked one)
+    for name, op in wrenches.items():
+        env_steps = ART_WARM_STEPS + ART_ROLLOUT if name in ART_FULL_PATHS else ROBOT_ROLLOUT
+        resets = 2 if name in ART_FULL_PATHS else 1
+        got = wrench_counts[f"{name} TorchVectorEnv"]
+        check(got == {op.build_name: 2 * env_steps + resets},
+              f"{name} path's contact-wrench launches {got}, want {2 * env_steps + resets}")
     check(robots["half_cheetah"]["terminations"] == 0, "a half_cheetah lane terminated")
     # reset, then one launch a step (the transition and the reset tick, chosen
     # lane by lane), the masked reset
@@ -4613,6 +4693,12 @@ def smoke(xml_path: str) -> int:
         check(host[env_id]["reset_launches"] == {}, f"make({env_id!r}): reset launched {host[env_id]['reset_launches']}")
         check(host[env_id]["step_launches"] == {build_name: per_step * HOST_STEPS},
               f"make({env_id!r}): steps launched {host[env_id]['step_launches']}")
+        # one wrench launch a state: the observation and the contact cost share it
+        wrench_name = cwr.contact_wrenches_of(host_builds[key].model).build_name if env_id in WRENCH_HOST_IDS else None
+        want_wrenches = ({"reset": {wrench_name: 1}, "steps": {wrench_name: HOST_STEPS}} if wrench_name
+                         else {"reset": {}, "steps": {}})
+        check(host[env_id]["wrench_launches"] == want_wrenches,
+              f"make({env_id!r}): contact-wrench launches {host[env_id]['wrench_launches']}, want {want_wrenches}")
         host[env_id]["launches"] = {build_name: counts[build_name]}
     main_launches = head_counts["cartpole_rollout_fused"]
     print(f"main path: host-clock env-steps/s headline bf16={headline['torch.bfloat16']:.0f} "
@@ -4827,6 +4913,56 @@ def smoke(xml_path: str) -> int:
                 "ok": True,
             }
         )
+    # the contact-wrench kernel: every bit of the twin's, at the vector envs'
+    # batch, a ragged one and (Ant) the benchmark's; timed at each but the ragged
+    wrench_launches = collections.Counter()
+    for counts in wrench_counts.values():
+        wrench_launches.update(counts)
+    for name, op in wrenches.items():
+        sizes = (NUM_ENVS, HUMANOID_RAGGED) + ((WRENCH_ENVS,) if name in ART_FULL_PATHS else ())
+        checked, timed = [], {}
+        for n_w in sizes:
+            inputs = wrench_states(op.model, n_w, dev, WRENCH_ROBOTS[name], seed=n_w)
+            checked.append(compare_wrenches_with_twin(op, *inputs))
+            if n_w == HUMANOID_RAGGED:
+                continue
+            w_ms = device_ms(lambda: op(*inputs), "wrench_kernel", 50)
+            w_bound, w_bound_by = wrench_bound_ms(op, n_w)
+            timed[n_w] = {"ms": w_ms, "events_ms": cuda_ms(lambda: op(*inputs), 50, 5),
+                          "plain_ms": cuda_ms(lambda: op.reference(*inputs), 1, 1),
+                          "bound_ms": w_bound, "bound_by": w_bound_by, "share": w_bound / w_ms}
+            print(f"contact_wrenches[{name}] N={n_w}: device {w_ms:.4f} ms/call, events "
+                  f"{timed[n_w]['events_ms']:.4f} ms, bound {w_bound:.4f} ms ({w_bound_by}), "
+                  f"{w_bound / w_ms:.2%} of bound; plain twin {timed[n_w]['plain_ms']:.2f} ms/call", flush=True)
+        info = ptxas.get(op.build_name, {})
+        print(f"contact_wrenches[{name}] vs twin in every bit: {checked}; {op.source.layout}, "
+              f"{info.get('registers')} registers, spill stores {info.get('spill_stores')} B, "
+              f"{sass[op.build_name]} SASS instructions", flush=True)
+        kernels.append(
+            {
+                "name": f"contact_wrenches[{name}]",
+                "route": "cuda",
+                "source": "gymnasium_tpu_torch/csrc/contact_wrenches.cuh",
+                "generator": "gymnasium_tpu_torch/ops/articulated_codegen.py",
+                "replaces": None,
+                "launches": wrench_launches[op.build_name],
+                "on_main_path": wrench_launches[op.build_name] > 0,
+                "max_abs_err": max(c["max_abs_err"] for c in checked),
+                "bit_equal": True,
+                "checked": checked,
+                **timed[NUM_ENVS],
+                "timed": timed,
+                "library_ms": None,
+                "layout": op.source.layout,
+                "ops_per_env": op.source.ops_per_env,
+                "sass_instructions": sass[op.build_name],
+                "code_bytes": SASS_BYTES * sass[op.build_name],
+                "generate_s": generate_s[op.build_name],
+                "nvcc_s": built.get(op.build_name, {}).get("seconds"),
+                **info,
+                "ok": True,
+            }
+        )
     planar_events_ms = cuda_ms(lambda: planar(*planar_inputs), 50, 5)
     planar_ms = device_ms(lambda: planar(*planar_inputs), "step_kernel", 50)
     planar_plain_ms = cuda_ms(lambda: planar.reference(*planar_inputs), 1, 1)
@@ -4941,7 +5077,11 @@ def smoke(xml_path: str) -> int:
     # -- profiled paths: one Ant env step, the PPO trainer --------------------
     # They run after the kernel timings: a device_ms trace taken after other
     # profiled work in the process missed one CartPole launch in every try.
-    ant_profile = profile_env_step(dev, articulated_env("ant"), "ant", ART_TIME_LIMIT, "kernel<ArticulatedStep>")
+    ant_profile = profile_env_step(dev, articulated_env("ant"), "ant", ART_TIME_LIMIT, "kernel<ArticulatedStep>",
+                                   ranges=("mujoco.contact_wrenches",))
+    check(ant_profile["mujoco.contact_wrenches"]["kernels_a_step"] == 2,
+          f"ant: {ant_profile['mujoco.contact_wrenches']['kernels_a_step']} kernels a step inside the contact "
+          "wrenches, want 2")
     print(f"ant TorchVectorEnv step under torch.profiler (N={NUM_ENVS}): {json.dumps(ant_profile)}", flush=True)
     next(k for k in kernels if k["name"] == "articulated_step[ant]")["env_step_profile"] = ant_profile
     for name in CLASSIC_BENCH_ROWS:

@@ -43,6 +43,7 @@ from gymnasium_tpu_torch.physics.articulated import (
     JointSpec,
     init_qpos,
     make_dynamics,
+    model_digest,
 )
 from gymnasium_tpu_torch.utils.device import resolve_device, upload_row
 
@@ -98,23 +99,6 @@ def _compile_xml_model(path: str) -> tuple[ArticulatedModel, dict]:
     return compile_mjcf(path)
 
 
-def _model_digest(model: ArticulatedModel) -> str:
-    """A digest of every field of ``model``: its arrays' dtypes, shapes and bytes."""
-    digest = hashlib.sha256()
-
-    def add(value):
-        if isinstance(value, tuple) and hasattr(value, "_fields"):
-            for field in value:
-                add(field)
-            return
-        array = np.ascontiguousarray(np.asarray(value))
-        digest.update(f"{array.dtype.str}{array.shape}".encode())
-        digest.update(array.tobytes())
-
-    add(model)
-    return digest.hexdigest()
-
-
 def kernel_name(name: str) -> str:
     """The name the articulated kernel of model ``name`` is generated, built
     and counted under: a robot's own name, or for an ``.xml`` model
@@ -126,7 +110,7 @@ def kernel_name(name: str) -> str:
     path = resolve_xml(name)
     model, _ = load_model(path)
     stem = re.sub(r"\W", "_", Path(path).stem)
-    digest = hashlib.sha256(f"{path}\n{_model_digest(model)}".encode()).hexdigest()[:16]
+    digest = hashlib.sha256(f"{path}\n{model_digest(model)}".encode()).hexdigest()[:16]
     return f"xml_{stem}_{digest}"
 
 

@@ -21,6 +21,11 @@ the kernel and the count of each kind of operation it holds.
 
 Both backends run the JAX row program's operations in its order, with the
 same rounded constants.
+
+The same module emits the contact-wrench kernel (:func:`generate_wrench_source`):
+the substep's forward kinematics and its contact forces (one function,
+:func:`contact_force`, for both programs), summed into each body's
+``[torque, force]`` (:func:`wrench_program`).
 """
 
 from __future__ import annotations
@@ -68,7 +73,9 @@ from gymnasium_tpu_torch.physics.articulated import (
 __all__ = [
     "ModelTables",
     "model_tables",
+    "forward_kinematics",
     "kinematics_and_bias",
+    "contact_force",
     "make_substep",
     "clip_controls",
     "GeneratedSource",
@@ -76,6 +83,8 @@ __all__ = [
     "substep_program",
     "choose_layout",
     "layout_candidates",
+    "wrench_program",
+    "generate_wrench_source",
 ]
 
 #: The layout of a robot's kernel is the one the layout model
@@ -274,20 +283,14 @@ def clip_controls(t: ModelTables, ops, crows):
     return [ops.clip(crows[a], t.ctrl_lo[a], t.ctrl_hi[a]) for a in range(t.nu)]
 
 
-def kinematics_and_bias(t: ModelTables, ops, qrows, qdrows):
-    """The substep's forward kinematics and Newton-Euler bias over lists of
-    per-env values: ``(Rs, ps, axes_w, pivots_w, Iw, Jv, c_rows)``, the
-    bodies' rotations and origins, each dof's world axis and pivot, the
-    bodies' world inertias, their com Jacobians (``None`` where a dof does
-    not move a body) and the bias ``c_rows`` (velocity terms, gravity and
-    the joint springs) of each dof.
-    """
+def forward_kinematics(t: ModelTables, ops, qrows):
+    """The substep's forward kinematics over lists of per-env values:
+    ``(Rs, ps, axes_w, pivots_w)``, the bodies' rotations and origins and
+    each dof's world axis and pivot where the dof is applied."""
     model = t.model
     nv, nbody = t.nv, t.nbody
-    amask, strict, strict_rot, jtypes = t.amask, t.strict, t.strict_rot, t.jtypes
-    masses, joint_ref = t.masses, t.joint_ref
+    jtypes, joint_ref = t.jtypes, t.joint_ref
 
-    # ---------------- forward kinematics ------------------------
     Rs, ps = [None] * nbody, [None] * nbody
     axes_w, pivots_w = [None] * nv, [None] * nv
     for b in range(nbody):
@@ -353,6 +356,22 @@ def kinematics_and_bias(t: ModelTables, ops, qrows, qdrows):
                 p = _vadd(p, _matvec(R, _vsub(anchor, _matvec(Rj, anchor))))
                 R = _matmul(R, Rj)
         Rs[b], ps[b] = R, p
+    return Rs, ps, axes_w, pivots_w
+
+
+def kinematics_and_bias(t: ModelTables, ops, qrows, qdrows):
+    """The substep's forward kinematics and Newton-Euler bias over lists of
+    per-env values: ``(Rs, ps, axes_w, pivots_w, Iw, Jv, c_rows)``, the
+    bodies' rotations and origins, each dof's world axis and pivot, the
+    bodies' world inertias, their com Jacobians (``None`` where a dof does
+    not move a body) and the bias ``c_rows`` (velocity terms, gravity and
+    the joint springs) of each dof.
+    """
+    model = t.model
+    nv, nbody = t.nv, t.nbody
+    amask, strict, strict_rot, jtypes = t.amask, t.strict, t.strict_rot, t.jtypes
+    masses, joint_ref = t.masses, t.joint_ref
+    Rs, ps, axes_w, pivots_w = forward_kinematics(t, ops, qrows)
 
     # body com positions and world inertias R I Rᵀ
     pcs = [
@@ -457,6 +476,38 @@ def kinematics_and_bias(t: ModelTables, ops, qrows, qdrows):
     return Rs, ps, axes_w, pivots_w, Iw, Jv, c_rows
 
 
+def contact_force(t: ModelTables, ops, ci: int, Rs, ps, axes_w, pivots_w, qdrows):
+    """Contact sphere ``ci``'s soft contact with the ground: ``(pt, Jc_k,
+    f)``, its centre in the world, its Jacobian row ``{dof: 3-vector}`` over
+    the dofs that move it, and the world force on it, a penalty spring and
+    damper along z with viscous friction clamped to the friction cone."""
+    model = t.model
+    b = t.contact_body[ci]
+    pt = _vadd(ps[b], _matvec(Rs[b], t.contact_off[ci]))
+    Jc_k = {}
+    vel = [0.0, 0.0, 0.0]
+    for k in range(t.nv):
+        if not t.cmask[ci, k]:
+            continue
+        if t.jtypes[k] == SLIDE:
+            Jck = axes_w[k]
+        else:
+            Jck = _cross(axes_w[k], _vsub(pt, pivots_w[k]))
+        Jc_k[k] = Jck
+        vel = _vadd(vel, _scale(Jck, qdrows[k]))
+    depth = t.contact_r[ci] - (pt[2] - float(model.ground_z))
+    in_contact = depth > 0.0
+    fn = ops.maximum(
+        ops.where(in_contact, t.contact_k[ci] * depth - t.contact_c[ci] * vel[2], 0.0),
+        0.0,
+    )
+    ftx = _mul(-t.contact_c[ci], vel[0])
+    fty = _mul(-t.contact_c[ci], vel[1])
+    ft_norm = ops.sqrt(ftx * ftx + fty * fty + 1e-12)
+    scale_f = ops.minimum(1.0, float(model.friction) * fn / ft_norm)
+    return pt, Jc_k, [ftx * scale_f, fty * scale_f, fn]
+
+
 def make_substep(t: ModelTables, ops, crows):
     """One substep ``(qrows, qdrows) -> (q_new, qd_new)`` over lists of
     per-env values, for the (already clipped) control rows ``crows``.
@@ -490,30 +541,7 @@ def make_substep(t: ModelTables, ops, crows):
             tau[k] = _add(tau[k], t_lim)
 
         for ci in range(t.nc):
-            b = t.contact_body[ci]
-            pt = _vadd(ps[b], _matvec(Rs[b], t.contact_off[ci]))
-            Jc_k = {}
-            vel = [0.0, 0.0, 0.0]
-            for k in range(nv):
-                if not t.cmask[ci, k]:
-                    continue
-                if jtypes[k] == SLIDE:
-                    Jck = axes_w[k]
-                else:
-                    Jck = _cross(axes_w[k], _vsub(pt, pivots_w[k]))
-                Jc_k[k] = Jck
-                vel = _vadd(vel, _scale(Jck, qdrows[k]))
-            depth = t.contact_r[ci] - (pt[2] - float(model.ground_z))
-            in_contact = depth > 0.0
-            fn = ops.maximum(
-                ops.where(in_contact, t.contact_k[ci] * depth - t.contact_c[ci] * vel[2], 0.0),
-                0.0,
-            )
-            ftx = _mul(-t.contact_c[ci], vel[0])
-            fty = _mul(-t.contact_c[ci], vel[1])
-            ft_norm = ops.sqrt(ftx * ftx + fty * fty + 1e-12)
-            scale_f = ops.minimum(1.0, float(model.friction) * fn / ft_norm)
-            f = [ftx * scale_f, fty * scale_f, fn]
+            _, Jc_k, f = contact_force(t, ops, ci, Rs, ps, axes_w, pivots_w, qdrows)
             for k, Jck in Jc_k.items():
                 tau[k] = _add(tau[k], _dot3(Jck, f))
 
@@ -844,3 +872,92 @@ def _partitioned_lines(t, frame_skip, name, prologue_counts, substep_counts, pro
     lines += [f"{ind3}{var} = x[{i}];" for i, var in enumerate(new)]
     lines += [f"{ind2}}}", "  }", "};", "", "ART_PARTS_ENTRY_POINTS(ArticulatedStep)", ""]
     return lines
+
+
+# ---------------------------------------------------------------------------
+# The contact wrenches: forward kinematics and the substep's contact forces.
+
+#: Threads (envs) a block of the wrench kernel, as many as fit their rows in
+#: :data:`WRENCH_SHARED_MAX` bytes of static shared memory, halved from this.
+WRENCH_BLOCK = 128
+WRENCH_SHARED_MAX = 48 * 1024
+
+
+def wrench_program(t: ModelTables, ops, qrows, qdrows) -> list:
+    """Each body's external contact wrench ``[torque, force]`` about its com
+    (MuJoCo's ``cfrc_ext`` without the world row) over lists of per-env
+    values: ``nbody * 6`` values, body by body, a python ``0.0`` for a body
+    with no contact sphere. Each contact's force is the substep's own
+    (:func:`contact_force`); a body sums ``[lever x f, f]`` over its contacts
+    in their order, the lever from its com ``ps[b] + Rs[b] com_b``."""
+    Rs, ps, axes_w, pivots_w = forward_kinematics(t, ops, qrows)
+    wrench = [[0.0] * 6 for _ in range(t.nbody)]
+    coms = {}
+    for ci in range(t.nc):
+        b = t.contact_body[ci]
+        pt, _, f = contact_force(t, ops, ci, Rs, ps, axes_w, pivots_w, qdrows)
+        if b not in coms:
+            coms[b] = _vadd(ps[b], _matvec(Rs[b], t.coms[b]))
+        torque = _cross(_vsub(pt, coms[b]), f)
+        wrench[b] = [_add(w, x) for w, x in zip(wrench[b], torque + f)]
+    return [x for row in wrench for x in row]
+
+
+def generate_wrench_source(model: ArticulatedModel, name: str) -> GeneratedSource:
+    """Emit the contact-wrench kernel source of ``model``.
+
+    The text defines ``struct ContactWrenches`` with the model's widths, the
+    block size and a ``__host__ __device__`` ``run(q, qd, w)`` that computes
+    one env's ``nbody * 6`` wrench values from its ``q`` and ``qd`` rows in
+    registers, one C statement per live operation of :func:`wrench_program`
+    (the sine and cosine of one angle from one ``sincosf``), and writes them
+    to ``w``. It then instantiates the fixed kernel and entry points of
+    ``csrc/contact_wrenches.cuh``: under ``nvcc`` the launcher
+    ``contact_wrenches_launch``, under a plain C++ compiler the host loop
+    ``contact_wrenches_host``.
+    """
+    t = model_tables(model)
+    if t.nc == 0:
+        raise ValueError(f"{name} has no contact sphere: its wrenches are zeros, with no kernel")
+    ops = SymOps()
+    qrows = [ops.input(f"q{i}", varying=True) for i in range(t.nq)]
+    qdrows = [ops.input(f"v{i}", varying=True) for i in range(t.nv)]
+    outputs = [x if isinstance(x, Sym) else ops.const(x) for x in wrench_program(t, ops, qrows, qdrows)]
+    live = _live(outputs)
+    row = 6 * t.nbody
+    stride = row | 1  # an odd stride: a warp's stores of one value hit 32 banks
+    block = WRENCH_BLOCK
+    while block > 32 and 4 * block * stride > WRENCH_SHARED_MAX:
+        block //= 2
+    if 4 * block * stride > WRENCH_SHARED_MAX:
+        raise ValueError(f"{name}'s {t.nbody} bodies need {4 * block * stride} B of shared memory a block")
+    pairs = {n.id: (s, c) for s, c in sincos_pairs(live) for n in (s, c)}
+    ops_counts = dict(collections.Counter(n.kind for n in live))
+    lines = [
+        f"// Generated by gymnasium_tpu_torch/ops/articulated_codegen.py for {name}: the",
+        "// contact wrenches. Do not edit: edit the generator.",
+        f"// Each call: {', '.join(f'{k} {v}' for k, v in sorted(ops_counts.items()))}.",
+        '#include "contact_wrenches.cuh"',
+        "",
+        "struct ContactWrenches {",
+        f"  static constexpr int kNq = {t.nq};",
+        f"  static constexpr int kNv = {t.nv};",
+        f"  static constexpr int kRow = {row};",
+        f"  static constexpr int kStride = {stride};",
+        f"  static constexpr int kBlock = {block};",
+        "  static CW_FN void run(const float* q, const float* qd, float* w) {",
+    ]
+    ind = " " * 4
+    lines += [f"{ind}const float q{i} = q[{i}];" for i in range(t.nq)]
+    lines += [f"{ind}const float v{i} = qd[{i}];" for i in range(t.nv)]
+    for n in live:
+        if n.id not in pairs:
+            lines.append(ind + _statement(n))
+        elif n is min(pairs[n.id], key=lambda m: m.id):
+            s, c = pairs[n.id]
+            lines.append(f"{ind}float t{s.id}, t{c.id}; sincosf({_ref(n.args[0])}, &t{s.id}, &t{c.id});")
+    lines += [f"{ind}w[{i}] = {_ref(o)};" for i, o in enumerate(outputs)]
+    lines += ["  }", "};", "", "CW_ENTRY_POINTS(ContactWrenches)", ""]
+    layout = {"threads_a_block": block, "row_floats": row, "row_stride": stride,
+              "shared_bytes_per_block": 4 * block * stride}
+    return GeneratedSource(name, 1, "\n".join(lines), {}, ops_counts, layout)

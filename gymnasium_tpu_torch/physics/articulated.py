@@ -15,8 +15,10 @@ generated substep of :mod:`gymnasium_tpu_torch.ops.articulated_step`:
 
 The batched helpers take ``(N, nq)``/``(N, nv)`` float32 tensors and compute
 on their device. Small products are written as broadcast multiply-sums, as
-the JAX helpers write them, and a sum over contacts into bodies is a product
-with a constant selection matrix: no scatter, so two calls give the same bits.
+the JAX helpers write them, with no scatter, so two calls give the same bits.
+The contact wrenches are the exception: the program of the substep's own
+contact forces, generated per model as one kernel on the card and run as its
+plain twin on the CPU (:mod:`gymnasium_tpu_torch.ops.contact_wrenches`).
 
 Joints are slide or hinge about fixed axes. With ``root_free=True`` dofs 0-5
 form a free root: qpos holds ``[x y z | qw qx qy qz | joints]`` (``nq = nv +
@@ -25,6 +27,7 @@ form a free root: qpos holds ``[x y z | qw qx qy qz | joints]`` (``nq = nv +
 
 from __future__ import annotations
 
+import hashlib
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -38,6 +41,7 @@ __all__ = [
     "JointSpec",
     "BodySpec",
     "ArticulatedModel",
+    "model_digest",
     "init_qpos",
     "ancestor_dof_mask",
     "strict_dof_ancestors",
@@ -142,6 +146,23 @@ class ArticulatedModel(NamedTuple):
     def ntendon(self) -> int:
         """Tendons are not modelled by this engine."""
         return 0
+
+
+def model_digest(model: ArticulatedModel) -> str:
+    """A digest of every field of ``model``: its arrays' dtypes, shapes and bytes."""
+    digest = hashlib.sha256()
+
+    def add(value):
+        if isinstance(value, tuple) and hasattr(value, "_fields"):
+            for field in value:
+                add(field)
+            return
+        array = np.ascontiguousarray(np.asarray(value))
+        digest.update(f"{array.dtype.str}{array.shape}".encode())
+        digest.update(array.tobytes())
+
+    add(model)
+    return digest.hexdigest()
 
 
 def quat_to_mat_np(q) -> np.ndarray:
@@ -322,15 +343,12 @@ class _Constants:
     """A model's static tables as float32 tensors, made once a device."""
 
     def __init__(self, model: ArticulatedModel):
-        nbody, nv = len(model.bodies.parent), model.nv
+        nv = model.nv
         axes = np.asarray(model.joints.axis, np.float64)
         skew = np.zeros((nv, 3, 3))
         skew[:, 0, 1], skew[:, 0, 2], skew[:, 1, 2] = -axes[:, 2], axes[:, 1], -axes[:, 0]
         skew[:, 1, 0], skew[:, 2, 0], skew[:, 2, 1] = axes[:, 2], -axes[:, 1], axes[:, 0]
-        sel = np.zeros((len(model.contact_body), nbody))
-        sel[np.arange(len(model.contact_body)), np.asarray(model.contact_body, int)] = 1.0
         limit_k, limit_c = limit_constants(model)
-        contact_k, contact_c = contact_constants(model)
         self._np = {
             "body_rot": np.stack([quat_to_mat_np(quat) for quat in model.bodies.quat]),
             "body_pos": model.bodies.pos,
@@ -345,11 +363,6 @@ class _Constants:
             "com": model.bodies.com,
             "contact_body": np.asarray(model.contact_body, np.int64),
             "contact_pos": np.asarray(model.contact_pos).reshape(-1, 3),
-            "contact_radius": model.contact_radius,
-            "contact_k": contact_k,
-            "contact_c": contact_c,
-            "contact_sel": sel,
-            "contact_mask": ancestor_dof_mask(model)[np.asarray(model.contact_body, int)][:, :, None],
             "limited": np.asarray(model.joints.limited, bool),
             "lower": model.joints.lower,
             "upper": model.joints.upper,
@@ -468,7 +481,11 @@ def make_dynamics(model: ArticulatedModel) -> dict:
     - ``com_world(q) -> (pc (N, nbody, 3), R)``, the bodies' centres of mass;
     - ``contact_points(q) -> (N, nc, 3)``, the contact spheres' centres;
     - ``contact_wrenches(q, qd) -> (N, nbody, 6)``, each body's external
-      contact wrench ``[torque, force]`` about its com (``cfrc_ext``);
+      contact wrench ``[torque, force]`` about its com (``cfrc_ext``), with
+      the substep's contact forces: one launch of the model's generated
+      kernel on a CUDA tensor, its plain twin on a CPU tensor
+      (``ops/contact_wrenches.py``), zeros with no launch for a model
+      without contact spheres;
     - ``limit_torques(q, qd) -> (N, nv)``, the joint-limit penalty torques;
     - ``jacobians(q) -> (pc, R, Jv, Jw)``, the bodies' centres of mass and
       rotations with their geometric Jacobians (N, nbody, nv, 3): a hinge
@@ -518,38 +535,18 @@ def make_dynamics(model: ArticulatedModel) -> dict:
         c = constants.on(q.device)
         return _points(c, *_fk(model, c, q, full=False))
 
+    wrenches = []
+
     def contact_wrenches(q, qd):
         with span("mujoco.contact_wrenches"):
-            return _contact_wrenches(q, qd)
+            if nc == 0:
+                return torch.zeros((q.shape[0], nbody, 6), dtype=q.dtype, device=q.device)
+            if not wrenches:
+                # imported here: the generator imports this module
+                from gymnasium_tpu_torch.ops.contact_wrenches import contact_wrenches_of
 
-    def _contact_wrenches(q, qd):
-        c = constants.on(q.device)
-        if nc == 0:
-            return torch.zeros((q.shape[0], nbody, 6), dtype=q.dtype, device=q.device)
-        R, p, aw, ow = _fk(model, c, q, full=True)
-        pc = p + _mv(R, c["com"])
-        pts = _points(c, R, p)
-        # contact Jacobians (N, nc, nv, 3): a slide moves a point along its
-        # axis, a hinge by axis x (point - pivot); only ancestors' dofs move it
-        aw_c = aw[:, None]
-        Jc = torch.where(c["slide"], aw_c, torch.linalg.cross(aw_c, pts[:, :, None] - ow[:, None], dim=-1))
-        Jc = Jc * c["contact_mask"]
-        vel = torch.sum(Jc * qd[:, None, :, None], dim=2)  # (N, nc, 3)
-        k_c, c_c = c["contact_k"], c["contact_c"]
-        depth = c["contact_radius"] - (pts[..., 2] - model.ground_z)
-        fn = torch.where(depth > 0.0, k_c * depth - c_c * vel[..., 2], 0.0)
-        fn = torch.clamp(fn, min=0.0)
-        # viscous friction, clamped to the friction cone
-        ft_raw = -c_c[:, None] * vel[..., 0:2]
-        ft_norm = torch.sqrt(torch.sum(ft_raw * ft_raw, dim=-1) + 1e-12)
-        scale = torch.clamp(model.friction * fn / ft_norm, max=1.0)
-        f = torch.cat([ft_raw * scale[..., None], fn[..., None]], dim=-1)  # (N, nc, 3)
-        lever = pts - pc[:, c["contact_body"]]
-        t = torch.linalg.cross(lever, f, dim=-1)
-        sel = c["contact_sel"][None, :, :, None]  # (1, nc, nbody, 1)
-        F = torch.sum(sel * f[:, :, None, :], dim=1)
-        T = torch.sum(sel * t[:, :, None, :], dim=1)
-        return torch.cat([T, F], dim=-1)
+                wrenches.append(contact_wrenches_of(model))
+            return wrenches[0](q, qd)
 
     def limit_torques(q, qd):
         c = constants.on(q.device)

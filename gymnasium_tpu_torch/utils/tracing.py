@@ -20,7 +20,8 @@ The spans (name: where, what it holds):
   ``func.reward``: the hooks of ``functional.make_autoreset_step`` (the
   reset is drawn for the whole batch and selected lane by lane);
 - ``mujoco.contact_wrenches``: ``physics/articulated.py``'s contact
-  wrenches (Ant calls them in its observation and its reward);
+  wrenches, one launch of the model's generated kernel on the card (Ant
+  calls them in its observation and its reward);
 - ``ppo.rollout``, ``ppo.policy``, ``ppo.env_step``, ``ppo.advantages``,
   ``ppo.update``, ``ppo.backward``: the trainer (``train/ppo.py``).
 """
