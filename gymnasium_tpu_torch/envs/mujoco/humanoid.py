@@ -23,6 +23,7 @@ from gymnasium_tpu_torch.envs.mujoco.locomotion import MujocoFuncEnv
 from gymnasium_tpu_torch.envs.mujoco.mujoco_env import MujocoEnv
 from gymnasium_tpu_torch.physics.articulated import integrate_pos
 from gymnasium_tpu_torch.utils.ezpickle import EzPickle
+from gymnasium_tpu_torch.utils.tracing import span
 
 __all__ = ["HumanoidEnv", "HumanoidFunctional", "com_velocity"]
 
@@ -57,8 +58,9 @@ def com_velocity(model, dyn: dict, q, qd):
     def com(t):
         return dyn["com_world"](integrate_pos(model, q, qd, t))[0]
 
-    zero = torch.zeros((), dtype=q.dtype, device=q.device)
-    return torch.func.jvp(com, (zero,), (torch.ones_like(zero),))[1]
+    with span("mujoco.com_velocity"):
+        zero = torch.zeros((), dtype=q.dtype, device=q.device)
+        return torch.func.jvp(com, (zero,), (torch.ones_like(zero),))[1]
 
 
 class HumanoidEnv(MujocoEnv, EzPickle):
@@ -255,9 +257,10 @@ class HumanoidFunctional(MujocoFuncEnv):
         return torch.cat([q[:, 2:], qd, cinert, rows, qfrc, cfrc_ext], dim=1)
 
     def _com_x(self, q):
-        pc, _ = self._dyn["com_world"](q)
-        masses = self.constant("mass", self.model.bodies.mass, q.device)
-        return torch.sum(masses * pc[..., 0], dim=-1) / torch.sum(masses)
+        with span("mujoco.mass_center"):
+            pc, _ = self._dyn["com_world"](q)
+            masses = self.constant("mass", self.model.bodies.mass, q.device)
+            return torch.sum(masses * pc[..., 0], dim=-1) / torch.sum(masses)
 
     def reward(self, state, action, next_state, rng, params: Any = None):
         q = next_state["qpos"]

@@ -22,6 +22,11 @@ The spans (name: where, what it holds):
 - ``mujoco.contact_wrenches``: ``physics/articulated.py``'s contact
   wrenches, one launch of the model's generated kernel on the card (Ant
   calls them in its observation and its reward);
+- ``mujoco.com_velocity``: ``envs/mujoco/humanoid.py::com_velocity``, the
+  bodies' centre-of-mass velocities (a forward derivative, eager), once in
+  each Humanoid or HumanoidStandup observation;
+- ``mujoco.mass_center``: ``HumanoidFunctional._com_x``, the whole
+  robot's centre of mass along x, twice in each Humanoid reward;
 - ``ppo.rollout``, ``ppo.policy``, ``ppo.env_step``, ``ppo.advantages``,
   ``ppo.update``, ``ppo.backward``: the trainer (``train/ppo.py``).
 """
