@@ -15,8 +15,11 @@ which it writes to a temporary file and compiles through ``load_model``,
 the planar solver step generated for LunarLander (two substeps) and the one
 generated for BipedalWalker's world (four substeps: per-env motors, the
 heightfield read by index, the bounded sub-pull), and BipedalWalker's
-terrain kernel (``csrc/walker_terrain.cu``), and the contact-wrench kernel
-generated for Ant, Humanoid and HumanoidStandup (``csrc/contact_wrenches.cuh``).
+terrain kernel (``csrc/walker_terrain.cu``), the contact-wrench kernel
+generated for Ant, Humanoid and HumanoidStandup (``csrc/contact_wrenches.cuh``),
+and the two centre-of-mass kernels generated for Humanoid and
+HumanoidStandup (``csrc/com_kinematics.cuh``: the bodies' com velocities and
+the mass centre along x).
 Then it drives each path of the port once, with every kernel launch count set to 0 just before the path and
 read just after:
 
@@ -32,7 +35,12 @@ read just after:
   env steps run under ``torch.profiler`` (kernels a step, the device's busy
   share, the kernels inside ``mujoco.contact_wrenches``: two a step);
 - ``TorchVectorEnv`` over each other robot at 4096 envs: reset, then
-  ``rollout(20)``, one articulated launch an env step;
+  ``rollout(20)``, one articulated launch an env step; Humanoid's also two
+  contact-wrench launches and three centre-of-mass launches (the
+  observation's velocities, the reward's two mass centres), HumanoidStandup's
+  two and one; after the kernel timings, five Humanoid env steps under
+  ``torch.profiler`` (one kernel a step inside ``mujoco.com_velocity``, two
+  inside ``mujoco.mass_center``, two inside ``mujoco.contact_wrenches``);
 - ``TorchVectorEnv(LunarLanderFunctional(), 4096, max_episode_steps=1000)``:
   reset, four steps, a masked reset of every other lane, ``rollout(200)``.
   Each env step launches the generated planar kernel once: the transition
@@ -98,7 +106,8 @@ read just after:
   of the robot's build an env step (Swimmer: four of its ``frame_skip=1``
   build), and for Ant, Humanoid and HumanoidStandup one launch of the
   contact-wrench kernel a state (the reset's and each step's: the observation
-  and the contact cost share it), host-clock ms a step. After the kernel timings, the first five
+  and the contact cost share it), for Humanoid and HumanoidStandup one of the
+  centre-of-mass velocities a state (the observation's), host-clock ms a step. After the kernel timings, the first five
   steps again on the same env made with ``device="cpu"`` from the card's
   state before each step, five profiled steps of HalfCheetah and Ant, and
   one ``rgb_array`` frame of each; every robot's build is held against its
@@ -187,7 +196,8 @@ value (each robot's articulated kernel at N=4096 at its own
 and the terrain kernel also at a ragged N, with lanes on both sides of the
 sub-pull clamp; the terrain kernel also at N=1; the contact-wrench kernel of
 each of its three robots at N=4096 and 333, Ant's also at 65536, with
-contacts in at least a quarter of the lanes). The one-launch autoreset of
+contacts in at least a quarter of the lanes; both centre-of-mass kernels of
+both Humanoids at N=4096, 333 and 65536). The one-launch autoreset of
 the lander's three variants and both walkers is held against the two-launch
 form (the hook hidden) in every bit at N=4096, 333 and 1, over steps that
 cross autoresets (``compare_autoreset_forms``), each form's launches
@@ -281,6 +291,13 @@ HUMANOID_RAGGED = 333  # a ragged batch for the Humanoid builds' check against t
 # and the batch of the benchmark's Ant cell, where it is timed too.
 WRENCH_ROBOTS = {"ant": 0.3, "humanoid": 0.9, "humanoidstandup": 0.3}
 WRENCH_HOST_IDS = ("Ant-v5", "Humanoid-v5", "HumanoidStandup-v5")
+# The centre-of-mass kernels' robots, each with its launches an env step on
+# the vector paths (the observation's velocities; Humanoid's reward adds its
+# two mass centres), and the host ids whose observation takes the velocities.
+COM_ROBOTS = {"humanoid": 3, "humanoidstandup": 1}
+COM_HOST_IDS = ("Humanoid-v5", "HumanoidStandup-v5")
+# Each centre-of-mass entry point's kernel, by the generated struct its name holds.
+COM_KERNELS = {"com_velocity": "ComVelocity", "mass_center_x": "MassCenterX"}
 WRENCH_ENVS = 65536
 ART_TIME_LIMIT = 1000
 ART_WARM_STEPS = 4
@@ -1161,6 +1178,51 @@ def compare_wrenches_with_twin(op, q, qd) -> dict:
     touching = float((ref.reshape(q.shape[0], -1).abs().amax(dim=1) > 0).float().mean())
     check(touching >= 0.25, f"{op.build_name}: contacts act in only {touching:.0%} of the lanes")
     return {"envs": q.shape[0], "bit_equal": True, "max_abs_err": err, "contact_lanes": touching}
+
+
+def com_bound_ms(op, entry: str, n: int) -> tuple[float, str]:
+    """Each env reads q (the velocities also qd) and writes its row (nbody,
+    3) or its one float once, in float32, and runs the operations the
+    generator emitted for ``entry`` at the float32 rate."""
+    t = op.tables
+    floats = t.nq + t.nv + 3 * t.nbody if entry == "com_velocity" else t.nq + 1
+    return bound(n * 4 * floats, n * sum(op.source.layout[f"{entry}_ops"].values()) / FP32_OPS_PER_S)
+
+
+def com_calls(op, q, qd) -> dict:
+    """``{entry: (the kernel's call, the twin's call)}`` on one input."""
+    return {"com_velocity": (lambda: op.velocity(q, qd), lambda: op.reference_velocity(q, qd)),
+            "mass_center_x": (lambda: op.mass_center_x(q), lambda: op.reference_mass_center_x(q).contiguous())}
+
+
+def compare_com_with_twins(op, q, qd) -> dict:
+    """One call of each centre-of-mass kernel against its plain twin on the
+    same inputs. Raises if a bit differs (zero signs too), if two calls
+    differ in a bit, or if the states hardly move."""
+    out = {"envs": q.shape[0]}
+    for entry, (call, twin) in com_calls(op, q, qd).items():
+        got, again = call(), call()
+        torch.cuda.synchronize()
+        check(same_bits(got, again), f"{op.build_name} {entry}: same input, different bits")
+        want = twin()
+        check(bool(torch.isfinite(got).all()), f"{op.build_name} {entry}: kernel output not finite")
+        err = float((got - want).abs().max())
+        check(same_bits(got, want),
+              f"{op.build_name} {entry}: kernel differs from the twin by up to {err} (or in a zero's sign)")
+        out[entry] = {"bit_equal": True, "max_abs_err": err, "max_abs": float(want.abs().max())}
+    check(out["com_velocity"]["max_abs"] > 0.5, f"{op.build_name}: the checked states hardly move")
+    return out
+
+
+def per_kernel(text: str, marker: str, names: dict) -> dict:
+    """``text`` cut at each line ``marker`` matches, whose group names a
+    kernel: ``{key: the text up to the next marker}`` for each key of
+    ``names`` whose value the group holds."""
+    pieces = re.split(marker, text)
+    out = {}
+    for head, body in zip(pieces[1::2], pieces[2::2]):
+        out.update({key: body for key, part in names.items() if part in head})
+    return out
 
 
 def run_lunar_lander(dev, n: int = NUM_ENVS) -> float:
@@ -2448,6 +2510,7 @@ def run_host_env(dev, env_id: str, steps: int = HOST_STEPS) -> dict:
     each step and the step's outputs."""
     import gymnasium_tpu_torch as gym
     from gymnasium_tpu_torch.ops import articulated_step as art
+    from gymnasium_tpu_torch.ops import com_kinematics as ck
     from gymnasium_tpu_torch.ops import contact_wrenches as cwr
 
     env = gym.make(env_id)
@@ -2455,21 +2518,22 @@ def run_host_env(dev, env_id: str, steps: int = HOST_STEPS) -> dict:
     check(wrapper_chain(env)[:3] == ["TimeLimit", "OrderEnforcing", "PassiveEnvChecker"],
           f"{env_id}: make's wrappers {wrapper_chain(env)}")
     actions = host_actions(env, steps)
-    art.launches.clear()
-    cwr.launches.clear()
+    counters = (art.launches, cwr.launches, ck.launches)
+    for c in counters:
+        c.clear()
     start = time.perf_counter()
     obs, _ = env.reset(seed=0)
     reset_ms = (time.perf_counter() - start) * 1e3
-    reset_launches, reset_wrenches = dict(art.launches), dict(cwr.launches)
-    art.launches.clear()
-    cwr.launches.clear()
+    reset_launches, reset_wrenches, reset_com = (dict(c) for c in counters)
+    for c in counters:
+        c.clear()
     states, outs = [], []
     start = time.perf_counter()
     for action in actions:
         states.append(env.unwrapped.get_state())
         outs.append(env.step(action))
     seconds = time.perf_counter() - start
-    step_launches, step_wrenches = dict(art.launches), dict(cwr.launches)
+    step_launches, step_wrenches, step_com = (dict(c) for c in counters)
     for o in outs:
         check(o[0].dtype == np.float64 and o[0].shape == env.observation_space.shape, f"{env_id}: obs {o[0].shape}")
         check(bool(np.isfinite(o[0]).all()) and isinstance(o[1], float), f"{env_id}: obs not finite or reward not a float")
@@ -2477,6 +2541,7 @@ def run_host_env(dev, env_id: str, steps: int = HOST_STEPS) -> dict:
     return {"steps": steps, "ms_a_step": seconds * 1e3 / steps, "reset_ms": reset_ms,
             "reset_launches": reset_launches, "step_launches": step_launches,
             "wrench_launches": {"reset": reset_wrenches, "steps": step_wrenches},
+            "com_launches": {"reset": reset_com, "steps": step_com},
             "terminations": sum(bool(o[2]) for o in outs),
             "_states": states, "_actions": actions, "_outs": outs}
 
@@ -4473,6 +4538,7 @@ def smoke(xml_path: str) -> int:
     from gymnasium_tpu_torch.ops import articulated_step as art
     from gymnasium_tpu_torch.ops import build
     from gymnasium_tpu_torch.ops import cartpole_rollout as cr
+    from gymnasium_tpu_torch.ops import com_kinematics as ck
     from gymnasium_tpu_torch.ops import contact_wrenches as cwr
     from gymnasium_tpu_torch.ops import planar_step as pl
     from gymnasium_tpu_torch.ops import walker_terrain as wt
@@ -4517,13 +4583,21 @@ def smoke(xml_path: str) -> int:
         generate_s[op.build_name] = time.perf_counter() - began_one
     print("generate seconds a contact-wrench build: "
           + ", ".join(f"{name} {generate_s[op.build_name]:.3f}" for name, op in wrenches.items()), flush=True)
+    coms = {name: ck.com_kinematics_of(steps[name].model) for name in COM_ROBOTS}
+    for op in coms.values():  # each text, timed: a process generates it once a model
+        began_one = time.perf_counter()
+        generated[op.build_name] = op.source.text
+        generate_s[op.build_name] = time.perf_counter() - began_one
+    print("generate seconds a centre-of-mass build: "
+          + ", ".join(f"{name} {generate_s[op.build_name]:.3f}" for name, op in coms.items()), flush=True)
     generated[planar.build_name] = planar.source.text
     generated[walker.build_name] = walker.source.text
     print(f"generate: {time.perf_counter() - start:.2f} s; operations an env-call: "
           + ", ".join(f"{name} {step.source.ops_per_env}" for name, step in (*steps.items(), *more.items()))
           + f", lunar_lander {planar.source.ops_per_env}, bipedal_walker {walker.source.ops_per_env}, "
-          + ", ".join(f"contact_wrenches[{name}] {op.source.ops_per_env}" for name, op in wrenches.items()),
-          flush=True)
+          + ", ".join(f"contact_wrenches[{name}] {op.source.ops_per_env}" for name, op in wrenches.items())
+          + ", " + ", ".join(f"{entry}[{name}] {sum(op.source.layout[entry + '_ops'].values())}"
+                             for name, op in coms.items() for entry in COM_KERNELS), flush=True)
     start = time.perf_counter()
     built = build.build(build.KERNELS, generated)
     print(f"build: {time.perf_counter() - start:.2f} s for {sorted(built)}", flush=True)
@@ -4551,9 +4625,9 @@ def smoke(xml_path: str) -> int:
     gen_zero[walker.build_name] = 0
     gen_zero["walker_terrain"] = 0
 
-    # The contact-wrench builds' launches of each path, by label, kept apart
-    # from the counts the paths' checks compare.
-    wrench_counts = {}
+    # The contact-wrench and centre-of-mass builds' launches of each path, by
+    # label, kept apart from the counts the paths' checks compare.
+    wrench_counts, com_counts = {}, {}
 
     def counted(label, fn):
         cr.launches = 0
@@ -4561,14 +4635,16 @@ def smoke(xml_path: str) -> int:
         art.launches.clear()
         pl.launches.clear()
         cwr.launches.clear()
+        ck.launches.clear()
         start = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         counts = {"cartpole_rollout_fused": cr.launches, **gen_zero, **art.launches, **pl.launches,
                   "walker_terrain": wt.launches}
         wrench_counts[label] = dict(cwr.launches)
+        com_counts[label] = dict(ck.launches)
         print(f"path {label}: {time.perf_counter() - start:.2f} s, launches {counts}, contact-wrench launches "
-              f"{wrench_counts[label]}", flush=True)
+              f"{wrench_counts[label]}, centre-of-mass launches {com_counts[label]}", flush=True)
         return out, counts
 
     print(f"clocks.sm, power.draw before the warm-up block: {query_gpu('clocks.sm,power.draw')}", flush=True)
@@ -4633,6 +4709,18 @@ def smoke(xml_path: str) -> int:
         got = wrench_counts[f"{name} TorchVectorEnv"]
         check(got == {op.build_name: 2 * env_steps + resets},
               f"{name} path's contact-wrench launches {got}, want {2 * env_steps + resets}")
+    # the centre-of-mass kernels: the observation's velocities an env step and
+    # at the reset, the Humanoid reward's two mass centres an env step; no
+    # other path but the Humanoid host envs' steps launches them (run_host_env
+    # counts their resets apart, checked below)
+    com_want = {f"{name} TorchVectorEnv": {op.build_name: COM_ROBOTS[name] * ROBOT_ROLLOUT + 1}
+                for name, op in coms.items()}
+    com_want.update({f"make({env_id!r})": {coms[HOST_IDS[env_id][0]].build_name: HOST_STEPS}
+                     for env_id in COM_HOST_IDS})
+    for label, got in com_counts.items():
+        check(got == com_want.get(label, {}),
+              f"{label}: centre-of-mass launches {got}, want {com_want.get(label, {})}")
+    check(set(com_want) <= set(com_counts), f"paths not run: {set(com_want) - set(com_counts)}")
     check(robots["half_cheetah"]["terminations"] == 0, "a half_cheetah lane terminated")
     # reset, then one launch a step (the transition and the reset tick, chosen
     # lane by lane), the masked reset
@@ -4699,6 +4787,12 @@ def smoke(xml_path: str) -> int:
                          else {"reset": {}, "steps": {}})
         check(host[env_id]["wrench_launches"] == want_wrenches,
               f"make({env_id!r}): contact-wrench launches {host[env_id]['wrench_launches']}, want {want_wrenches}")
+        # one centre-of-mass velocity launch a state: the observation's
+        com_name = coms[key].build_name if env_id in COM_HOST_IDS else None
+        want_com = ({"reset": {com_name: 1}, "steps": {com_name: HOST_STEPS}} if com_name
+                    else {"reset": {}, "steps": {}})
+        check(host[env_id]["com_launches"] == want_com,
+              f"make({env_id!r}): centre-of-mass launches {host[env_id]['com_launches']}, want {want_com}")
         host[env_id]["launches"] = {build_name: counts[build_name]}
     main_launches = head_counts["cartpole_rollout_fused"]
     print(f"main path: host-clock env-steps/s headline bf16={headline['torch.bfloat16']:.0f} "
@@ -4926,7 +5020,7 @@ def smoke(xml_path: str) -> int:
             checked.append(compare_wrenches_with_twin(op, *inputs))
             if n_w == HUMANOID_RAGGED:
                 continue
-            w_ms = device_ms(lambda: op(*inputs), "wrench_kernel", 50)
+            w_ms = device_ms(lambda: op(*inputs), "staged_kernel<ContactWrenches>", 50)
             w_bound, w_bound_by = wrench_bound_ms(op, n_w)
             timed[n_w] = {"ms": w_ms, "events_ms": cuda_ms(lambda: op(*inputs), 50, 5),
                           "plain_ms": cuda_ms(lambda: op.reference(*inputs), 1, 1),
@@ -4963,6 +5057,63 @@ def smoke(xml_path: str) -> int:
                 "ok": True,
             }
         )
+    # the centre-of-mass kernels: every bit of the twins', at the vector envs'
+    # batch, a ragged one and the benchmark's; timed at each but the ragged
+    com_launches = collections.Counter()
+    for counts in com_counts.values():
+        com_launches.update(counts)
+    for name, op in coms.items():
+        log = built.get(op.build_name, {}).get("log", "")
+        facts = {entry: ptxas_summary(chunk) for entry, chunk in
+                 per_kernel(log, r"Compiling entry function '(\S+)'", COM_KERNELS).items()}
+        com_sass = {entry: len(re.findall(r"/\*[0-9a-f]{4,}\*/\s+\S", chunk)) for entry, chunk in
+                    per_kernel(sass_text(libraries[op.build_name]), r"\n\s*Function : (\S+)", COM_KERNELS).items()}
+        check(set(com_sass) == set(COM_KERNELS), f"{op.build_name}: SASS of {sorted(com_sass)} only")
+        checked, timed = [], {entry: {} for entry in COM_KERNELS}
+        for n_c in (NUM_ENVS, HUMANOID_RAGGED, WRENCH_ENVS):
+            q, qd = wrench_states(op.model, n_c, dev, WRENCH_ROBOTS[name], seed=n_c)
+            checked.append(compare_com_with_twins(op, q, qd))
+            if n_c == HUMANOID_RAGGED:
+                continue
+            for entry, (call, twin) in com_calls(op, q, qd).items():
+                c_ms = device_ms(call, COM_KERNELS[entry], 50)
+                c_bound, c_bound_by = com_bound_ms(op, entry, n_c)
+                check(c_bound <= 1.05 * c_ms, f"{entry}[{name}] N={n_c}: {c_ms} ms, under its bound {c_bound} ms: "
+                      "the bound counts too many bytes or operations")
+                timed[entry][n_c] = {"ms": c_ms, "events_ms": cuda_ms(call, 50, 5), "plain_ms": cuda_ms(twin, 1, 1),
+                                     "bound_ms": c_bound, "bound_by": c_bound_by, "share": c_bound / c_ms}
+                print(f"{entry}[{name}] N={n_c}: device {c_ms:.4f} ms/call, events "
+                      f"{timed[entry][n_c]['events_ms']:.4f} ms, bound {c_bound:.4f} ms ({c_bound_by}), "
+                      f"{c_bound / c_ms:.2%} of bound; plain twin {timed[entry][n_c]['plain_ms']:.2f} ms/call",
+                      flush=True)
+        print(f"centre-of-mass kernels[{name}] vs twins in every bit: {checked}; {op.source.layout}, "
+              f"registers and spills {facts}, SASS instructions {com_sass}", flush=True)
+        for entry in COM_KERNELS:
+            kernels.append(
+                {
+                    "name": f"{entry}[{name}]",
+                    "route": "cuda",
+                    "source": "gymnasium_tpu_torch/csrc/com_kinematics.cuh",
+                    "generator": "gymnasium_tpu_torch/ops/articulated_codegen.py",
+                    "replaces": None,
+                    "launches": com_launches[op.build_name],  # both kernels of the build
+                    "on_main_path": com_launches[op.build_name] > 0,
+                    "max_abs_err": max(c[entry]["max_abs_err"] for c in checked),
+                    "bit_equal": True,
+                    "checked": [{"envs": c["envs"], **c[entry]} for c in checked],
+                    **timed[entry][NUM_ENVS],
+                    "timed": timed[entry],
+                    "library_ms": None,
+                    "layout": op.source.layout,
+                    "ops_per_env": sum(op.source.layout[f"{entry}_ops"].values()),
+                    "sass_instructions": com_sass[entry],
+                    "code_bytes": SASS_BYTES * com_sass[entry],
+                    "generate_s": generate_s[op.build_name],
+                    "nvcc_s": built.get(op.build_name, {}).get("seconds"),
+                    **facts.get(entry, {}),
+                    "ok": True,
+                }
+            )
     planar_events_ms = cuda_ms(lambda: planar(*planar_inputs), 50, 5)
     planar_ms = device_ms(lambda: planar(*planar_inputs), "step_kernel", 50)
     planar_plain_ms = cuda_ms(lambda: planar.reference(*planar_inputs), 1, 1)
@@ -5084,6 +5235,15 @@ def smoke(xml_path: str) -> int:
           "wrenches, want 2")
     print(f"ant TorchVectorEnv step under torch.profiler (N={NUM_ENVS}): {json.dumps(ant_profile)}", flush=True)
     next(k for k in kernels if k["name"] == "articulated_step[ant]")["env_step_profile"] = ant_profile
+    humanoid_profile = profile_env_step(dev, articulated_env("humanoid"), "humanoid", ART_TIME_LIMIT,
+                                        "kernel<ArticulatedStep>",
+                                        ranges=("mujoco.com_velocity", "mujoco.mass_center", "mujoco.contact_wrenches"))
+    for span_name, want in (("mujoco.com_velocity", 1), ("mujoco.mass_center", 2), ("mujoco.contact_wrenches", 2)):
+        got = humanoid_profile[span_name]["kernels_a_step"]
+        check(got == want, f"humanoid: {got} kernels a step inside {span_name}, want {want}")
+    print(f"humanoid TorchVectorEnv step under torch.profiler (N={NUM_ENVS}): {json.dumps(humanoid_profile)}",
+          flush=True)
+    next(k for k in kernels if k["name"] == "articulated_step[humanoid]")["env_step_profile"] = humanoid_profile
     for name in CLASSIC_BENCH_ROWS:
         classic[name]["env_step_profile"] = profile_env_step(dev, classic_env(name), name,
                                                              step_limit(CLASSIC_ENVS[name][0]))

@@ -16,15 +16,12 @@
 // constants), one C statement per float operation, and writes the env's
 // wrench row to w. The generated file includes this header and ends with
 // CW_ENTRY_POINTS(struct). Under nvcc that defines the C launcher
-// contact_wrenches_launch, loaded with ctypes; under a plain C++ compiler
-// the host loop contact_wrenches_host, so a test builds the same text with
-// g++ and holds it against the plain PyTorch twin.
-//
-// Layout: one thread an env. The kinematics stay in registers and no value
-// passes between threads. Each thread writes its row to the block's shared
-// memory at stride kStride (odd, so the 32 stores of one value by a warp hit
-// 32 banks); after one barrier the block's threads store the block's rows,
-// which lie side by side in the (N, nbody, 6) output, coalesced.
+// contact_wrenches_launch, loaded with ctypes, of the staged-row kernel
+// rows::staged_kernel<ContactWrenches> (staged_rows.cuh: one thread an env,
+// the rows staged through shared memory and stored coalesced into the
+// (N, nbody, 6) output); under a plain C++ compiler the host loop
+// contact_wrenches_host, so a test builds the same text with g++ and holds
+// it against the plain PyTorch twin.
 //
 // Bound: an env reads (nq + nv) floats and writes 6 * nbody, 116 + 312 B for
 // Ant: 28 MB at 65,536 envs, 8.4 us at 3.35 TB/s. Its arithmetic is 4,686
@@ -38,67 +35,22 @@
 
 #pragma once
 
-#include <math.h>
-#include <stddef.h>
+#include "staged_rows.cuh"
 
-#ifdef __CUDACC__
-#include <cuda_runtime.h>
-#define CW_FN __host__ __device__ __forceinline__
-#else
-#define CW_FN inline
-#endif
-
-namespace cw {
-
-// Every env's wrenches on the host: the same run() as the kernel's.
-template <typename W>
-void wrenches_host(const float* q, const float* qd, float* w, int n) {
-  for (int e = 0; e < n; ++e)
-    W::run(q + static_cast<size_t>(e) * W::kNq, qd + static_cast<size_t>(e) * W::kNv,
-           w + static_cast<size_t>(e) * W::kRow);
-}
-
-#ifdef __CUDACC__
-template <typename W>
-__global__ void __launch_bounds__(W::kBlock)
-    wrench_kernel(const float* __restrict__ q, const float* __restrict__ qd,
-                  float* __restrict__ w, int n) {
-  __shared__ float rows[W::kBlock * W::kStride];
-  const int first = blockIdx.x * W::kBlock;
-  const int e = first + static_cast<int>(threadIdx.x);
-  if (e < n)
-    W::run(q + static_cast<size_t>(e) * W::kNq, qd + static_cast<size_t>(e) * W::kNv,
-           rows + threadIdx.x * W::kStride);
-  __syncthreads();
-  const int envs = n - first < W::kBlock ? n - first : W::kBlock;
-  float* out = w + static_cast<size_t>(first) * W::kRow;
-  for (int j = threadIdx.x; j < envs * W::kRow; j += W::kBlock)
-    out[j] = rows[(j / W::kRow) * W::kStride + j % W::kRow];
-}
-
-// Launches on `stream` and returns cudaGetLastError() (0 on success); it
-// never synchronises.
-template <typename W>
-int launch(const float* q, const float* qd, float* w, int n, void* stream) {
-  wrench_kernel<W><<<(n + W::kBlock - 1) / W::kBlock, W::kBlock, 0,
-                     static_cast<cudaStream_t>(stream)>>>(q, qd, w, n);
-  return static_cast<int>(cudaGetLastError());
-}
-#endif
-
-}  // namespace cw
+// The generated struct's run() is __host__ __device__ under nvcc.
+#define CW_FN ROWS_FN
 
 // q (n, kNq), qd (n, kNv), w (n, kRow), row-major float32. n >= 1.
 #ifdef __CUDACC__
 #define CW_ENTRY_POINTS(W)                                                              \
   extern "C" int contact_wrenches_launch(const float* q, const float* qd, float* w,     \
                                          int n, void* stream) {                         \
-    return cw::launch<W>(q, qd, w, n, stream);                                          \
+    return rows::launch<W>(q, qd, w, n, stream);                                        \
   }
 #else
 #define CW_ENTRY_POINTS(W)                                                              \
   extern "C" void contact_wrenches_host(const float* q, const float* qd, float* w,      \
                                         int n) {                                        \
-    cw::wrenches_host<W>(q, qd, w, n);                                                  \
+    rows::host<W>(q, qd, w, n);                                                         \
   }
 #endif

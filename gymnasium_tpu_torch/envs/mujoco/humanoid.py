@@ -21,7 +21,7 @@ import torch
 from gymnasium_tpu_torch import spaces
 from gymnasium_tpu_torch.envs.mujoco.locomotion import MujocoFuncEnv
 from gymnasium_tpu_torch.envs.mujoco.mujoco_env import MujocoEnv
-from gymnasium_tpu_torch.physics.articulated import integrate_pos
+from gymnasium_tpu_torch.ops.com_kinematics import ComKinematics, com_kinematics_of
 from gymnasium_tpu_torch.utils.ezpickle import EzPickle
 from gymnasium_tpu_torch.utils.tracing import span
 
@@ -49,18 +49,17 @@ def _com_inertia_block(model) -> np.ndarray:
     return np.concatenate(rows)
 
 
-def com_velocity(model, dyn: dict, q, qd):
-    """World velocity (N, nbody, 3) of each body's centre of mass: the forward
-    derivative of ``com_world(integrate_pos(q, qd, t))`` at ``t = 0``, along
-    the quaternion retraction of the free root. ``dyn`` is ``model``'s
-    :func:`~gymnasium_tpu_torch.physics.articulated.make_dynamics`."""
-
-    def com(t):
-        return dyn["com_world"](integrate_pos(model, q, qd, t))[0]
-
+def com_velocity(com: ComKinematics, q, qd):
+    """World velocity (N, nbody, 3) of each body's centre of mass: the
+    first-order velocity along the position flow ``q (+) t qd`` at ``t = 0``
+    (:func:`~gymnasium_tpu_torch.physics.articulated.integrate_pos`, with the
+    quaternion retraction of the free root), from the bodies' Jacobians.
+    ``com`` is the model's
+    :func:`~gymnasium_tpu_torch.ops.com_kinematics.com_kinematics_of`: one
+    launch of its generated kernel on a CUDA tensor, its plain twin on a CPU
+    tensor."""
     with span("mujoco.com_velocity"):
-        zero = torch.zeros((), dtype=q.dtype, device=q.device)
-        return torch.func.jvp(com, (zero,), (torch.ones_like(zero),))[1]
+        return com.velocity(q, qd)
 
 
 class HumanoidEnv(MujocoEnv, EzPickle):
@@ -132,6 +131,7 @@ class HumanoidEnv(MujocoEnv, EzPickle):
             **kwargs,
         )
         self._cinert = _com_inertia_block(self.model)
+        self._com = com_kinematics_of(self.model)
         self._last_ctrl = np.zeros(self.model.nu)
 
     @property
@@ -145,7 +145,7 @@ class HumanoidEnv(MujocoEnv, EzPickle):
 
     def _compute(self, name: str, q, qd):
         if name == "com_velocity":
-            return com_velocity(self.model, self._dyn, q, qd)
+            return com_velocity(self._com, q, qd)
         return super()._compute(name, q, qd)
 
     def _com_velocity_block(self) -> np.ndarray:
@@ -240,10 +240,11 @@ class HumanoidFunctional(MujocoFuncEnv):
         super().__init__(options)
         self.observation_space = spaces.Box(-np.inf, np.inf, (348,), np.float32)
         self._cinert = _com_inertia_block(self.model)
+        self._com = com_kinematics_of(self.model)
 
     def com_velocity(self, q, qd):
         """:func:`com_velocity` of this env's model."""
-        return com_velocity(self.model, self._dyn, q, qd)
+        return com_velocity(self._com, q, qd)
 
     def observation(self, state, rng, params: Any = None):
         q, qd = state["qpos"], state["qvel"]
@@ -257,10 +258,11 @@ class HumanoidFunctional(MujocoFuncEnv):
         return torch.cat([q[:, 2:], qd, cinert, rows, qfrc, cfrc_ext], dim=1)
 
     def _com_x(self, q):
+        """The whole robot's mass centre along x (N,): one launch of the
+        model's generated kernel on a CUDA tensor, its plain twin on a CPU
+        tensor."""
         with span("mujoco.mass_center"):
-            pc, _ = self._dyn["com_world"](q)
-            masses = self.constant("mass", self.model.bodies.mass, q.device)
-            return torch.sum(masses * pc[..., 0], dim=-1) / torch.sum(masses)
+            return self._com.mass_center_x(q)
 
     def reward(self, state, action, next_state, rng, params: Any = None):
         q = next_state["qpos"]

@@ -25,7 +25,10 @@ same rounded constants.
 The same module emits the contact-wrench kernel (:func:`generate_wrench_source`):
 the substep's forward kinematics and its contact forces (one function,
 :func:`contact_force`, for both programs), summed into each body's
-``[torque, force]`` (:func:`wrench_program`).
+``[torque, force]`` (:func:`wrench_program`); and the centre-of-mass kernels
+(:func:`generate_com_source`): over the same forward kinematics, each body's
+centre-of-mass velocity (:func:`com_velocity_program`) and the whole
+robot's mass centre along x (:func:`mass_center_x_program`).
 """
 
 from __future__ import annotations
@@ -85,6 +88,9 @@ __all__ = [
     "layout_candidates",
     "wrench_program",
     "generate_wrench_source",
+    "com_velocity_program",
+    "mass_center_x_program",
+    "generate_com_source",
 ]
 
 #: The layout of a robot's kernel is the one the layout model
@@ -877,8 +883,9 @@ def _partitioned_lines(t, frame_skip, name, prologue_counts, substep_counts, pro
 # ---------------------------------------------------------------------------
 # The contact wrenches: forward kinematics and the substep's contact forces.
 
-#: Threads (envs) a block of the wrench kernel, as many as fit their rows in
-#: :data:`WRENCH_SHARED_MAX` bytes of static shared memory, halved from this.
+#: Threads (envs) a block of the wrench and centre-of-mass kernels; a kernel
+#: that stages rows takes as many as fit them in :data:`WRENCH_SHARED_MAX`
+#: bytes of static shared memory, halved from this.
 WRENCH_BLOCK = 128
 WRENCH_SHARED_MAX = 48 * 1024
 
@@ -903,6 +910,42 @@ def wrench_program(t: ModelTables, ops, qrows, qdrows) -> list:
     return [x for row in wrench for x in row]
 
 
+def _staged_rows(name: str, row: int, what: str) -> tuple[int, int]:
+    """``(stride, block)`` of a kernel that stages each env's ``row`` floats
+    through shared memory: an odd stride, so a warp's stores of one value
+    hit 32 banks, and as many threads a block as fit their rows in
+    :data:`WRENCH_SHARED_MAX` bytes, halved from :data:`WRENCH_BLOCK`."""
+    stride = row | 1
+    block = WRENCH_BLOCK
+    while block > 32 and 4 * block * stride > WRENCH_SHARED_MAX:
+        block //= 2
+    if 4 * block * stride > WRENCH_SHARED_MAX:
+        raise ValueError(f"{name}'s {what} need {4 * block * stride} B of shared memory a block")
+    return stride, block
+
+
+def _straight_lines(live, ind: str) -> list[str]:
+    """One C statement per live node, the sine and cosine of one angle from
+    one ``sincosf``."""
+    pairs = {n.id: (s, c) for s, c in sincos_pairs(live) for n in (s, c)}
+    lines = []
+    for n in live:
+        if n.id not in pairs:
+            lines.append(ind + _statement(n))
+        elif n is min(pairs[n.id], key=lambda m: m.id):
+            s, c = pairs[n.id]
+            lines.append(f"{ind}float t{s.id}, t{c.id}; sincosf({_ref(n.args[0])}, &t{s.id}, &t{c.id});")
+    return lines
+
+
+def _counts(live) -> dict:
+    return dict(collections.Counter(n.kind for n in live))
+
+
+def _listed(counts: dict) -> str:
+    return ", ".join(f"{k} {v}" for k, v in sorted(counts.items()))
+
+
 def generate_wrench_source(model: ArticulatedModel, name: str) -> GeneratedSource:
     """Emit the contact-wrench kernel source of ``model``.
 
@@ -925,18 +968,12 @@ def generate_wrench_source(model: ArticulatedModel, name: str) -> GeneratedSourc
     outputs = [x if isinstance(x, Sym) else ops.const(x) for x in wrench_program(t, ops, qrows, qdrows)]
     live = _live(outputs)
     row = 6 * t.nbody
-    stride = row | 1  # an odd stride: a warp's stores of one value hit 32 banks
-    block = WRENCH_BLOCK
-    while block > 32 and 4 * block * stride > WRENCH_SHARED_MAX:
-        block //= 2
-    if 4 * block * stride > WRENCH_SHARED_MAX:
-        raise ValueError(f"{name}'s {t.nbody} bodies need {4 * block * stride} B of shared memory a block")
-    pairs = {n.id: (s, c) for s, c in sincos_pairs(live) for n in (s, c)}
-    ops_counts = dict(collections.Counter(n.kind for n in live))
+    stride, block = _staged_rows(name, row, f"{t.nbody} bodies")
+    ops_counts = _counts(live)
     lines = [
         f"// Generated by gymnasium_tpu_torch/ops/articulated_codegen.py for {name}: the",
         "// contact wrenches. Do not edit: edit the generator.",
-        f"// Each call: {', '.join(f'{k} {v}' for k, v in sorted(ops_counts.items()))}.",
+        f"// Each call: {_listed(ops_counts)}.",
         '#include "contact_wrenches.cuh"',
         "",
         "struct ContactWrenches {",
@@ -950,14 +987,119 @@ def generate_wrench_source(model: ArticulatedModel, name: str) -> GeneratedSourc
     ind = " " * 4
     lines += [f"{ind}const float q{i} = q[{i}];" for i in range(t.nq)]
     lines += [f"{ind}const float v{i} = qd[{i}];" for i in range(t.nv)]
-    for n in live:
-        if n.id not in pairs:
-            lines.append(ind + _statement(n))
-        elif n is min(pairs[n.id], key=lambda m: m.id):
-            s, c = pairs[n.id]
-            lines.append(f"{ind}float t{s.id}, t{c.id}; sincosf({_ref(n.args[0])}, &t{s.id}, &t{c.id});")
+    lines += _straight_lines(live, ind)
     lines += [f"{ind}w[{i}] = {_ref(o)};" for i, o in enumerate(outputs)]
     lines += ["  }", "};", "", "CW_ENTRY_POINTS(ContactWrenches)", ""]
     layout = {"threads_a_block": block, "row_floats": row, "row_stride": stride,
               "shared_bytes_per_block": 4 * block * stride}
     return GeneratedSource(name, 1, "\n".join(lines), {}, ops_counts, layout)
+
+
+# ---------------------------------------------------------------------------
+# The centre-of-mass kinematics: the bodies' com velocities and the mass centre.
+
+
+def com_velocity_program(t: ModelTables, ops, qrows, qdrows) -> list:
+    """Each body's centre-of-mass velocity in the world over lists of
+    per-env values: ``nbody * 3`` values, body by body. A body's com is
+    ``ps[b] + Rs[b] com_b`` of :func:`forward_kinematics`, and its velocity
+    ``sum_k J_k qd_k`` over the dofs that move the body, ``J_k`` a slide's
+    world axis or a hinge's ``axis x (com - pivot)``, as :func:`contact_force`
+    moves a contact point. The free root's first three dofs are slides along
+    the world axes and its last three hinges about the body frame's axes
+    through its origin, so this is the first-order velocity along the
+    position flow ``q (+) t qd`` of ``physics/articulated.py::integrate_pos``
+    at ``t = 0``."""
+    Rs, ps, axes_w, pivots_w = forward_kinematics(t, ops, qrows)
+    rows = []
+    for b in range(t.nbody):
+        pc = _vadd(ps[b], _matvec(Rs[b], t.coms[b]))
+        vel = [0.0, 0.0, 0.0]
+        for k in range(t.nv):
+            if t.amask[b, k]:
+                J = axes_w[k] if t.jtypes[k] == SLIDE else _cross(axes_w[k], _vsub(pc, pivots_w[k]))
+                vel = _vadd(vel, _scale(J, qdrows[k]))
+        rows += vel
+    return rows
+
+
+def mass_center_x_program(t: ModelTables, ops, qrows):
+    """The whole robot's mass centre along x, ``sum_b m_b pc_b,x / sum_b
+    m_b``, over lists of per-env values: each body's com x of
+    :func:`forward_kinematics` times its share of the mass (folded in
+    float64, rounded to float32 once), summed body by body."""
+    Rs, ps, _, _ = forward_kinematics(t, ops, qrows)
+    total = sum(t.masses)
+    x = 0.0
+    for b in range(t.nbody):
+        x = _add(x, _mul(t.masses[b] / total, _add(ps[b][0], _dot3(Rs[b][0], t.coms[b]))))
+    return x
+
+
+def generate_com_source(model: ArticulatedModel, name: str) -> GeneratedSource:
+    """Emit the centre-of-mass kernel source of ``model``: two programs over
+    the same forward kinematics, with an entry point each.
+
+    ``struct ComVelocity`` holds the widths, the block size and a
+    ``__host__ __device__`` ``run(q, qd, v)`` that writes one env's
+    ``nbody * 3`` values of :func:`com_velocity_program` to ``v``;
+    ``struct MassCenterX`` a ``run(q)`` that returns the env's
+    :func:`mass_center_x_program`. Each ``run`` is one C statement per live
+    operation (the sine and cosine of one angle from one ``sincosf``). The
+    text then instantiates the fixed kernels and entry points of
+    ``csrc/com_kinematics.cuh``: under ``nvcc`` the launchers
+    ``com_velocity_launch`` and ``mass_center_x_launch``, under a plain C++
+    compiler the host loops ``com_velocity_host`` and ``mass_center_x_host``.
+    The counts are by program (``layout``); ``substep_ops`` sums them.
+    """
+    t = model_tables(model)
+    ops = SymOps()
+    qrows = [ops.input(f"q{i}", varying=True) for i in range(t.nq)]
+    qdrows = [ops.input(f"v{i}", varying=True) for i in range(t.nv)]
+    velocity = [x if isinstance(x, Sym) else ops.const(x) for x in com_velocity_program(t, ops, qrows, qdrows)]
+    velocity_live = _live(velocity)
+    ops = SymOps()
+    qrows = [ops.input(f"q{i}", varying=True) for i in range(t.nq)]
+    center = mass_center_x_program(t, ops, qrows)
+    center = center if isinstance(center, Sym) else ops.const(center)
+    center_live = _live([center])
+    row = 3 * t.nbody
+    stride, block = _staged_rows(name, row, f"{t.nbody} bodies' velocities")
+    velocity_ops, center_ops = _counts(velocity_live), _counts(center_live)
+    ind = " " * 4
+    lines = [
+        f"// Generated by gymnasium_tpu_torch/ops/articulated_codegen.py for {name}: the",
+        "// centre-of-mass kinematics. Do not edit: edit the generator.",
+        f"// Each com_velocity call: {_listed(velocity_ops)}.",
+        f"// Each mass_center_x call: {_listed(center_ops)}.",
+        '#include "com_kinematics.cuh"',
+        "",
+        "struct ComVelocity {",
+        f"  static constexpr int kNq = {t.nq};",
+        f"  static constexpr int kNv = {t.nv};",
+        f"  static constexpr int kRow = {row};",
+        f"  static constexpr int kStride = {stride};",
+        f"  static constexpr int kBlock = {block};",
+        "  static COM_FN void run(const float* q, const float* qd, float* v) {",
+    ]
+    lines += [f"{ind}const float q{i} = q[{i}];" for i in range(t.nq)]
+    lines += [f"{ind}const float v{i} = qd[{i}];" for i in range(t.nv)]
+    lines += _straight_lines(velocity_live, ind)
+    lines += [f"{ind}v[{i}] = {_ref(o)};" for i, o in enumerate(velocity)]
+    lines += [
+        "  }",
+        "};",
+        "",
+        "struct MassCenterX {",
+        f"  static constexpr int kNq = {t.nq};",
+        f"  static constexpr int kBlock = {WRENCH_BLOCK};",
+        "  static COM_FN float run(const float* q) {",
+    ]
+    lines += [f"{ind}const float q{i} = q[{i}];" for i in range(t.nq)]
+    lines += _straight_lines(center_live, ind)
+    lines += [f"{ind}return {_ref(center)};", "  }", "};", "", "COM_ENTRY_POINTS(ComVelocity, MassCenterX)", ""]
+    total = collections.Counter(velocity_ops) + collections.Counter(center_ops)
+    layout = {"threads_a_block": block, "row_floats": row, "row_stride": stride,
+              "shared_bytes_per_block": 4 * block * stride, "com_velocity_ops": velocity_ops,
+              "mass_center_x_ops": center_ops}
+    return GeneratedSource(name, 1, "\n".join(lines), {}, dict(total), layout)

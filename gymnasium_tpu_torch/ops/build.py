@@ -56,10 +56,20 @@ def _nvcc() -> str:
 _INCLUDE = re.compile(rb'^#include "([\w.]+\.cuh)"', re.MULTILINE)
 
 
+def _headers(text: bytes, seen: set) -> set:
+    """The ``csrc/`` headers ``text`` includes, and those they include."""
+    for header in _INCLUDE.findall(text):
+        if header not in seen:
+            seen.add(header)
+            _headers((SOURCE_DIR / header.decode()).read_bytes(), seen)
+    return seen
+
+
 def _digest(text: bytes) -> str:
-    """Hash of a source, the ``csrc/`` headers it includes and the flags."""
+    """Hash of a source, the ``csrc/`` headers it includes (at any depth)
+    and the flags."""
     digest = hashlib.sha256(text)
-    for header in sorted(set(_INCLUDE.findall(text))):
+    for header in sorted(_headers(text, set())):
         digest.update((SOURCE_DIR / header.decode()).read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return digest.hexdigest()[:16]

@@ -23,10 +23,12 @@ The spans (name: where, what it holds):
   wrenches, one launch of the model's generated kernel on the card (Ant
   calls them in its observation and its reward);
 - ``mujoco.com_velocity``: ``envs/mujoco/humanoid.py::com_velocity``, the
-  bodies' centre-of-mass velocities (a forward derivative, eager), once in
-  each Humanoid or HumanoidStandup observation;
+  bodies' centre-of-mass velocities, one launch of the model's generated
+  kernel on the card (``ops/com_kinematics.py``), once in each Humanoid or
+  HumanoidStandup observation;
 - ``mujoco.mass_center``: ``HumanoidFunctional._com_x``, the whole
-  robot's centre of mass along x, twice in each Humanoid reward;
+  robot's centre of mass along x, one launch of the same build's other
+  kernel, twice in each Humanoid reward;
 - ``ppo.rollout``, ``ppo.policy``, ``ppo.env_step``, ``ppo.advantages``,
   ``ppo.update``, ``ppo.backward``: the trainer (``train/ppo.py``).
 """
